@@ -1,20 +1,35 @@
-"""Hybrid CTC/attention ASR model, decode side (PyTorch).
-Port of openeat_tpu/models/asr_model.py: build_asr_model, encode,
-ctc_log_probs and decoder_logits; sos = eos = vocab_size - 1.
+"""Hybrid CTC/attention ASR model (PyTorch).
+Port of openeat_tpu/models/asr_model.py: build_asr_model, the training
+forward with its joint loss (ctc_weight * CTC + (1 - ctc_weight) *
+label-smoothed attention loss, the right-to-left decoder at
+reverse_weight), and the decode methods encode, ctc_log_probs and
+decoder_logits; sos = eos = vocab_size - 1.
 
 `compute_dtype` sets the activations' dtype; parameters stay float32 and
-are cast at use, as flax does. The joint loss comes with training.
+are cast at use, as flax does, so bfloat16 compute trains float32
+parameters. Dropout acts only in ``model.train()`` and only in the
+training forward: the decode methods are deterministic in either mode,
+as the JAX package's are (deterministic=True).
 """
 
 from __future__ import annotations
 
+import functools
+import math
+
 import torch
 from torch import nn
 
+from openeat_torch.modules.attention import RelPositionMultiHeadedAttention
+from openeat_torch.modules.convolution import DepthwiseConv1d
 from openeat_torch.modules.ctc import CTCHead
 from openeat_torch.modules.decoder import BiTransformerDecoder
 from openeat_torch.modules.encoder import TransformerEncoder
-from openeat_torch.utils.common import get_activation
+from openeat_torch.modules.label_smoothing import label_smoothing_loss
+from openeat_torch.modules.layers import Conv2d, Dense, Embed
+from openeat_torch.utils.common import (IGNORE_ID, add_sos_eos,
+                                        get_activation, reverse_pad_list,
+                                        th_accuracy)
 from openeat_torch.utils.mask import make_attn_mask, make_non_pad_mask
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -26,11 +41,25 @@ _NOT_PORTED = {
     "input_layer": ("conv2d", "a later slice (linear, conv2d6, conv2d8)"),
     "pos_enc_layer_type": (("rel_pos", "abs_pos"),
                            "a later slice (no_pos)"),
-    "encoder_use_adapter": (False, "the training slice (adapters)"),
-    "decoder_use_adapter": (False, "the training slice (adapters)"),
+    "encoder_use_adapter": (False, "a later slice (adapters)"),
+    "decoder_use_adapter": (False, "a later slice (adapters)"),
     "moe_experts": (0, "the parallel-layout slice (mixture of experts)"),
     "static_chunk_size": (0, "the streaming slice (chunked attention)"),
 }
+
+
+def _deterministic(method):
+    """Run a decode method with every submodule in eval mode."""
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        if not self.training:
+            return method(self, *args, **kwargs)
+        self.train(False)
+        try:
+            return method(self, *args, **kwargs)
+        finally:
+            self.train(True)
+    return run
 
 
 class ASRModel(nn.Module):
@@ -45,21 +74,33 @@ class ASRModel(nn.Module):
                  use_cnn_module: bool = True, cnn_module_kernel: int = 15,
                  causal: bool = False, use_global_cmvn: bool = False,
                  tie_word_embedding: bool = False,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 dropout_rate: float = 0.1,
+                 positional_dropout_rate: float = 0.0,
+                 ctc_weight: float = 0.3, lsm_weight: float = 0.1,
+                 reverse_weight: float = 0.0,
+                 length_normalized_loss: bool = False):
         super().__init__()
         act = get_activation(activation_type)
         self.vocab_size = vocab_size
         self.compute_dtype = compute_dtype
+        self.ctc_weight = ctc_weight
+        self.lsm_weight = lsm_weight
+        self.reverse_weight = reverse_weight
+        self.length_normalized_loss = length_normalized_loss
         self.encoder = TransformerEncoder(
             input_size, d_model, attention_heads, linear_units, act,
             pos_enc_layer_type, macaron_style, use_cnn_module,
             cnn_module_kernel, causal, encoder_num_blocks,
-            encoder_num_blocks_share, use_global_cmvn, compute_dtype)
-        self.ctc = CTCHead(d_model, vocab_size, compute_dtype)
+            encoder_num_blocks_share, use_global_cmvn, compute_dtype,
+            dropout_rate, positional_dropout_rate)
+        self.ctc = CTCHead(d_model, vocab_size, compute_dtype,
+                           length_normalized_loss)
         self.decoder = BiTransformerDecoder(
             vocab_size, d_model, attention_heads, linear_units, act,
             decoder_num_blocks, r_decoder_num_blocks,
-            decoder_num_blocks_share, tie_word_embedding, compute_dtype)
+            decoder_num_blocks_share, tie_word_embedding, compute_dtype,
+            dropout_rate, positional_dropout_rate)
 
     @property
     def sos(self) -> int:
@@ -69,6 +110,64 @@ class ASRModel(nn.Module):
     def eos(self) -> int:
         return self.vocab_size - 1
 
+    # ---- training ----
+
+    def forward(self, features: torch.Tensor, features_length: torch.Tensor,
+                targets: torch.Tensor, targets_length: torch.Tensor
+                ) -> dict[str, torch.Tensor]:
+        """Joint loss. Returns the metrics dict: loss, loss_ctc, and
+        loss_att and acc when ctc_weight < 1 (acc 0 otherwise)."""
+        encoder_out, out_lens, _ = self.encoder(features, features_length)
+        return self._joint_loss(encoder_out, out_lens, targets,
+                                targets_length)
+
+    def _joint_loss(self, encoder_out, out_lens, targets, targets_length):
+        loss_ctc = self.ctc.loss(encoder_out, out_lens, targets,
+                                 targets_length)
+        metrics = {"loss_ctc": loss_ctc}
+        if self.ctc_weight < 1.0:
+            loss_att, acc = self._calc_att_loss(encoder_out, out_lens,
+                                                targets, targets_length)
+            loss = self.ctc_weight * loss_ctc \
+                + (1 - self.ctc_weight) * loss_att
+            metrics.update(loss_att=loss_att, acc=acc)
+        else:
+            loss = loss_ctc
+            metrics["acc"] = torch.zeros((), device=loss.device)
+        metrics["loss"] = loss
+        return metrics
+
+    def _calc_att_loss(self, encoder_out, encoder_out_lens, ys_pad,
+                       ys_pad_lens):
+        """Label-smoothed loss of the left decoder, mixed with the right
+        decoder's at reverse_weight; accuracy of the left decoder."""
+        ys_in, ys_out = add_sos_eos(ys_pad, ys_pad_lens, self.sos, self.eos)
+        tgt_mask = make_attn_mask(ys_pad_lens + 1, ys_in.shape[1],
+                                  causal=True)
+        memory_mask = make_non_pad_mask(encoder_out_lens,
+                                        encoder_out.shape[1])[:, None, :]
+        if self.reverse_weight > 0:
+            r_ys = reverse_pad_list(ys_pad, ys_pad_lens, IGNORE_ID)
+            r_ys_in, r_ys_out = add_sos_eos(r_ys, ys_pad_lens, self.sos,
+                                            self.eos)
+        else:
+            r_ys_in, r_ys_out = torch.zeros_like(ys_in), None
+        left, right = self.decoder(encoder_out, memory_mask, ys_in, r_ys_in,
+                                   tgt_mask)
+        loss_att = label_smoothing_loss(left, ys_out, self.lsm_weight,
+                                        IGNORE_ID,
+                                        self.length_normalized_loss)
+        if self.reverse_weight > 0:
+            r_loss = label_smoothing_loss(right, r_ys_out, self.lsm_weight,
+                                          IGNORE_ID,
+                                          self.length_normalized_loss)
+            loss_att = (1 - self.reverse_weight) * loss_att \
+                + self.reverse_weight * r_loss
+        return loss_att, th_accuracy(left, ys_out, IGNORE_ID)
+
+    # ---- decode ----
+
+    @_deterministic
     def encode(self, features: torch.Tensor, features_length: torch.Tensor):
         """(encoder_out [B, T', D] float32, out_lens [B])."""
         out, out_lens, _ = self.encoder(features, features_length)
@@ -77,6 +176,7 @@ class ASRModel(nn.Module):
     def ctc_log_probs(self, encoder_out: torch.Tensor) -> torch.Tensor:
         return self.ctc.log_softmax(encoder_out.to(self.compute_dtype))
 
+    @_deterministic
     def decoder_logits(self, encoder_out, encoder_out_lens, ys_in,
                        ys_in_lens, reverse: bool = False) -> torch.Tensor:
         """Full forward of the left (or right) decoder on sos-prefixed
@@ -126,4 +226,45 @@ def build_asr_model(model_conf: dict, input_size: int, vocab_size: int,
         use_global_cmvn=use_global_cmvn,
         tie_word_embedding=mc.get("tie_word_embedding", False),
         compute_dtype=DTYPES[dtype_name],
+        dropout_rate=mc.get("dropout_rate", 0.1),
+        positional_dropout_rate=mc.get("positional_dropout_rate", 0.0),
+        ctc_weight=mc.get("ctc_weight", 0.3),
+        lsm_weight=mc.get("lsm_weight", 0.1),
+        reverse_weight=mc.get("reverse_weight", 0.0),
+        length_normalized_loss=mc.get("length_normalized_loss", False),
     )
+
+
+def _trunc_normal_(p: torch.Tensor, fan_in: int,
+                   gen: torch.Generator) -> None:
+    """flax's lecun_normal: a normal truncated at 2 standard deviations,
+    its scale corrected so the variance is 1 / fan_in."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std, generator=gen)
+
+
+@torch.no_grad()
+def init_parameters(model: ASRModel, generator: torch.Generator) -> None:
+    """Fresh weights drawn from `generator` with flax's default
+    initializers, so a port run starts where a JAX run of the same
+    config would (not from the same bits): Dense and Conv kernels
+    lecun_normal over their fan-in, biases 0, LayerNorm 1 and 0,
+    embeddings normal with variance 1/d, rel-pos biases xavier_uniform."""
+    for module in model.modules():
+        if isinstance(module, (Dense, Conv2d)):
+            w = module.weight
+            _trunc_normal_(w, w[0].numel(), generator)
+            if module.bias is not None:
+                module.bias.zero_()
+        elif isinstance(module, DepthwiseConv1d):
+            _trunc_normal_(module.weight, module.weight.shape[0], generator)
+            module.bias.zero_()
+        elif isinstance(module, nn.LayerNorm):
+            module.weight.fill_(1.0)
+            module.bias.zero_()
+        elif isinstance(module, Embed):
+            module.weight.normal_(0.0, module.weight.shape[1] ** -0.5,
+                                  generator=generator)
+        elif isinstance(module, RelPositionMultiHeadedAttention):
+            for p in (module.pos_bias_u, module.pos_bias_v):
+                nn.init.xavier_uniform_(p, generator=generator)

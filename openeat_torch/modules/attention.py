@@ -3,7 +3,8 @@
 
 Scores are taken in float32, masked positions are filled with -1e9
 before the softmax and zeroed after it (a fully masked query row gives
-0, not NaN), and the rel-pos variant computes (q+u)k^T + (q+v)p^T as one
+0, not NaN), dropout (rate 0 unless set, as in the JAX modules) acts on
+the probabilities, and the rel-pos variant computes (q+u)k^T + (q+v)p^T as one
 product over the concatenated 2*d_k contraction, without rel_shift (the
 WeNet convention the JAX package keeps). These are plain matmuls: no
 Pallas kernel stands behind them in the JAX package.
@@ -14,13 +15,15 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from openeat_torch.modules.dropout import Dropout
 from openeat_torch.modules.layers import Dense
 
 NEG_INF = -1.0e9
 
 
 def _softmax_context(scores: torch.Tensor, v: torch.Tensor,
-                     mask: torch.Tensor | None) -> torch.Tensor:
+                     mask: torch.Tensor | None,
+                     dropout: Dropout) -> torch.Tensor:
     """scores [B, H, Tq, Tk] f32 (already scaled); v [B, H, Tk, D];
     mask bool [B, 1, Tk] or [B, Tq, Tk], True = attend.
     Returns ctx [B, Tq, H*D] in v's dtype."""
@@ -30,14 +33,15 @@ def _softmax_context(scores: torch.Tensor, v: torch.Tensor,
     attn = torch.softmax(scores, dim=-1)
     if mask is not None:
         attn = attn.masked_fill(~m, 0.0)
-    ctx = torch.matmul(attn.to(v.dtype), v)
+    ctx = torch.matmul(dropout(attn.to(v.dtype)), v)
     b, h, t, d = ctx.shape
     return ctx.transpose(1, 2).reshape(b, t, h * d)
 
 
 class MultiHeadedAttention(nn.Module):
     def __init__(self, num_heads: int, d_model: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 dropout_rate: float = 0.0):
         super().__init__()
         if d_model % num_heads:
             raise ValueError(f"d_model {d_model} % heads {num_heads} != 0")
@@ -47,6 +51,7 @@ class MultiHeadedAttention(nn.Module):
         self.linear_k = Dense(d_model, d_model, dtype=dtype)
         self.linear_v = Dense(d_model, d_model, dtype=dtype)
         self.linear_out = Dense(d_model, d_model, dtype=dtype)
+        self.attn_dropout = Dropout(dropout_rate)
 
     def _split(self, x: torch.Tensor) -> torch.Tensor:
         """[B, T, H*D] -> [B, H, T, D]."""
@@ -57,7 +62,8 @@ class MultiHeadedAttention(nn.Module):
         k = self._split(self.linear_k(key))
         v = self._split(self.linear_v(value))
         scores = torch.matmul(q, k.transpose(-1, -2)).float() * self.d_k ** -0.5
-        return self.linear_out(_softmax_context(scores, v, mask))
+        return self.linear_out(_softmax_context(scores, v, mask,
+                                                self.attn_dropout))
 
 
 class RelPositionMultiHeadedAttention(MultiHeadedAttention):
@@ -65,8 +71,9 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
     pos_bias_u/v are float32 parameters cast to the compute dtype."""
 
     def __init__(self, num_heads: int, d_model: int,
-                 dtype: torch.dtype = torch.float32):
-        super().__init__(num_heads, d_model, dtype)
+                 dtype: torch.dtype = torch.float32,
+                 dropout_rate: float = 0.0):
+        super().__init__(num_heads, d_model, dtype, dropout_rate)
         self.linear_pos = Dense(d_model, d_model, bias=False, dtype=dtype)
         self.pos_bias_u = nn.Parameter(torch.zeros(num_heads, self.d_k))
         self.pos_bias_v = nn.Parameter(torch.zeros(num_heads, self.d_k))
@@ -86,4 +93,5 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
         k2 = torch.cat([k, p.expand_as(k)], dim=-1)
         scores = torch.matmul(q2, k2.transpose(-1, -2)).float() \
             * self.d_k ** -0.5
-        return self.linear_out(_softmax_context(scores, v, mask))
+        return self.linear_out(_softmax_context(scores, v, mask,
+                                                self.attn_dropout))

@@ -1,5 +1,7 @@
 """Sinusoidal positional encodings (PyTorch).
-Port of openeat_tpu/modules/embedding.py (no dropout: decode only)."""
+Port of openeat_tpu/modules/embedding.py; each encoding drops out its
+scaled input at positional_dropout_rate (0.0 in the flagship, as in the
+reference)."""
 
 from __future__ import annotations
 
@@ -7,6 +9,8 @@ import math
 
 import torch
 from torch import nn
+
+from openeat_torch.modules.dropout import Dropout
 
 
 def sinusoid_table(length: int, d_model: int, dtype=torch.float32,
@@ -25,25 +29,27 @@ def sinusoid_table(length: int, d_model: int, dtype=torch.float32,
 class PositionalEncoding(nn.Module):
     """Absolute PE: returns (x*sqrt(d) + pe, pe)."""
 
-    def __init__(self, d_model: int):
+    def __init__(self, d_model: int, dropout_rate: float = 0.0):
         super().__init__()
         self.d_model = d_model
+        self.dropout = Dropout(dropout_rate)
 
     def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         pe = sinusoid_table(x.shape[1], self.d_model, x.dtype, x.device)[None]
-        return x * self.d_model ** 0.5 + pe, pe
+        return self.dropout(x * self.d_model ** 0.5 + pe), pe
 
 
 class RelPositionalEncoding(nn.Module):
     """Relative PE: returns (x*sqrt(d), pe); attention reads pe."""
 
-    def __init__(self, d_model: int):
+    def __init__(self, d_model: int, dropout_rate: float = 0.0):
         super().__init__()
         self.d_model = d_model
+        self.dropout = Dropout(dropout_rate)
 
     def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         pe = sinusoid_table(x.shape[1], self.d_model, x.dtype, x.device)[None]
-        return x * self.d_model ** 0.5, pe
+        return self.dropout(x * self.d_model ** 0.5), pe
 
 
 POS_ENC_CLASSES = {

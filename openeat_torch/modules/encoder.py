@@ -27,7 +27,8 @@ class Encoder(nn.Module):
     def __init__(self, d_model: int, attention_heads: int, linear_units: int,
                  activation: Callable, macaron_style: bool,
                  use_cnn_module: bool, cnn_module_kernel: int, causal: bool,
-                 num_blocks: int, num_blocks_share: int, dtype: torch.dtype):
+                 num_blocks: int, num_blocks_share: int, dtype: torch.dtype,
+                 dropout_rate: float = 0.0):
         super().__init__()
         self.num_blocks_share = num_blocks_share
         self.num_layers = num_blocks // num_blocks_share
@@ -35,7 +36,7 @@ class Encoder(nn.Module):
             self.add_module(f"layer_{i}", EncoderLayer(
                 d_model, attention_heads, linear_units, activation,
                 macaron_style, use_cnn_module, cnn_module_kernel, causal,
-                dtype))
+                dtype, dropout_rate))
         self.after_norm = LayerNorm(d_model, 1e-5, dtype)
 
     def forward(self, xs, mask, pos_emb, mask_pad=None):
@@ -54,19 +55,23 @@ class TransformerEncoder(nn.Module):
                  cnn_module_kernel: int = 15, causal: bool = False,
                  num_blocks: int = 12, num_blocks_share: int = 1,
                  use_global_cmvn: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 dropout_rate: float = 0.0,
+                 positional_dropout_rate: float = 0.0):
         super().__init__()
         self.dtype = dtype
         if use_global_cmvn:
             self.global_cmvn = GlobalCMVN(input_size)
         self.use_global_cmvn = use_global_cmvn
         self.embed = Conv2dSubsampling4(
-            input_size, d_model, POS_ENC_CLASSES[pos_enc_layer_type](d_model),
+            input_size, d_model,
+            POS_ENC_CLASSES[pos_enc_layer_type](d_model,
+                                                positional_dropout_rate),
             dtype)
         self.encoders = Encoder(
             d_model, attention_heads, linear_units, activation,
             macaron_style, use_cnn_module, cnn_module_kernel, causal,
-            num_blocks, num_blocks_share, dtype)
+            num_blocks, num_blocks_share, dtype, dropout_rate)
 
     def forward(self, xs: torch.Tensor, xs_lens: torch.Tensor):
         """xs: [B, T, F] features; xs_lens: [B].

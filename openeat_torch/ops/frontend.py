@@ -1,8 +1,11 @@
 """Device frontend: waveform batch -> features (PyTorch).
 
-Port of openeat_tpu/ops/frontend.py for evaluation: fbank, then
-per-utterance normalization, with padded frames zeroed. Augmentation
-(dither, spec-sub, SpecAugment) comes with training.
+Port of openeat_tpu/ops/frontend.py: fbank, then per-utterance
+normalization with padded frames zeroed; in training, then feature
+dither, spec-substitute and SpecAugment, drawn from a generator the
+caller owns, with padded frames zeroed again. Waveform dither
+(``wav_dither``) needs the fbank's dither path and is refused until a
+later slice brings it.
 """
 
 from __future__ import annotations
@@ -65,20 +68,13 @@ class FrontendConfig:
             normalization=self.normalization)
 
 
-def compute_features(wav: torch.Tensor, wav_lens: torch.Tensor,
-                     cfg: FrontendConfig
-                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """[B, N] waveforms (x32768 scaled, float32 or int16) -> ([B, T, M]
-    features, [B] lengths), evaluation mode."""
-    if cfg.wav_dither or cfg.feature_dither or cfg.spec_sub or cfg.spec_aug:
-        raise NotImplementedError(
-            "training-time augmentation is not ported yet (training "
-            "slice); use FrontendConfig.without_augmentation()")
-    feats, flens = fbank_mod.fbank(
-        wav, wav_lens, sample_rate=cfg.sample_rate,
-        num_mel_bins=cfg.num_mel_bins,
-        frame_length_ms=cfg.frame_length_ms,
-        frame_shift_ms=cfg.frame_shift_ms)
+def augment_features(feats: torch.Tensor, flens: torch.Tensor,
+                     cfg: FrontendConfig, train: bool = False,
+                     generator: torch.Generator | None = None
+                     ) -> torch.Tensor:
+    """Feature-level tail, in the JAX order: per-utterance
+    normalization, then (train only) dither, spec-sub and SpecAugment,
+    padded frames zeroed."""
     t = feats.shape[1]
     valid = (torch.arange(t, device=feats.device)[None, :]
              < flens[:, None])[..., None]
@@ -86,4 +82,38 @@ def compute_features(wav: torch.Tensor, wav_lens: torch.Tensor,
     if cfg.normalization:
         feats = torch.where(valid, specaug.per_utt_normalize(feats, flens),
                             0.0)
-    return feats, flens
+    if not train:
+        return feats
+    if generator is None:
+        raise ValueError("training-time augmentation needs a generator")
+    if cfg.feature_dither:
+        feats = specaug.feature_dither(feats, cfg.feature_dither, generator)
+    if cfg.spec_sub:
+        feats = specaug.spec_substitute(feats, flens, generator,
+                                        cfg.spec_sub_max_t, cfg.spec_sub_num)
+    if cfg.spec_aug:
+        feats = specaug.spec_augment(feats, flens, generator,
+                                     cfg.spec_aug_num_t, cfg.spec_aug_num_f,
+                                     cfg.spec_aug_max_t, cfg.spec_aug_max_f)
+        feats = torch.where(valid, feats, 0.0)
+    return feats
+
+
+def compute_features(wav: torch.Tensor, wav_lens: torch.Tensor,
+                     cfg: FrontendConfig, train: bool = False,
+                     generator: torch.Generator | None = None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """[B, N] waveforms (x32768 scaled, float32 or int16) -> ([B, T, M]
+    features, [B] lengths). With train=False every augmentation of `cfg`
+    is skipped, as the JAX frontend does; train=True draws them from
+    `generator`."""
+    if train and cfg.wav_dither:
+        raise NotImplementedError(
+            "wav_dither is not ported to openeat_torch yet; it comes with "
+            "a later slice (fbank dither path)")
+    feats, flens = fbank_mod.fbank(
+        wav, wav_lens, sample_rate=cfg.sample_rate,
+        num_mel_bins=cfg.num_mel_bins,
+        frame_length_ms=cfg.frame_length_ms,
+        frame_shift_ms=cfg.frame_shift_ms)
+    return augment_features(feats, flens, cfg, train, generator), flens

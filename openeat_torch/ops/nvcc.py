@@ -36,25 +36,46 @@ def find_nvcc() -> str:
                        "CUDA kernels of openeat_torch")
 
 
-def build_library(source: str) -> Path:
-    """Compile csrc/<source> unless a build of the same text exists.
-    Returns the path of the shared library; the compiler's output
-    (registers, shared memory, spills) is kept beside it as ``.log``."""
+def _library_path(source: str) -> Path:
     src = CSRC_DIR / source
     digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    lib = BUILD_DIR / f"{src.stem}_{digest}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) on {src}:\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)  # atomic: a concurrent process sees all or none
-    return lib
+    return BUILD_DIR / f"{src.stem}_{digest}.so"
+
+
+def build_libraries(sources: list[str]) -> list[Path]:
+    """Compile each csrc/<source> that has no build of the same text
+    yet, one nvcc process per source, all started together. Returns the
+    shared libraries' paths; each compiler's output (registers, shared
+    memory, spills) is kept beside its library as ``.log``."""
+    libs = [_library_path(s) for s in sources]
+    jobs = []
+    for source, lib in zip(sources, libs):
+        if lib.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC_DIR / source)]
+        jobs.append((source, lib, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for source, lib, tmp, proc in jobs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}) on {source}:\n"
+                          f"{out}")
+            continue
+        lib.with_suffix(".log").write_text(out)
+        os.replace(tmp, lib)  # atomic: a concurrent process sees all or none
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return libs
+
+
+def build_library(source: str) -> Path:
+    """Compile csrc/<source> unless a build of the same text exists."""
+    return build_libraries([source])[0]
 
 
 def load_library(source: str) -> ctypes.CDLL:

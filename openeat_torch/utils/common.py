@@ -1,8 +1,9 @@
 """Shared numeric helpers (PyTorch).
 
 Port of openeat_tpu/utils/common.py: IGNORE_ID conventions, sos/eos
-padding, sequence reversal, activations, log-add and the CTC collapse,
-plus the device rule every entry point follows.
+padding, sequence reversal, token accuracy, activations, log-add and
+the CTC collapse, plus the device rule every entry point follows and the
+seeded generators that stand in for the JAX package's PRNG keys.
 """
 
 from __future__ import annotations
@@ -33,6 +34,19 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
+def make_generator(seed: int, device: torch.device | str = "cpu"
+                   ) -> torch.Generator:
+    """A torch.Generator on `device` seeded with `seed`: the port's
+    stand-in for openeat_tpu/utils/common.py:train_prng. Every random
+    draw of training (dropout, SpecAugment, batch order) takes one of
+    these; nothing draws from the global RNG. The bits differ from
+    JAX's, so parity tests inject JAX's draws instead."""
+    return torch.Generator(device=device).manual_seed(int(seed))
+
+
+LOG_FORMAT = "%(asctime)s %(levelname)s [%(filename)s:%(lineno)d] %(message)s"
+
+
 def init_logger(name: str = "openeat_torch",
                 level: int = logging.INFO) -> logging.Logger:
     """Console logger on stderr."""
@@ -41,9 +55,7 @@ def init_logger(name: str = "openeat_torch",
     logger.propagate = False
     if not logger.handlers:
         sh = logging.StreamHandler(sys.stderr)
-        sh.setFormatter(logging.Formatter(
-            "%(asctime)s %(levelname)s [%(filename)s:%(lineno)d] "
-            "%(message)s"))
+        sh.setFormatter(logging.Formatter(LOG_FORMAT))
         logger.addHandler(sh)
     return logger
 
@@ -74,6 +86,16 @@ def reverse_pad_list(ys_pad: torch.Tensor, ys_lens: torch.Tensor,
     lens = ys_lens.long()[:, None]
     src = (lens - 1 - pos).clamp(0, l - 1)
     return torch.where(pos < lens, ys_pad.gather(1, src), pad_value)
+
+
+def th_accuracy(logits: torch.Tensor, target: torch.Tensor,
+                ignore_label: int = IGNORE_ID) -> torch.Tensor:
+    """Padding-masked token accuracy. logits [B, L, V]; target [B, L]."""
+    pred = logits.reshape(-1, logits.shape[-1]).argmax(dim=-1)
+    target = target.reshape(-1)
+    mask = target != ignore_label
+    correct = (mask & (pred == target)).sum()
+    return correct.float() / mask.sum().clamp(min=1).float()
 
 
 def get_activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:

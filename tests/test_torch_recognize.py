@@ -142,9 +142,19 @@ def test_cuda_without_a_card_raises(setup, monkeypatch):
                         str(setup["root"] / "cuda.txt")])
 
 
+TRAINING_MODULES = [
+    "openeat_torch.bin.train", "openeat_torch.ops.ctc_loss",
+    "openeat_torch.ops.depthwise_conv", "openeat_torch.modules.dropout",
+    "openeat_torch.modules.label_smoothing",
+    "openeat_torch.parallel.train_step", "openeat_torch.utils.checkpoint",
+    "openeat_torch.utils.executor", "openeat_torch.utils.optim",
+    "openeat_torch.utils.scheduler"]
+
+
 def test_port_imports_no_jax():
-    """Every openeat_torch module and chip_smoke.py import with jax
-    blocked, and no jax, flax, optax, orbax or openeat_tpu module loads."""
+    """Every openeat_torch module (the training slice's among them) and
+    chip_smoke.py import with jax blocked, and no jax, flax, optax, orbax
+    or openeat_tpu module loads."""
     code = (
         "import sys, importlib, pkgutil\n"
         "sys.modules['jax'] = None\n"
@@ -153,6 +163,8 @@ def test_port_imports_no_jax():
         "'openeat_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        f"missing = set({TRAINING_MODULES!r}) - set(sys.modules)\n"
+        "assert not missing, missing\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'flax', 'optax', 'orbax', 'openeat_tpu') "
         "and sys.modules[k] is not None)\n"
