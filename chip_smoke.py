@@ -4,22 +4,28 @@
 
 1. Prints the card's name and power limit (nvidia-smi) and turns TF32
    off for the float32 phases. Builds openeat_torch/csrc/*.cu with nvcc,
-   one process per source, all started together.
+   one process per source, all started together, and prints each kernel
+   entry's registers and spills (ptxas -v); a K3 entry that spills fails.
 2. Kernel phase: holds K3 (openeat_torch/csrc/depthwise_conv.cu) against
    depthwise_conv1d_plain on the card, at the decode shape [8, 138, 256]
-   K=15, at ragged shapes, and at the shapes the decode runs below give
-   it, in float32 (max abs err <= 1e-5) and bfloat16 (<= 1 bf16 ulp of
-   the float32 sum). Times the kernel, the plain version and
-   F.conv1d(groups=C) (the library yardstick, which the port never
-   calls) as device time per call from CUDA-graph replays over inputs
-   rotated through more than the 50 MB L2, beside the least time the
-   card needs for the bytes and operations.
+   K=15, at ragged shapes (C=100 in bfloat16 takes the cp.async route,
+   the rest TMA), and at the shapes the decode runs below give it, in
+   float32 (bit-equal) and bfloat16 (<= 1 bf16 ulp of the float32 sum).
+   Times the kernel, the plain version and F.conv1d(groups=C) (the
+   library yardstick, which the port never calls) as device time per
+   call from CUDA-graph replays over inputs rotated through more than
+   the 50 MB L2, beside the least time the card needs for the bytes and
+   operations.
    Then the training kernels, at the shapes the training run below
-   gives them and at fixed larger ones: K3's dgrad (the forward kernel
-   on padded dy, float32 bit-equal to the plain dgrad) and wgrad
+   gives them, at fixed larger ones and at ragged ones ([3, 40, 100]
+   K=7, and [1, 15, 4] K=15, whose dgrad has T < K): K3's dgrad (the
+   kernel's dgrad entry on dy and w as they are; float32 bit-equal to
+   the plain dgrad, bfloat16 within 1 bf16 ulp) and wgrad
    (float32 within 1e-5 x max|dw| of the plain sum; bfloat16 within 1
    bf16 ulp of the kernel's own float32 sums), with
-   aten.convolution_backward as their yardstick; and the CTC
+   aten.convolution_backward as their yardstick. torch.profiler shows
+   that one depthwise_conv1d call and one depthwise_conv1d_dgrad call
+   each run exactly one device kernel, on both routes. Then the CTC
    forward-backward K1/K2 counterparts (openeat_torch/csrc/ctc_loss.cu)
    against the plain recursions (loss within 1e-5 relative, gamma
    within 1e-4 on finite entries, NEG_INF entries equal), with repeats,
@@ -212,9 +218,10 @@ def kernel_case(b: int, tp: int, c: int, k: int, dtype, gen) -> dict:
     assert out.shape == (b, tp - k + 1, c) and out.dtype == dtype
     err = (out.float() - plain.float()).abs()
     row = {"shape": [b, tp, c], "k": k, "dtype": str(dtype).split(".")[-1],
+           "route": dw.device_plan(x, k, dgrad=False).route,
            "max_abs_err": float(err.max())}
     if dtype == torch.float32:
-        ok = row["max_abs_err"] <= 1e-5
+        ok = row["max_abs_err"] == 0.0
     else:
         ulp = bf16_ulp(dw.depthwise_conv1d_plain(x.float(), w.float()))
         row["max_err_ulps"] = float((err / ulp).max())
@@ -502,6 +509,7 @@ def dwconv_grad_case(b: int, tp: int, c: int, k: int, dtype, gen) -> dict:
     w_ref = dw.depthwise_conv1d_wgrad_plain(x.float(), dy.float())
     wgrad_err = float((dwk.float() - w_ref).abs().max())
     row = {"shape": [b, tp, c], "k": k, "dtype": name,
+           "dgrad_route": dw.device_plan(dy, k, dgrad=True).route,
            "dgrad_max_abs_err": dgrad_err, "wgrad_max_abs_err": wgrad_err,
            "wgrad_rel_err": wgrad_err / float(w_ref.abs().max()),
            "wgrad_vs_plain_max_abs_err": float(
@@ -558,6 +566,39 @@ def dwconv_grad_case(b: int, tp: int, c: int, k: int, dtype, gen) -> dict:
     row["wgrad_bound_ms"], row["wgrad_bound_by"] = _bound(
         (x.numel() + dy.numel() + w.numel()) * item, 2 * b * t * c * k)
     return row
+
+
+def k3_kernels_per_call(shapes: list[tuple], gen) -> list[dict]:
+    """torch.profiler over one depthwise_conv1d call and one
+    depthwise_conv1d_dgrad call (each after a warm-up call): each must run
+    exactly one device kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    dev = torch.device("cuda")
+    rows = []
+    for b, tp, c, k, dtype in shapes:
+        x = torch.randn((b, tp, c), generator=gen, device=dev).to(dtype)
+        dy = torch.randn((b, tp - k + 1, c), generator=gen,
+                         device=dev).to(dtype)
+        w = torch.randn((k, c), generator=gen, device=dev).to(dtype)
+        for name, call in (("depthwise_conv1d",
+                            lambda: dw.depthwise_conv1d(x, w)),
+                           ("depthwise_conv1d_dgrad",
+                            lambda: dw.depthwise_conv1d_dgrad(dy, w))):
+            call()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                call()
+                torch.cuda.synchronize()
+            kernels = [e.name for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA]
+            row = {"call": name, "shape": [b, tp, c], "k": k,
+                   "dtype": str(dtype).split(".")[-1], "kernels": kernels}
+            if len(kernels) != 1:
+                raise AssertionError(f"one K3 call ran {len(kernels)} device "
+                                     f"kernels: {row}")
+            rows.append(row)
+    return rows
 
 
 # ---------------------------------------------------------------- CTC
@@ -981,11 +1022,16 @@ def main() -> None:
         sources = [dw.SOURCE, ctc.SOURCE]
         nvcc.build_libraries(sources)
         report["build_s"] = time.perf_counter() - t0
-        report["ptxas"] = {s: [ln for ln in nvcc.build_log(s).splitlines()
-                               if "Used" in ln or "spill" in ln]
+        report["ptxas"] = {s: nvcc.ptxas_entries(nvcc.build_log(s))
                            for s in sources}
-        print(f"kernels built in {report['build_s']:.2f} s: "
-              f"{report['ptxas']}", flush=True)
+        print(f"kernels built in {report['build_s']:.2f} s", flush=True)
+        for source, entries in report["ptxas"].items():
+            for e in entries:
+                print(f"ptxas {source} {json.dumps(e)}", flush=True)
+        spilled = [e for e in report["ptxas"][dw.SOURCE]
+                   if e["spill_stores"] or e["spill_loads"]]
+        if spilled:
+            raise AssertionError(f"K3 kernels spill: {spilled}")
 
         rng = np.random.default_rng(SEED)
         manifest, dict_path, durations = write_corpus(rng)
@@ -1007,7 +1053,8 @@ def main() -> None:
         # ---- training kernels at the training run's shapes and beyond
         train_grad_shapes = sorted({(b, t + 14, 256, 15)
                                     for b, t, _ in tshapes})
-        grad_shapes = train_grad_shapes + [(12, 212, 256, 15)]
+        grad_shapes = train_grad_shapes + [(12, 212, 256, 15),
+                                           (3, 40, 100, 7), (1, 15, 4, 15)]
         grad_rows = []
         for shape in grad_shapes:
             for dtype in (torch.float32, torch.bfloat16):
@@ -1015,6 +1062,12 @@ def main() -> None:
                 grad_rows.append(row)
                 print("K3 bwd " + json.dumps(row), flush=True)
         report["k3_backward_cases"] = grad_rows
+        report["k3_kernels_per_call"] = k3_kernels_per_call(
+            [(8, 212, 256, 15, torch.float32),
+             (8, 212, 256, 15, torch.bfloat16),
+             (3, 40, 100, 7, torch.bfloat16)], gen)
+        print("K3 kernels per call "
+              + json.dumps(report["k3_kernels_per_call"]), flush=True)
         ctc_rows = []
         for b, t, l_pad in sorted(set(tshapes)) + [(256, 77, 24),
                                                     (8, 1024, 120)]:

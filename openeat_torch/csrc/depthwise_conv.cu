@@ -1,44 +1,101 @@
-// Depthwise 1-D convolution, forward, VALID padding, for Hopper (sm_90a).
+// Depthwise 1-D convolution for Hopper (sm_90a): K3's forward and its
+// dgrad as one kernel body with two entries, and the wgrad.
 //
 // Replaces the Pallas TPU kernel openeat_tpu/ops/depthwise_conv.py:_kernel
-// (launched by _pallas_dwconv). Same function: x [B, T+K-1, C] (padded by
-// the caller), w [K, C] -> out [B, T, C] in x's dtype, no bias, taps
-// accumulated in float32 in the order j = 0..K-1.
+// (launched by _pallas_dwconv), and the dgrad that _bwd runs through that
+// kernel on dy padded by K-1 on both sides with the taps reversed. One
+// body computes, for t in [0, t_out),
+//
+//   out[b, t, c] = sum_{j=0..K-1} xin[b, t + j - pad_left, c] * tap(j, c)
+//
+// with xin zero outside [0, t_in). The forward (openeat_dwconv1d_fwd)
+// runs it with pad_left = 0, t_out = t_in - K + 1 and tap(j) = w[j]; the
+// dgrad (openeat_dwconv1d_dgrad) on dy with pad_left = K - 1,
+// t_out = t_in + K - 1 and tap(j) = w[K-1-j], read from the original w:
+// the flip is a read order and the padding is the loads' zero fill, so
+// dgrad is one launch with no padded copy of dy and no flipped copy of w.
+// Taps are summed in float32 in the order j = 0..K-1, each multiply and
+// each add rounded on its own (__fmul_rn / __fadd_rn, no fused
+// multiply-add), the arithmetic of the plain versions in
+// openeat_torch/ops/depthwise_conv.py, so float32 agrees with them bit
+// for bit and bfloat16 is the same float32 sum rounded once.
 //
 // Bound: device-memory bytes. Each output element costs K multiply-adds
 // (2K = 30 flops at the Conformer's K = 15) against one read of its input
-// and one write, about 4 flops per byte in float32, below the H100's
-// balance of 20 (67 TFLOP/s float32 outside the tensor cores over
-// 3.35 TB/s). The least traffic is one read of x and w and one write of
-// out: B*(T+K-1)*C + K*C + B*T*C elements.
+// and one write: about 4 flops per byte in float32 and 8 in bfloat16, far
+// below the H100's balance of 20 (67 TFLOP/s float32 outside the tensor
+// cores over 3.35 TB/s). There is no contraction over channels, so tensor
+// cores have nothing to do. The least traffic is one read of the input
+// and w and one write of the output.
 //
-// Design: a block owns (batch row b, a T_TILE slice of output time, a
-// C_TILE slice of channels). Threads run along channels, so every load
-// and store of the channel-minor [B, T, C] layout is coalesced. The block
-// stages its (T_TILE+K-1) x C_TILE input tile (the K-1 halo included) and
-// its K x C_TILE taps in shared memory as float32, then each thread
-// computes T_TILE / T_ROWS outputs of its channel from shared memory.
-// Ragged T and C edges are masked on load (zero fill) and on store.
-//
-// Each multiply and each add rounds separately (__fmul_rn / __fadd_rn,
-// no fused multiply-add), the same arithmetic as the shift-and-add plain
-// version in openeat_torch/ops/depthwise_conv.py, so the two agree bit
-// for bit. The backward's dgrad runs this same kernel on dy padded by
-// K-1 on both sides with the taps reversed, as _bwd does on the TPU.
+// Design. The problems on the main path are a few MB (1.7 MB in, 1.6 MB
+// out at the decode shape [8, 212, 256] float32), so the kernel has to put
+// all of its loads in flight at once, and at that size a launch and a
+// round trip to device memory cost about as much as the bytes
+// (chip_k3_bench.py times a plain copy of the same input beside it):
+// - A block owns one channel tile (C_TILE = 64 channels) for its whole
+//   life, keeps that tile's K x VEC taps in float32 registers (the
+//   compile-time K = 15 instance; other K read them from shared memory),
+//   and walks (batch row, time tile) items with a stride of gridDim.y: a
+//   persistent grid of at most two blocks per SM.
+// - Each item's input window, rows [t0 - pad_left, t0 - pad_left + rows)
+//   with rows = T_TILE + K - 1, lands in a ring of STAGES tiles in shared
+//   memory, asynchronously: the first STAGES windows are requested before
+//   the taps are read, and window n + STAGES as soon as window n has been
+//   used. Where x's base is 16-byte aligned and a row of channels is a
+//   multiple of 16 bytes, one thread asks the Tensor Memory Accelerator
+//   for the window (a 3-D tensor map over [B, t_in, C], completion on an
+//   mbarrier); the map fills rows outside [0, t_in), negative ones too,
+//   with zeros. Elsewhere every thread issues cp.async copies of 16, 8 or
+//   4 bytes, with source size 0 (zero fill) outside [0, t_in).
+// - A thread owns VEC = 4 channels (16 bytes of float32, 8 of bfloat16)
+//   and RT consecutive output rows. It reads each of its RT + K - 1 input
+//   rows once from shared memory as one vector load, adds it into every
+//   output row it reaches (the taps still in order j = 0..K-1 for each
+//   output), and stores each output row as one vector store. Eight
+//   bfloat16 channels a thread (16-byte accesses) halve the threads and
+//   double each one's multiply-adds, and measured slower; so do taps read
+//   with vector loads, which the compiler keeps packed and widens at every
+//   use (the VEC = 8 bfloat16 build stays for chip_k3_bench.py's sweep).
+// The launch plan (route, tiles, grid, shared memory) is computed by
+// openeat_torch/ops/depthwise_conv.py:launch_plan, which the CPU tests
+// reach, and checked here before the launch.
 //
 // The backward's wgrad (openeat_dwconv1d_wgrad below) is a [K, C]
 // reduction over B*T, also bound by bytes: it must read x and dy once
 // and write dw. Pass 1 gives each (channel slice, batch row, time tile)
 // block its own partial sums; pass 2 adds the partials in a fixed order.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
-constexpr int C_TILE = 64;  // channels per block, threads along x
-constexpr int T_ROWS = 4;   // threads along y
-constexpr int T_TILE = 32;  // output time steps per block
+// ---------------------------------------------------------------- forward
+// and dgrad
+
+constexpr int RT = 4;            // output rows per thread
+constexpr int STAGES = 2;        // ring of input windows per block
+constexpr int K_FIXED = 15;      // the compile-time K (the Conformer's)
+constexpr int MAX_THREADS = 256;
+constexpr int MAX_BOX = 256;     // a TMA box dimension's limit
+constexpr int SMEM_MAX = 232448; // dynamic shared memory a block may use
+constexpr int ERR_TENSOR_MAP = 10000;  // + the CUresult of the encoding
+
+struct Params {
+  const void* x;    // [batch, t_in, c]
+  const void* w;    // [k, c]
+  void* out;        // [batch, t_out, c]
+  int t_in, c, k, pad_left, t_out, flip;
+  int c_tile, t_tile, rows, t_tiles, n_items, stage_bytes;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
 __device__ __forceinline__ float load_f32(const float* p) { return *p; }
 __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
@@ -49,46 +106,503 @@ __device__ __forceinline__ void store_from_f32(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(C_TILE* T_ROWS)
-    dwconv1d_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                        T* __restrict__ out, int tp, int c, int k) {
-  extern __shared__ float smem[];
-  const int t_out = tp - k + 1;
-  const int halo = T_TILE + k - 1;
-  float* xs = smem;                  // [halo][C_TILE]
-  float* ws = smem + halo * C_TILE;  // [k][C_TILE]
-
-  const int b = blockIdx.z;
-  const int t0 = blockIdx.y * T_TILE;
-  const int cx = threadIdx.x;
-  const int ch = blockIdx.x * C_TILE + cx;
-  const bool c_ok = ch < c;
-
-  const T* xb = x + (size_t)b * tp * c;
-  for (int r = threadIdx.y; r < halo; r += T_ROWS) {
-    const int t = t0 + r;
-    xs[r * C_TILE + cx] =
-        (c_ok && t < tp) ? load_f32(xb + (size_t)t * c + ch) : 0.0f;
-  }
-  for (int j = threadIdx.y; j < k; j += T_ROWS) {
-    ws[j * C_TILE + cx] = c_ok ? load_f32(w + (size_t)j * c + ch) : 0.0f;
-  }
-  __syncthreads();
-  if (!c_ok) return;
-
-  T* ob = out + (size_t)b * t_out * c;
-  for (int r = threadIdx.y; r < T_TILE; r += T_ROWS) {
-    const int t = t0 + r;
-    if (t >= t_out) break;
-    const float* xr = xs + r * C_TILE + cx;
-    float acc = __fmul_rn(xr[0], ws[cx]);
-    for (int j = 1; j < k; ++j) {
-      acc = __fadd_rn(acc, __fmul_rn(xr[j * C_TILE], ws[j * C_TILE + cx]));
-    }
-    store_from_f32(ob + (size_t)t * c + ch, acc);
+// VEC values of shared memory -> float32 (bfloat16 widens exactly: its
+// bits are the high half of the float32's): one 16-byte load, or 8 bytes
+// for 4 bfloat16
+__device__ __forceinline__ void load_vec(const float* p, float (&v)[4]) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
+}
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p,
+                                         float (&v)[8]) {
+  const uint4 q = *reinterpret_cast<const uint4*>(p);
+  const uint32_t u[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(u[i] << 16);
+    v[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
   }
 }
+
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p,
+                                         float (&v)[4]) {
+  const uint2 q = *reinterpret_cast<const uint2*>(p);
+  v[0] = __uint_as_float(q.x << 16);
+  v[1] = __uint_as_float(q.x & 0xffff0000u);
+  v[2] = __uint_as_float(q.y << 16);
+  v[3] = __uint_as_float(q.y & 0xffff0000u);
+}
+
+__device__ __forceinline__ void store_vec(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(lo))
+         | ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
+}
+__device__ __forceinline__ void store_vec(__nv_bfloat16* p,
+                                          const float (&v)[8]) {
+  *reinterpret_cast<uint4*>(p) =
+      make_uint4(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]),
+                 pack_bf16x2(v[4], v[5]), pack_bf16x2(v[6], v[7]));
+}
+__device__ __forceinline__ void store_vec(__nv_bfloat16* p,
+                                          const float (&v)[4]) {
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]));
+}
+
+// n_valid channels from p on: one vector store where the whole vector is
+// valid and aligned (always, on the TMA route), else one per element
+template <typename T, int VEC>
+__device__ __forceinline__ void store_out(T* p, const float (&v)[VEC],
+                                          int n_valid) {
+  if (n_valid >= VEC &&
+      reinterpret_cast<uintptr_t>(p) % (VEC * sizeof(T)) == 0) {
+    store_vec(p, v);
+  } else {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      if (e < n_valid) store_from_f32(p + e, v[e]);
+    }
+  }
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// returns once the phase of parity `parity` of `bar` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// the box at (channel c0, time t0, batch b) of `map` into dst; rows
+// outside the tensor, negative t0 included, arrive as zeros
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int t0,
+                                            int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(t0), "r"(b)
+      : "memory");
+}
+
+// G bytes from src to dst, or G zero bytes where !valid (source size 0)
+template <int G>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         bool valid) {
+  const int n = valid ? G : 0;
+  if constexpr (G == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
+                     smem_u32(dst)),
+                 "l"(src), "r"(n)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;" ::"r"(
+                     smem_u32(dst)),
+                 "l"(src), "n"(G), "r"(n)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// RT output rows from the window rows at xs (row stride `stride`
+// elements) with the K taps in registers. Input row i reaches output rows
+// o = i - j; i ascends, so each output still sums j = 0..K-1 in order.
+template <int KC, typename T, int VEC>
+__device__ __forceinline__ void conv_reg_taps(const T* xs, int stride,
+                                              const float (&tap)[KC][VEC],
+                                              float (&acc)[RT][VEC]) {
+#pragma unroll
+  for (int i = 0; i < RT + KC - 1; ++i) {
+    float xv[VEC];
+    load_vec(xs + i * stride, xv);
+#pragma unroll
+    for (int o = 0; o < RT; ++o) {
+      const int j = i - o;
+      if (j >= 0 && j < KC) {
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) {
+          const float pr = __fmul_rn(xv[v], tap[j][v]);
+          acc[o][v] = j == 0 ? pr : __fadd_rn(acc[o][v], pr);
+        }
+      }
+    }
+  }
+}
+
+// The same sum for a runtime k, with the taps in shared memory: float32
+// rows of `stride` values, this thread's VEC channels at ws.
+template <typename T, int VEC>
+__device__ __forceinline__ void conv_smem_taps(const T* xs, int stride,
+                                               const float* ws, int k,
+                                               float (&acc)[RT][VEC]) {
+  for (int j = 0; j < k; ++j) {
+    float tv[VEC];
+#pragma unroll
+    for (int q = 0; q < VEC; q += 4) {
+      const float4 t4 = *reinterpret_cast<const float4*>(ws + j * stride + q);
+      tv[q] = t4.x;
+      tv[q + 1] = t4.y;
+      tv[q + 2] = t4.z;
+      tv[q + 3] = t4.w;
+    }
+#pragma unroll
+    for (int o = 0; o < RT; ++o) {
+      float xv[VEC];
+      load_vec(xs + (o + j) * stride, xv);
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) {
+        const float pr = __fmul_rn(xv[v], tv[v]);
+        acc[o][v] = j == 0 ? pr : __fadd_rn(acc[o][v], pr);
+      }
+    }
+  }
+}
+
+// G = 0: windows arrive by TMA through `map`; G = 4, 8 or 16: by cp.async
+// copies of G bytes from p.x (map unused). KC = K_FIXED keeps the taps in
+// registers; KC = 0 takes p.k at run time. A thread computes VEC channels
+// of RT output rows.
+template <typename T, int KC, int G, int VEC>
+__global__ void __launch_bounds__(MAX_THREADS)
+    dwconv1d_kernel(const __grid_constant__ CUtensorMap map, const Params p) {
+  static_assert(VEC == 4 || (VEC == 8 && sizeof(T) == 2), "16 or 8 bytes");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((128 - (smem_u32(smem_raw) & 127)) & 127);
+  unsigned char* tiles = smem;  // STAGES x [rows][c_tile] of T
+  float* ws = reinterpret_cast<float*>(smem + STAGES * p.stage_bytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      smem + STAGES * p.stage_bytes + (KC > 0 ? 0 : p.k * p.c_tile * 4));
+
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nthr = blockDim.x * blockDim.y;
+  const int c0 = blockIdx.x * p.c_tile;
+  const int cl = threadIdx.x * VEC;  // this thread's channels in the tile
+  const int ch = c0 + cl;
+  const int r0 = threadIdx.y * RT;   // its output rows in the time tile
+  const int first = blockIdx.y;
+  const int n_mine =
+      first < p.n_items ? (p.n_items - 1 - first) / gridDim.y + 1 : 0;
+
+  // request the input window of this block's n-th item into stage n % STAGES
+  auto request = [&](int n) {
+    const int item = first + n * gridDim.y;
+    const int b = item / p.t_tiles;
+    const int t_lo = (item % p.t_tiles) * p.t_tile - p.pad_left;
+    unsigned char* dst = tiles + (n % STAGES) * p.stage_bytes;
+    if constexpr (G == 0) {
+      mbar_expect_tx(&full[n % STAGES],
+                     (uint32_t)(p.rows * p.c_tile * sizeof(T)));
+      tma_load_3d(dst, &map, &full[n % STAGES], c0, t_lo, b);
+    } else {
+      constexpr int E = G / (int)sizeof(T);  // elements per copy
+      const int per_row = p.c_tile / E;
+      const T* xb = static_cast<const T*>(p.x) + (size_t)b * p.t_in * p.c;
+      for (int i = tid; i < p.rows * per_row; i += nthr) {
+        const int r = i / per_row;
+        const int cc = c0 + (i % per_row) * E;
+        if (cc >= p.c) continue;  // past C: never stored
+        const int t = t_lo + r;
+        const bool in = t >= 0 && t < p.t_in;
+        cp_async<G>(dst + ((size_t)r * p.c_tile + (cc - c0)) * sizeof(T),
+                    in ? xb + (size_t)t * p.c + cc : xb, in);
+      }
+    }
+  };
+
+  // the first windows go out before the taps are read
+  if constexpr (G == 0) {
+    if (tid == 0) {
+      for (int s = 0; s < STAGES; ++s) mbar_init(&full[s], 1);
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+      for (int n = 0; n < STAGES && n < n_mine; ++n) request(n);
+    }
+  } else {
+    for (int n = 0; n < STAGES; ++n) {
+      if (n < n_mine) request(n);
+      cp_async_commit();  // one group per stage, empty or not
+    }
+  }
+
+  const T* w = static_cast<const T*>(p.w);
+  float tap[KC > 0 ? KC : 1][VEC];
+  if constexpr (KC > 0) {
+    // element loads, each widened once: vector loads let the compiler keep
+    // bfloat16 taps packed and widen them again at every use
+#pragma unroll
+    for (int j = 0; j < KC; ++j) {
+      const T* wj = w + (size_t)(p.flip ? KC - 1 - j : j) * p.c + ch;
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) {
+        tap[j][v] = ch + v < p.c ? load_f32(wj + v) : 0.0f;
+      }
+    }
+  } else {
+    for (int i = tid; i < p.k * p.c_tile; i += nthr) {
+      const int j = i / p.c_tile;
+      const int cc = c0 + i % p.c_tile;
+      const int jj = p.flip ? p.k - 1 - j : j;
+      ws[i] = cc < p.c ? load_f32(w + (size_t)jj * p.c + cc) : 0.0f;
+    }
+  }
+  __syncthreads();  // barriers initialised, shared taps written
+
+  T* out = static_cast<T*>(p.out);
+  for (int n = 0; n < n_mine; ++n) {
+    const int s = n % STAGES;
+    if constexpr (G == 0) {
+      mbar_wait(&full[s], (uint32_t)(n / STAGES) & 1u);
+    } else {
+      cp_async_wait<STAGES - 1>();
+      __syncthreads();  // every thread's copies have landed
+    }
+    const int item = first + n * gridDim.y;
+    const int b = item / p.t_tiles;
+    const int t0 = (item % p.t_tiles) * p.t_tile;
+    const T* xs = reinterpret_cast<const T*>(tiles + s * p.stage_bytes) +
+                  r0 * p.c_tile + cl;
+    float acc[RT][VEC];
+    if constexpr (KC > 0) {
+      conv_reg_taps<KC>(xs, p.c_tile, tap, acc);
+    } else {
+      conv_smem_taps(xs, p.c_tile, ws + cl, p.k, acc);
+    }
+    if (ch < p.c) {
+      T* ob = out + ((size_t)b * p.t_out + t0 + r0) * p.c + ch;
+#pragma unroll
+      for (int o = 0; o < RT; ++o) {
+        if (t0 + r0 + o < p.t_out) store_out(ob + (size_t)o * p.c, acc[o],
+                                             p.c - ch);
+      }
+    }
+    __syncthreads();  // stage s is free again
+    if (n + STAGES < n_mine) {
+      if constexpr (G == 0) {
+        if (tid == 0) request(n + STAGES);
+      } else {
+        request(n + STAGES);
+      }
+    }
+    if constexpr (G != 0) cp_async_commit();
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded, so
+// the library needs no -lcuda
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                     cudaEnableDefault, &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
+                            &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+    }
+  }
+  return fn;
+}
+
+template <typename T, int KC, int G, int VEC>
+int launch_instance(const CUtensorMap& map, const Params& p, dim3 grid,
+                    dim3 block, int smem, cudaStream_t stream) {
+  // allowed once per instance, before any capture can start, so that a
+  // CUDA graph never holds this call
+  static bool smem_raised = false;
+  if (!smem_raised) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        dwconv1d_kernel<T, KC, G, VEC>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+    if (e != cudaSuccess) return (int)e;
+    smem_raised = true;
+  }
+  dwconv1d_kernel<T, KC, G, VEC><<<grid, block, smem, stream>>>(map, p);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int KC, int VEC>
+int launch_route(int copy_bytes, const CUtensorMap& map, const Params& p,
+                 dim3 grid, dim3 block, int smem, cudaStream_t stream) {
+  switch (copy_bytes) {
+    case 0:
+      return launch_instance<T, KC, 0, VEC>(map, p, grid, block, smem,
+                                            stream);
+    case 4:
+      return launch_instance<T, KC, 4, VEC>(map, p, grid, block, smem,
+                                            stream);
+    case 8:
+      return launch_instance<T, KC, 8, VEC>(map, p, grid, block, smem,
+                                            stream);
+    case 16:
+      return launch_instance<T, KC, 16, VEC>(map, p, grid, block, smem,
+                                             stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename T, int VEC>
+int launch_typed(bool reg_taps, int copy_bytes, const CUtensorMap& map,
+                 const Params& p, dim3 grid, dim3 block, int smem,
+                 cudaStream_t stream) {
+  if (reg_taps) {
+    return launch_route<T, K_FIXED, VEC>(copy_bytes, map, p, grid, block,
+                                         smem, stream);
+  }
+  return launch_route<T, 0, VEC>(copy_bytes, map, p, grid, block, smem,
+                                 stream);
+}
+
+bool aligned(const void* ptr, long long bytes) {
+  return reinterpret_cast<uintptr_t>(ptr) % (uintptr_t)bytes == 0;
+}
+
+// Checks the plan against what the kernel assumes, encodes the tensor map
+// on the TMA route (copy_bytes == 0) and launches.
+int launch_conv(const void* x, const void* w, void* out, int batch, int t_in,
+                int c, int k, int pad_left, int t_out, int flip, int dtype,
+                int vec, int c_tile, int t_tile, int reg_taps, int grid_y,
+                int copy_bytes, int smem_bytes, void* stream) {
+  if ((dtype != 0 && dtype != 1) || (reg_taps && k != K_FIXED)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int item = dtype == 0 ? 4 : 2;
+  if (vec != 4 && !(vec == 8 && item == 2)) return (int)cudaErrorInvalidValue;
+  if (batch <= 0 || t_in <= 0 || c <= 0 || k <= 0 || t_out <= 0 ||
+      c_tile <= 0 || c_tile % vec != 0 || c_tile > MAX_BOX ||
+      t_tile <= 0 || t_tile % RT != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int rows = t_tile + k - 1;
+  const long long threads = (long long)(c_tile / vec) * (t_tile / RT);
+  const long long t_tiles = (t_out + t_tile - 1) / t_tile;
+  const long long n_items = (long long)batch * t_tiles;
+  const long long stage_bytes =
+      ((long long)rows * c_tile * item + 127) / 128 * 128;
+  const long long need = 128 + STAGES * stage_bytes +
+                         (reg_taps ? 0 : (long long)k * c_tile * 4) +
+                         STAGES * 8;
+  if (rows > MAX_BOX || threads > MAX_THREADS || n_items > 0x7fffffffLL ||
+      grid_y <= 0 || grid_y > 65535 || grid_y > n_items ||
+      smem_bytes < need || smem_bytes > SMEM_MAX) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long row_bytes = (long long)c * item;
+  alignas(64) CUtensorMap map{};
+  if (copy_bytes == 0) {
+    if (!aligned(x, 16) || !aligned(out, 16) || row_bytes % 16 != 0 ||
+        c_tile * item % 16 != 0) {
+      return (int)cudaErrorInvalidValue;
+    }
+    EncodeTiled encode = encode_tiled();
+    if (encode == nullptr) return ERR_TENSOR_MAP + (int)CUDA_ERROR_NOT_FOUND;
+    const cuuint64_t dims[3] = {(cuuint64_t)c, (cuuint64_t)t_in,
+                                (cuuint64_t)batch};
+    const cuuint64_t strides[2] = {(cuuint64_t)row_bytes,
+                                   (cuuint64_t)row_bytes * t_in};
+    const cuuint32_t box[3] = {(cuuint32_t)c_tile, (cuuint32_t)rows, 1};
+    const cuuint32_t elem_strides[3] = {1, 1, 1};
+    const CUresult r = encode(
+        &map,
+        dtype == 0 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                   : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+        3, const_cast<void*>(x), dims, strides, box, elem_strides,
+        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (r != CUDA_SUCCESS) return ERR_TENSOR_MAP + (int)r;
+  } else if (copy_bytes == 4 || copy_bytes == 8 || copy_bytes == 16) {
+    if (!aligned(x, copy_bytes) || row_bytes % copy_bytes != 0 ||
+        c_tile * item % copy_bytes != 0) {
+      return (int)cudaErrorInvalidValue;
+    }
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  Params p;
+  p.x = x;
+  p.w = w;
+  p.out = out;
+  p.t_in = t_in;
+  p.c = c;
+  p.k = k;
+  p.pad_left = pad_left;
+  p.t_out = t_out;
+  p.flip = flip;
+  p.c_tile = c_tile;
+  p.t_tile = t_tile;
+  p.rows = rows;
+  p.t_tiles = (int)t_tiles;
+  p.n_items = (int)n_items;
+  p.stage_bytes = (int)stage_bytes;
+  const dim3 grid((c + c_tile - 1) / c_tile, grid_y);
+  const dim3 block(c_tile / vec, t_tile / RT);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    return launch_typed<float, 4>(reg_taps, copy_bytes, map, p, grid, block,
+                                  smem_bytes, s);
+  }
+  if (vec == 8) {
+    return launch_typed<__nv_bfloat16, 8>(reg_taps, copy_bytes, map, p, grid,
+                                          block, smem_bytes, s);
+  }
+  return launch_typed<__nv_bfloat16, 4>(reg_taps, copy_bytes, map, p, grid,
+                                        block, smem_bytes, s);
+}
+
+// ---------------------------------------------------------------- wgrad
+
+constexpr int C_TILE = 64;  // channels per block, threads along x
+constexpr int T_ROWS = 4;   // threads along y
+constexpr int T_TILE = 32;  // output time steps per block
 
 // wgrad, pass 1. dw[j, c] = sum_{b,t} x[b, t+j, c] * dy[b, t, c], the
 // weight gradient that the JAX package leaves to XLA (ops/
@@ -157,6 +671,38 @@ __global__ void dwconv1d_wgrad_reduce_kernel(const float* __restrict__ partial,
 
 }  // namespace
 
+// Forward: x [batch, tp, c] and w [k, c] give out [batch, tp-k+1, c].
+// Dgrad: dy [batch, t, c] and the forward's w [k, c] give dx
+// [batch, t+k-1, c]. dtype: 0 = float32, 1 = bfloat16, shared by all
+// three tensors, which are contiguous. vec, c_tile, t_tile, reg_taps
+// (K == 15 only), grid_y,
+// copy_bytes (0 = TMA, else the cp.async size) and smem_bytes are the
+// fields of openeat_torch/ops/depthwise_conv.py:launch_plan. Each
+// launches one kernel on `stream` and returns cudaGetLastError() (0 on
+// success), cudaErrorInvalidValue for a plan the kernel does not take,
+// or 10000 + the CUresult where the tensor map cannot be encoded.
+extern "C" int openeat_dwconv1d_fwd(const void* x, const void* w, void* out,
+                                    int batch, int tp, int c, int k,
+                                    int dtype, int vec, int c_tile,
+                                    int t_tile, int reg_taps, int grid_y,
+                                    int copy_bytes, int smem_bytes,
+                                    void* stream) {
+  return launch_conv(x, w, out, batch, tp, c, k, 0, tp - k + 1, 0, dtype,
+                     vec, c_tile, t_tile, reg_taps, grid_y, copy_bytes,
+                     smem_bytes, stream);
+}
+
+extern "C" int openeat_dwconv1d_dgrad(const void* dy, const void* w,
+                                      void* dx, int batch, int t, int c,
+                                      int k, int dtype, int vec, int c_tile,
+                                      int t_tile, int reg_taps, int grid_y,
+                                      int copy_bytes, int smem_bytes,
+                                      void* stream) {
+  return launch_conv(dy, w, dx, batch, t, c, k, k - 1, t + k - 1, 1, dtype,
+                     vec, c_tile, t_tile, reg_taps, grid_y, copy_bytes,
+                     smem_bytes, stream);
+}
+
 // Scratch that openeat_dwconv1d_wgrad needs in `partial`, in float32
 // elements: one K x C slab per (batch row, T_TILE slice of output time).
 extern "C" long long openeat_dwconv1d_wgrad_scratch(int batch, int tp, int c,
@@ -203,36 +749,6 @@ extern "C" int openeat_dwconv1d_wgrad(const void* x, const void* dy,
         static_cast<const __nv_bfloat16*>(dy), part, tp, c, k, t_tiles);
     dwconv1d_wgrad_reduce_kernel<__nv_bfloat16><<<blocks, threads, 0, s>>>(
         part, static_cast<__nv_bfloat16*>(dw), kc, (int)n_tiles);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
-}
-
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
-// dtype: 0 = float32, 1 = bfloat16; x, w and out share it. Pointers are
-// to contiguous x [batch, tp, c], w [k, c] and out [batch, tp-k+1, c].
-extern "C" int openeat_dwconv1d_fwd(const void* x, const void* w, void* out,
-                                    int batch, int tp, int c, int k,
-                                    int dtype, void* stream) {
-  const int t_out = tp - k + 1;
-  if (batch <= 0 || c <= 0 || k <= 0 || t_out <= 0 || batch > 65535) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const dim3 block(C_TILE, T_ROWS);
-  const dim3 grid((c + C_TILE - 1) / C_TILE, (t_out + T_TILE - 1) / T_TILE,
-                  batch);
-  const size_t smem = (size_t)(T_TILE + 2 * k - 1) * C_TILE * sizeof(float);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    dwconv1d_fwd_kernel<float><<<grid, block, smem, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w),
-        static_cast<float*>(out), tp, c, k);
-  } else if (dtype == 1) {
-    dwconv1d_fwd_kernel<__nv_bfloat16><<<grid, block, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(w),
-        static_cast<__nv_bfloat16*>(out), tp, c, k);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -10,14 +10,18 @@ sides, taps reversed) and leaves wgrad, dw[j, c] = sum_{b,t} x[b, t+j, c]
 * dy[b, t, c], to XLA; here wgrad is a CUDA kernel too, because a
 reduction is not a matrix product.
 
-All three are bound by device-memory bytes. The forward must read x and
-w once and write out once, (B*(T+K-1)*C + K*C + B*T*C) * itemsize bytes
-— about 2.1 MB at the float32 decode shape [8, 124+14, 256], K=15 —
-against 2*B*T*C*K flops. Threads run along the channel-minor axis so
-loads coalesce, and each block stages its input tile with the K-1 halo in
-shared memory, so x is read from device memory about once. wgrad writes
-per-block partial sums and adds them in a second pass in a fixed order
-(no float atomics), so two runs give the same bits.
+All three are bound by device-memory bytes. The forward and the dgrad
+are one kernel body with two entries (openeat_torch/csrc/
+depthwise_conv.cu): each block loads zero-filled input windows into a
+ring in shared memory asynchronously (TMA, or cp.async where the rows
+are not 16-byte multiples), keeps its taps in registers, and moves four
+channels per thread per access (16 bytes of float32, 8 of bfloat16).
+The dgrad reads dy and the forward's w as they are: its K-1 halo is the
+loads' zero fill and its reversed taps a read order, so it is one
+launch. :func:`launch_plan` is the launch
+decision in Python, so the CPU tests reach it. wgrad writes per-block
+partial sums and adds them in a second pass in a fixed order (no float
+atomics), so two runs give the same bits.
 
 :func:`depthwise_conv1d` is a ``torch.autograd.Function`` on both
 devices: a CUDA tensor runs the kernels forward and backward, a CPU
@@ -28,6 +32,8 @@ exercise the backward that the card runs.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -73,67 +79,206 @@ def depthwise_conv1d_wgrad_plain(x: torch.Tensor,
                         for j in range(k)]).to(x.dtype)
 
 
-def _check(x: torch.Tensor, w: torch.Tensor) -> None:
+def _check(x: torch.Tensor, w: torch.Tensor, name: str) -> None:
     if x.dim() != 3 or w.dim() != 2 or w.shape[1] != x.shape[2]:
-        raise ValueError(f"depthwise_conv1d wants x [B, T+K-1, C] and "
-                         f"w [K, C]; got {tuple(x.shape)}, {tuple(w.shape)}")
-    if x.shape[1] < w.shape[0]:
-        raise ValueError(f"input length {x.shape[1]} < kernel {w.shape[0]}")
+        raise ValueError(f"{name} wants [B, T, C] and w [K, C]; got "
+                         f"{tuple(x.shape)}, {tuple(w.shape)}")
     if x.dtype not in _DTYPE_CODE or w.dtype != x.dtype:
-        raise TypeError(f"depthwise_conv1d takes float32 or bfloat16 x and "
-                        f"w of the same dtype; got {x.dtype}, {w.dtype}")
+        raise TypeError(f"{name} takes float32 or bfloat16 tensors and w of "
+                        f"the same dtype; got {x.dtype}, {w.dtype}")
     if x.device != w.device:
-        raise ValueError(f"x on {x.device} but w on {w.device}")
+        raise ValueError(f"{name}: input on {x.device} but w on {w.device}")
     if not (x.is_contiguous() and w.is_contiguous()):
-        raise ValueError("depthwise_conv1d needs contiguous x and w")
+        raise ValueError(f"{name} needs contiguous tensors")
     if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"depthwise_conv1d: unsupported device {x.device}")
+        raise ValueError(f"{name}: unsupported device {x.device}")
+
+
+# The kernel's shape (openeat_torch/csrc/depthwise_conv.cu): RT output
+# rows per thread, a ring of STAGES input windows per block, the taps in
+# registers for K_FIXED; and the plan's defaults: VEC channels per thread,
+# C_TILE channels and T_TILE output rows per item, at most BLOCKS_PER_SM
+# blocks per SM.
+RT = 4
+STAGES = 2
+K_FIXED = 15
+K_MAX = 64
+VEC = 4
+C_TILE = 64
+T_TILE = 32
+BLOCKS_PER_SM = 2
+H100_SMS = 132
+SMEM_MAX = 232448
+MAX_BOX = 256
+MAX_THREADS = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """How one call of the K3 kernel is cut. A block owns a ``c_tile``
+    channel slice (``grid[0]`` of them) and walks items (batch row, time
+    tile of ``t_tile`` output rows) ``grid[1]`` apart. Each item reads
+    input rows [t0 - pad_left, t0 - pad_left + rows) of [B, t_in, C],
+    zero outside [0, t_in), through the TMA box ``tma_box`` (channels,
+    rows, batch) or, where ``route`` is ``"cp.async"``, copies of
+    ``copy_bytes``."""
+
+    dgrad: bool           # the dgrad entry, else the forward's
+    route: str            # "tma" or "cp.async"
+    copy_bytes: int       # 0 on the TMA route, else 4, 8 or 16
+    vec: int              # channels per thread
+    c_tile: int
+    t_tile: int
+    rows: int             # input window per item: t_tile + K - 1
+    pad_left: int
+    t_out: int
+    t_tiles: int
+    n_items: int
+    grid: tuple[int, int]
+    block: tuple[int, int]  # (channel vectors, row groups of RT)
+    smem_bytes: int
+    tma_box: tuple[int, int, int] | None
+    taps_in_registers: bool
+
+
+def launch_plan(batch: int, t_in: int, c: int, k: int, itemsize: int, *,
+                dgrad: bool, x_ptr: int = 0, num_sms: int = H100_SMS,
+                vec: int = VEC, c_tile: int = C_TILE, t_tile: int = T_TILE,
+                blocks_per_sm: int = BLOCKS_PER_SM,
+                registers_for_taps: bool = True) -> LaunchPlan:
+    """The launch of openeat_dwconv1d_fwd (``dgrad=False``: input
+    [batch, t_in, C] is the caller-padded x, t_out = t_in - K + 1) or
+    openeat_dwconv1d_dgrad (input is dy, t_out = t_in + K - 1, the K - 1
+    halo read as zeros). ``x_ptr`` is the input's address, whose alignment
+    picks the route with the row's bytes: TMA where both are multiples
+    of 16, else cp.async copies of the largest of 16, 8, 4 bytes that
+    divides both. ``vec`` (8 is compiled for bfloat16 only), ``c_tile``
+    (the most channels per block), ``t_tile``, ``blocks_per_sm`` and
+    ``registers_for_taps`` (K = 15 only) change the tiling:
+    chip_k3_bench.py compares tilings on the card. Raises ValueError for
+    what no route takes."""
+    if itemsize not in (2, 4):
+        raise ValueError(f"K3 kernel takes 2- or 4-byte elements, not "
+                         f"{itemsize}")
+    if not 1 <= k <= K_MAX:
+        raise ValueError(f"K3 kernel takes 1 <= K <= {K_MAX}; got K={k}")
+    pad_left = k - 1 if dgrad else 0
+    t_out = t_in + k - 1 if dgrad else t_in - k + 1
+    if batch < 1 or c < 1 or t_in < 1 or t_out < 1:
+        raise ValueError(f"empty K3 problem: B={batch}, T_in={t_in}, C={c}, "
+                         f"K={k}")
+    c_bytes = c * itemsize
+    if c_bytes % 16 == 0 and x_ptr % 16 == 0:
+        route, copy_bytes = "tma", 0
+    else:
+        sizes = [g for g in (16, 8, 4) if c_bytes % g == 0
+                 and x_ptr % g == 0]
+        if not sizes:
+            raise ValueError(
+                f"K3 kernel needs rows of channels and the input's address "
+                f"to be multiples of 4 bytes; got C={c} x {itemsize} bytes "
+                f"at address offset {x_ptr % 16} mod 16")
+        route, copy_bytes = "cp.async", sizes[0]
+    # a channel tile of whole vectors and whole 16-byte rows: TMA boxes and
+    # 16-byte copies
+    step = max(vec, 16 // itemsize)
+    if vec not in (4, 16 // itemsize) or c_tile % step or t_tile % RT \
+            or not step <= c_tile <= MAX_BOX or t_tile < RT \
+            or c_tile // vec * t_tile // RT > MAX_THREADS \
+            or t_tile + k - 1 > MAX_BOX or blocks_per_sm < 1:
+        raise ValueError(f"K3 tiling vec={vec}, c_tile={c_tile}, t_tile="
+                         f"{t_tile}, blocks_per_sm={blocks_per_sm} is not "
+                         f"compiled")
+    c_tile = min(c_tile, -(-c // step) * step)
+    taps_in_registers = registers_for_taps and k == K_FIXED
+    rows = t_tile + k - 1
+    t_tiles = -(-t_out // t_tile)
+    n_items = batch * t_tiles
+    if n_items >= 2 ** 31:
+        raise ValueError(f"K3 kernel takes fewer than 2**31 items; got "
+                         f"B={batch} x {t_tiles} time tiles")
+    n_ctiles = -(-c // c_tile)
+    grid_y = min(n_items, max(1, -(-blocks_per_sm * num_sms // n_ctiles)),
+                 65535)
+    stage_bytes = -(-rows * c_tile * itemsize // 128) * 128
+    smem = 128 + STAGES * stage_bytes \
+        + (0 if taps_in_registers else k * c_tile * 4) + STAGES * 8
+    return LaunchPlan(
+        dgrad=dgrad, route=route, copy_bytes=copy_bytes, vec=vec,
+        c_tile=c_tile, t_tile=t_tile, rows=rows, pad_left=pad_left,
+        t_out=t_out, t_tiles=t_tiles, n_items=n_items,
+        grid=(n_ctiles, grid_y), block=(c_tile // vec, t_tile // RT),
+        smem_bytes=smem,
+        tma_box=(c_tile, rows, 1) if route == "tma" else None,
+        taps_in_registers=taps_in_registers)
 
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _launch_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """K3 on the card: x [B, T+K-1, C], w [K, C] -> [B, T, C]."""
-    b, tp, c = x.shape
+@functools.cache
+def _num_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def device_plan(src: torch.Tensor, k: int, dgrad: bool,
+                **tiling) -> LaunchPlan:
+    """:func:`launch_plan` for the input tensor `src` on its card."""
+    b, t_in, c = src.shape
+    return launch_plan(b, t_in, c, k, src.element_size(), dgrad=dgrad,
+                       x_ptr=src.data_ptr(),
+                       num_sms=_num_sms(src.device.index), **tiling)
+
+
+def launch(src: torch.Tensor, w: torch.Tensor,
+           plan: LaunchPlan) -> torch.Tensor:
+    """One launch of the K3 kernel's forward or dgrad entry on the card,
+    as `plan` (from :func:`device_plan` for these tensors) cuts it: src
+    [B, T_in, C] and w [K, C] -> [B, plan.t_out, C]. Counts nothing: the
+    wrappers do."""
+    b, t_in, c = src.shape
     k = w.shape[0]
-    if b > 65535 or k > 64:
-        raise ValueError(f"depthwise_conv1d kernel takes B <= 65535 and "
-                         f"K <= 64; got B={b}, K={k}")
-    fn = nvcc.load_library(SOURCE).openeat_dwconv1d_fwd
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 \
+    entry = "openeat_dwconv1d_dgrad" if plan.dgrad else "openeat_dwconv1d_fwd"
+    fn = getattr(nvcc.load_library(SOURCE), entry)
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 12 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    out = torch.empty((b, tp - k + 1, c), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), b, tp, c, k,
-                _DTYPE_CODE[x.dtype], _stream(x))
+    out = torch.empty((b, plan.t_out, c), dtype=src.dtype,
+                      device=src.device)
+    with torch.cuda.device(src.device):
+        rc = fn(src.data_ptr(), w.data_ptr(), out.data_ptr(), b, t_in, c, k,
+                _DTYPE_CODE[src.dtype], plan.vec, plan.c_tile, plan.t_tile,
+                int(plan.taps_in_registers), plan.grid[1], plan.copy_bytes,
+                plan.smem_bytes, _stream(src))
     if rc != 0:
-        raise RuntimeError(f"depthwise_conv1d kernel launch failed: "
-                           f"cudaError {rc}")
+        raise RuntimeError(f"{entry} launch failed with code {rc} "
+                           f"({plan})")
     return out
 
 
 def _forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return depthwise_conv1d_plain(x, w)
+    plan = device_plan(x, w.shape[0], dgrad=False)
     depthwise_conv1d.launches += 1
-    return _launch_forward(x, w)
+    return launch(x, w, plan)
 
 
 def depthwise_conv1d_dgrad(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """dx [B, T+K-1, C] in dy's dtype. A CUDA tensor runs K3 on the
-    padded dy with reversed taps (each launch adds one to
-    ``depthwise_conv1d_dgrad.launches``); a CPU tensor takes
-    :func:`depthwise_conv1d_dgrad_plain`."""
-    dy_pad = _pad_dy(dy, w.shape[0])
-    w_rev = w.flip(0).to(dy.dtype).contiguous()
-    _check(dy_pad, w_rev)
+    """dx [B, T+K-1, C] in dy's dtype from dy [B, T, C] and the forward's
+    w [K, C] (cast to dy's dtype where they differ). A CUDA tensor runs
+    the K3 kernel's dgrad entry once, on dy and w as they are: the K-1
+    halo is the loads' zero fill and the reversed taps a read order (each
+    launch adds one to ``depthwise_conv1d_dgrad.launches``); a CPU tensor
+    takes :func:`depthwise_conv1d_dgrad_plain`."""
+    w = w.to(dy.dtype)
+    _check(dy, w, "depthwise_conv1d_dgrad")
     if dy.device.type == "cpu":
-        return depthwise_conv1d_plain(dy_pad, w_rev)
+        return depthwise_conv1d_dgrad_plain(dy, w)
+    plan = device_plan(dy, w.shape[0], dgrad=True)
     depthwise_conv1d_dgrad.launches += 1
-    return _launch_forward(dy_pad, w_rev)
+    return launch(dy, w, plan)
 
 
 def depthwise_conv1d_wgrad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
@@ -200,7 +345,9 @@ def depthwise_conv1d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     A CUDA tensor goes to the CUDA kernels (built on first use); a CPU
     tensor goes to the plain versions. Every forward kernel launch adds
     one to ``depthwise_conv1d.launches``."""
-    _check(x, w)
+    _check(x, w, "depthwise_conv1d")
+    if x.shape[1] < w.shape[0]:
+        raise ValueError(f"input length {x.shape[1]} < kernel {w.shape[0]}")
     return _DepthwiseConv1d.apply(x, w)
 
 

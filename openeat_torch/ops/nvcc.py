@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -88,3 +89,27 @@ def load_library(source: str) -> ctypes.CDLL:
 def build_log(source: str) -> str:
     """The compiler output kept by :func:`build_library`."""
     return build_library(source).with_suffix(".log").read_text()
+
+
+def ptxas_entries(log: str) -> list[dict]:
+    """Each kernel entry's registers and spills from a ``-v`` build log:
+    ``{"entry", "registers", "spill_stores", "spill_loads"}`` (bytes),
+    in the order ptxas compiled them."""
+    entries: list[dict] = []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entries.append({"entry": m.group(1), "registers": None,
+                            "spill_stores": None, "spill_loads": None})
+            continue
+        if not entries:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            entries[-1]["spill_stores"] = int(m.group(1))
+            entries[-1]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            entries[-1]["registers"] = int(m.group(1))
+    return entries

@@ -105,3 +105,218 @@ def test_convolution_module_matches_flax(causal):
     with torch.no_grad():
         out = tm(torch.from_numpy(x), torch.from_numpy(mask))
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------------------------ launch plan
+#
+# The CUDA kernel runs only on the card; these hold the launch decision it
+# is given (dw.launch_plan) to the kernel's limits, and a numpy walk of
+# the plan's blocks, items and threads to the plain versions.
+
+def _plan(b, t_in, c, k, itemsize, dgrad=False, x_ptr=0, **tiling):
+    return dw.launch_plan(b, t_in, c, k, itemsize, dgrad=dgrad, x_ptr=x_ptr,
+                          **tiling)
+
+
+def _within_kernel_limits(p, itemsize, blocks=2 * 132):
+    assert p.smem_bytes <= 227 * 1024
+    assert p.block[0] * p.block[1] <= 256
+    assert p.block == (p.c_tile // p.vec, p.t_tile // dw.RT)
+    assert p.vec * itemsize in (8, 16) and p.c_tile % p.vec == 0
+    assert (p.c_tile * itemsize) % 16 == 0
+    assert p.rows <= 256 and p.c_tile <= 256
+    assert 1 <= p.grid[1] <= min(p.n_items, 65535) and p.grid[0] >= 1
+    # at most `blocks` (two per SM), rounded up to whole channel tiles
+    assert p.grid[1] * p.grid[0] < blocks + p.grid[0]
+    if p.route == "tma":
+        assert p.copy_bytes == 0
+        assert p.tma_box == (p.c_tile, p.rows, 1)
+        assert (p.tma_box[0] * itemsize) % 16 == 0
+    else:
+        assert p.copy_bytes in (4, 8, 16) and p.tma_box is None
+
+
+@pytest.mark.parametrize("k", [1, 7, 15, 31, 64])
+@pytest.mark.parametrize("c,itemsize,route,copy_bytes", [
+    (256, 4, "tma", 0), (256, 2, "tma", 0), (100, 2, "cp.async", 8),
+    (4, 4, "tma", 0), (4, 2, "cp.async", 8), (70, 4, "cp.async", 8),
+    (6, 2, "cp.async", 4)])
+@pytest.mark.parametrize("dgrad", [False, True])
+def test_launch_plan_routes_and_limits(k, c, itemsize, route, copy_bytes,
+                                       dgrad):
+    t = 212
+    p = _plan(8, t, c, k, itemsize, dgrad)
+    assert (p.route, p.copy_bytes) == (route, copy_bytes)
+    assert p.pad_left == (k - 1 if dgrad else 0)
+    assert p.t_out == (t + k - 1 if dgrad else t - k + 1)
+    assert p.rows == p.t_tile + k - 1
+    assert p.taps_in_registers == (k == 15)
+    _within_kernel_limits(p, itemsize)
+
+
+def test_launch_plan_at_the_main_path_shapes():
+    """[8, 212, 256] f32 forward: 4 channel tiles x 56 items, one item per
+    block; [22, 162, 256] f32 dgrad: 528 tiles on 2 x 132 blocks, two
+    items each, both in flight through the two-stage ring."""
+    p = _plan(8, 212, 256, 15, 4)
+    assert (p.route, p.grid, p.block, p.t_out) == ("tma", (4, 56), (16, 8),
+                                                   198)
+    assert p.smem_bytes == 128 + 2 * 46 * 256 + 16
+    p = _plan(22, 162, 256, 15, 4, dgrad=True)
+    assert (p.grid, p.n_items, p.t_out) == ((4, 66), 132, 176)
+    p = _plan(22, 162, 256, 15, 2, dgrad=True)
+    assert (p.route, p.vec, p.c_tile, p.grid) == ("tma", 4, 64, (4, 66))
+    assert p.smem_bytes == 128 + 2 * 46 * 128 + 16
+
+
+def test_launch_plan_grid_limits_at_large_batch_and_length():
+    for dgrad in (False, True):
+        for itemsize in (2, 4):
+            p = _plan(256, 2000, 256, 15, itemsize, dgrad)
+            assert p.n_items == 256 * -(-p.t_out // 32)
+            assert p.grid[1] <= 65535 and p.grid[0] * p.grid[1] <= 264
+            _within_kernel_limits(p, itemsize)
+
+
+def test_launch_plan_route_follows_the_input_address():
+    assert _plan(2, 40, 256, 15, 4, x_ptr=4).route == "cp.async"
+    assert _plan(2, 40, 256, 15, 4, x_ptr=4).copy_bytes == 4
+    assert _plan(2, 40, 256, 15, 2, x_ptr=8).copy_bytes == 8
+    assert _plan(2, 40, 256, 15, 2, x_ptr=32).route == "tma"
+
+
+@pytest.mark.parametrize("args,match", [
+    ((2, 40, 5, 7, 2), "multiples of 4 bytes"),       # odd C in bf16
+    ((2, 40, 256, 7, 2, False, 2), "multiples of 4"),  # 2-byte offset
+    ((2, 40, 8, 65, 4), "K <= 64"),
+    ((2, 10, 8, 15, 4), "empty"),                     # forward T_out < 1
+    ((2, 40, 8, 7, 8), "2- or 4-byte"),
+])
+def test_launch_plan_refuses_what_no_route_takes(args, match):
+    with pytest.raises(ValueError, match=match):
+        _plan(*args)
+
+
+def test_kernel_source_and_plan_share_their_constants():
+    """The plan is computed in Python and checked again in the kernel's
+    source; both must use the same tile constants."""
+    src = (nvcc.CSRC_DIR / dw.SOURCE).read_text()
+    for name in ("RT", "STAGES", "K_FIXED", "SMEM_MAX", "MAX_BOX",
+                 "MAX_THREADS"):
+        assert f"constexpr int {name} = {getattr(dw, name)};" in src, name
+    assert "launch_typed<__nv_bfloat16, 8>" in src
+    assert dw.C_TILE <= dw.MAX_BOX
+
+
+def _walk(plan, xin, w, dgrad, itemsize):
+    """numpy run of the kernel as planned: every block, every item it
+    walks, each item's zero-filled input window as the TMA box or the
+    cp.async copies build it, each thread's RT x VEC outputs. Returns
+    the float32 output and how many times each element was written."""
+    b_, t_in, c = xin.shape
+    k = w.shape[0]
+    taps = w[::-1] if dgrad else w
+    out = np.full((b_, plan.t_out, c), np.nan, np.float32)
+    writes = np.zeros(out.shape, np.int64)
+    for bx in range(plan.grid[0]):
+        c0 = bx * plan.c_tile
+        for by in range(plan.grid[1]):
+            for item in range(by, plan.n_items, plan.grid[1]):
+                b, tt = divmod(item, plan.t_tiles)
+                t0 = tt * plan.t_tile
+                lo = t0 - plan.pad_left
+                win = np.full((plan.rows, plan.c_tile), np.nan, np.float32)
+                if plan.route == "tma":
+                    box = np.zeros(plan.tma_box[1::-1], np.float32)
+                    for r in range(plan.rows):
+                        if 0 <= lo + r < t_in:
+                            ch = np.arange(c0, min(c0 + plan.c_tile, c))
+                            box[r, ch - c0] = xin[b, lo + r, ch]
+                    win[:] = box
+                else:
+                    e = plan.copy_bytes // itemsize
+                    for r in range(plan.rows):
+                        for q in range(plan.c_tile // e):
+                            cc = c0 + q * e
+                            if cc >= c:
+                                continue
+                            win[r, cc - c0:cc - c0 + e] = (
+                                xin[b, lo + r, cc:cc + e]
+                                if 0 <= lo + r < t_in else 0.0)
+                tp = np.zeros((k, plan.c_tile), np.float32)
+                tp[:, :min(plan.c_tile, c - c0)] = taps[:, c0:c0 + plan.c_tile]
+                acc = win[0:plan.t_tile] * tp[0]
+                for j in range(1, k):
+                    acc = acc + win[j:j + plan.t_tile] * tp[j]
+                for ty in range(plan.block[1]):
+                    for tx in range(plan.block[0]):
+                        r0, cl = ty * dw.RT, tx * plan.vec
+                        t_hi = min(t0 + r0 + dw.RT, plan.t_out)
+                        c_hi = min(c0 + cl + plan.vec, c)
+                        if t0 + r0 >= t_hi or c0 + cl >= c_hi:
+                            continue
+                        out[b, t0 + r0:t_hi, c0 + cl:c_hi] = acc[
+                            r0:r0 + t_hi - t0 - r0, cl:cl + c_hi - c0 - cl]
+                        writes[b, t0 + r0:t_hi, c0 + cl:c_hi] += 1
+    return out, writes
+
+
+@pytest.mark.parametrize("b,t_in,c,k,dtype,dgrad,tiling", [
+    (3, 40, 100, 7, torch.float32, False, {}),    # ragged C tile, TMA
+    (3, 40, 100, 7, torch.bfloat16, False, {}),   # cp.async, 8 B copies
+    (2, 75, 136, 15, torch.float32, False, {}),   # TMA, C not a tile multiple
+    (2, 75, 136, 15, torch.bfloat16, False, {}),
+    (3, 34, 100, 7, torch.float32, True, {}),
+    (3, 34, 100, 7, torch.bfloat16, True, {}),
+    (1, 1, 4, 15, torch.float32, True, {}),       # dgrad with T < K
+    (1, 1, 4, 15, torch.bfloat16, True, {}),
+    (2, 5, 12, 31, torch.float32, True, {}),      # runtime K, T < K
+    (2, 70, 64, 1, torch.float32, False, {}),
+    # the tilings chip_k3_bench.py sweeps
+    (2, 75, 136, 15, torch.bfloat16, True, {"vec": 8, "c_tile": 128}),
+    (3, 40, 100, 7, torch.bfloat16, False, {"vec": 8, "c_tile": 128}),
+    (4, 50, 72, 15, torch.float32, True, {"t_tile": 16, "blocks_per_sm": 4,
+                                          "num_sms": 3}),
+    (2, 75, 136, 15, torch.float32, False, {"t_tile": 64}),
+    (2, 75, 136, 15, torch.float32, False, {"c_tile": 128}),
+    (2, 75, 136, 15, torch.bfloat16, True, {"registers_for_taps": False,
+                                            "blocks_per_sm": 1,
+                                            "num_sms": 2}),
+])
+def test_plan_walk_is_the_plain_version_bit_for_bit(b, t_in, c, k, dtype,
+                                                    dgrad, tiling):
+    rng = np.random.default_rng(t_in * 1000 + c + k)
+    xin = torch.from_numpy(rng.standard_normal((b, t_in, c)).astype(
+        np.float32)).to(dtype)
+    w = torch.from_numpy((rng.standard_normal((k, c)) * 0.3).astype(
+        np.float32)).to(dtype)
+    itemsize = xin.element_size()
+    plan = _plan(b, t_in, c, k, itemsize, dgrad, **tiling)
+    _within_kernel_limits(plan, itemsize, tiling.get("blocks_per_sm", 2)
+                          * tiling.get("num_sms", 132))
+    out, writes = _walk(plan, xin.float().numpy(), w.float().numpy(), dgrad,
+                        itemsize)
+    assert (writes == 1).all()
+    got = torch.from_numpy(out).to(dtype)
+    ref = (dw.depthwise_conv1d_dgrad_plain(xin, w) if dgrad
+           else dw.depthwise_conv1d_plain(xin, w))
+    assert got.shape == ref.shape
+    assert torch.equal(got, ref)
+
+
+def test_ptxas_report_parses_each_entry():
+    log = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z3fooPf' for 'sm_90a'
+ptxas info    : Function properties for _Z3fooPf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 512 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z3barv' for 'sm_90a'
+ptxas info    : Function properties for _Z3barv
+    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 255 registers, 360 bytes cmem[0]
+"""
+    assert nvcc.ptxas_entries(log) == [
+        {"entry": "_Z3fooPf", "registers": 168, "spill_stores": 0,
+         "spill_loads": 0},
+        {"entry": "_Z3barv", "registers": 255, "spill_stores": 4,
+         "spill_loads": 12}]

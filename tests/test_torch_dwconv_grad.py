@@ -31,7 +31,11 @@ def _case(b, t, c, k, seed):
 
 
 @pytest.mark.parametrize("b,t,c,k", [(2, 19, 8, 15), (3, 40, 16, 7),
-                                     (1, 1, 4, 15), (5, 33, 24, 7)])
+                                     (1, 1, 4, 15), (5, 33, 24, 7),
+                                     # K = 31 (runtime-K kernel); C = 70
+                                     # and 136 are not multiples of the
+                                     # 64-channel float32 tile
+                                     (2, 24, 70, 31), (3, 9, 136, 15)])
 def test_grads_match_jax(b, t, c, k):
     x, w, dy = _case(b, t, c, k, seed=b * 100 + t)
 
@@ -87,6 +91,26 @@ def test_cpu_backward_never_reaches_a_kernel(monkeypatch):
     dw.depthwise_conv1d(xt, wt).backward(torch.from_numpy(dy))
     assert (dw.depthwise_conv1d.launches, dw.depthwise_conv1d_dgrad.launches,
             dw.depthwise_conv1d_wgrad.launches) == before
+
+
+def test_dgrad_rejects_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError):
+        dw.depthwise_conv1d_dgrad(torch.zeros(2, 6, 8), torch.zeros(15, 4))
+    with pytest.raises(TypeError):
+        dw.depthwise_conv1d_dgrad(torch.zeros(2, 6, 8, dtype=torch.float16),
+                                  torch.zeros(15, 8))
+    with pytest.raises(ValueError, match="contiguous"):
+        dw.depthwise_conv1d_dgrad(torch.zeros(2, 8, 6).transpose(1, 2),
+                                  torch.zeros(15, 8))
+
+
+def test_dgrad_casts_w_to_dy_dtype():
+    x, w, dy = _case(2, 12, 8, 7, seed=5)
+    dyb = torch.from_numpy(dy).bfloat16()
+    out = dw.depthwise_conv1d_dgrad(dyb, torch.from_numpy(w))
+    assert out.dtype == torch.bfloat16 and out.shape == (2, 18, 8)
+    assert torch.equal(out, dw.depthwise_conv1d_dgrad_plain(
+        dyb, torch.from_numpy(w).bfloat16()))
 
 
 def test_wgrad_rejects_mismatched_shapes():
