@@ -1,38 +1,29 @@
-"""Times K3's forward and dgrad on one NVIDIA GPU.
+"""Times K3's forward and dgrad on one NVIDIA GPU, in one checkout.
 
-    python3 chip_k3_bench.py ab PARENT_DIR CHANGE_DIR
-    python3 chip_k3_bench.py sweep
+    python3 chip_k3_bench.py [TREE]
 
-``ab`` compares two checkouts of this repository on the same card. It
-runs four turns, parent, change, change, parent. Each turn is a process
-started in that checkout, which imports its chip_smoke.py and calls
-kernel_case (the forward) and dwconv_grad_case (dgrad and wgrad) at the
-shapes of the main path in float32 and bfloat16: each call checks the
-kernel against its plain version and times the kernel, the plain version
-and the library call from CUDA-graph replays. After a checkout's first
-turn the SASS of its K3 library is saved (cuobjdump). Prints one JSON
-line per case with each checkout's times, the median of its two turns;
-writes every row to chiprun_out/k3_ab.json and the SASS to
-chiprun_out/k3_ab_sass_<parent|change>.txt.
-
-``sweep`` times this checkout's kernel at the main path's forward and
-dgrad shapes under several tilings (channels per thread, channels and
-output rows per item, blocks per SM, taps in registers or in shared
-memory; see openeat_torch/ops/depthwise_conv.py:launch_plan), each
-checked bit for bit against the plain version, in two
-passes (the tilings in order, then reversed; the median of both), beside
-a copy of the input (Tensor.copy_) as a yardstick of what moving the
-same bytes costs. Writes chiprun_out/k3_sweep.json.
+Runs with TREE's openeat_torch and chip_smoke.py (default: the checkout
+that holds this script). At the main path's shapes, in float32 and
+bfloat16, chip_smoke's kernel_case (the forward) and dwconv_grad_case
+(dgrad and wgrad) check each kernel against its plain version and time
+the kernel, the plain version and the library call from CUDA-graph
+replays. Beside them it times a ``Tensor.copy_`` of the kernel's input
+(what moving those bytes costs at this size) and the host's microseconds
+per call of ``depthwise_conv1d`` and ``depthwise_conv1d_dgrad``: the
+wrapper's whole host path, launch included, median of 400 calls. Prints
+one JSON line per case and appends them, with the card and TREE, to
+chiprun_out/k3_bench.jsonl. To compare two checkouts, run both in one
+call on one card, in the order parent, change, change, parent.
 """
 
 from __future__ import annotations
 
-import glob
 import json
 import os
 import statistics
 import subprocess
 import sys
+import time
 
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "chiprun_out")
@@ -43,153 +34,74 @@ FORWARD_SHAPES = [(8, 162, 256, 15), (8, 212, 256, 15), (22, 162, 256, 15),
 DGRAD_SHAPES = [(22, 162, 256, 15), (14, 212, 256, 15), (6, 512, 256, 15),
                 (12, 212, 256, 15)]
 
-TURN = """
-import json, sys, torch
-import chip_smoke as cs
-torch.backends.cudnn.allow_tf32 = False
-torch.backends.cuda.matmul.allow_tf32 = False
-gen = torch.Generator(device="cuda").manual_seed(20261016)
-for kind, shapes, case in (("forward", %r, cs.kernel_case),
-                           ("backward", %r, cs.dwconv_grad_case)):
-    for shape in shapes:
-        for dtype in (torch.float32, torch.bfloat16):
-            row = case(*shape, dtype, gen)
-            print("ROW " + json.dumps(dict(row, kind=kind)), flush=True)
-""" % (FORWARD_SHAPES, DGRAD_SHAPES)
+
+def host_us(call, n: int = 400) -> float:
+    """Median host microseconds of one call, the card drained every 50
+    calls (outside the timing) so that no launch waits on a full queue."""
+    import torch
+    for _ in range(20):
+        call()
+    torch.cuda.synchronize()
+    times = []
+    for i in range(n):
+        t0 = time.perf_counter_ns()
+        call()
+        times.append(time.perf_counter_ns() - t0)
+        if i % 50 == 49:
+            torch.cuda.synchronize()
+    return statistics.median(times) / 1e3
 
 
-def run_turn(label: str, tree: str) -> list[dict]:
-    proc = subprocess.run([sys.executable, "-c", TURN], cwd=tree,
-                          capture_output=True, text=True, timeout=900)
-    if proc.returncode != 0:
-        raise RuntimeError(f"{label} turn failed ({proc.returncode}):\n"
-                           f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
-    return [dict(json.loads(line[4:]), tree=label)
-            for line in proc.stdout.splitlines() if line.startswith("ROW ")]
-
-
-def save_sass(label: str, tree: str) -> None:
-    libs = glob.glob(os.path.join(tree, "openeat_torch", "_build",
-                                  "depthwise_conv_*.so"))
-    cuobjdump = "/usr/local/cuda/bin/cuobjdump"
-    if len(libs) != 1 or not os.path.exists(cuobjdump):
-        raise RuntimeError(f"no single K3 library or cuobjdump: {libs}")
-    proc = subprocess.run([cuobjdump, "-sass", libs[0]], capture_output=True,
-                          text=True, check=True, timeout=300)
-    with open(os.path.join(OUT_DIR, f"k3_ab_sass_{label}.txt"), "w") as f:
-        f.write(proc.stdout)
-
-
-def card_line() -> str:
-    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True, timeout=60).stdout.strip()
-
-
-# launch_plan's tiling arguments, each against its defaults; the second
-# is 16 bytes per thread in bfloat16 too (float32 has no 8-channel build)
-TILINGS = [{}, {"vec": 8, "c_tile": 128}, {"c_tile": 128}, {"t_tile": 16},
-           {"t_tile": 16, "blocks_per_sm": 4}, {"t_tile": 64},
-           {"blocks_per_sm": 1}, {"registers_for_taps": False}]
-SWEEP_CASES = [("forward", (8, 212, 256, 15)), ("forward", (22, 162, 256, 15)),
-               ("dgrad", (22, 162, 256, 15)), ("dgrad", (12, 212, 256, 15))]
-
-
-def sweep() -> None:
+def main() -> None:
+    tree = os.path.abspath(sys.argv[1] if len(sys.argv) > 1
+                           else os.path.dirname(os.path.abspath(__file__)))
+    if len(sys.argv) > 2:
+        raise SystemExit(__doc__)
+    os.chdir(tree)
+    sys.path.insert(0, tree)
     import torch
 
     import chip_smoke as cs
     from openeat_torch.ops import depthwise_conv as dw
-    card = card_line()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True, timeout=60).stdout.strip()
     print(card, flush=True)
+    torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(20261016)
     rows = []
-    for kind, (b, tp, c, k) in SWEEP_CASES:
-        dgrad = kind == "dgrad"
-        for dtype in (torch.float32, torch.bfloat16):
-            shape = (b, tp - k + 1, c) if dgrad else (b, tp, c)
-            src = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-            w = (torch.randn((k, c), generator=gen, device="cuda")
-                 * 0.3).to(dtype)
-            ref = (dw.depthwise_conv1d_dgrad_plain(src, w) if dgrad
-                   else dw.depthwise_conv1d_plain(src, w))
-            item = src.element_size()
-            n = cs._n_copies((src.numel() + ref.numel()) * item)
-            srcs = [src.clone() for _ in range(n)]
-            dsts = [torch.empty_like(src) for _ in range(n)]
-            times: dict = {}
-            for order in (TILINGS, TILINGS[::-1]):
-                times.setdefault("copy", []).append(cs.device_ms(
-                    lambda i: dsts[i].copy_(srcs[i]), n))
-                for tiling in order:
-                    name = ",".join(f"{key}={v}"
-                                    for key, v in tiling.items()) or "default"
-                    if tiling.get("vec") == 8 and dtype == torch.float32:
-                        continue
-                    out = dw.launch(src, w, dw.device_plan(src, k, dgrad,
-                                                           **tiling))
-                    if not torch.equal(out, ref):
-                        raise AssertionError(f"{kind} {shape} {dtype} "
-                                             f"{tiling} differs from plain")
-                    times.setdefault(name, []).append(
-                        cs.device_ms(lambda i: dw.launch(
-                            srcs[i], w, dw.device_plan(srcs[i], k, dgrad,
-                                                       **tiling)), n))
-            bound_ms, _ = cs._bound((src.numel() + w.numel() + ref.numel())
-                                    * item, 2 * ref.numel() * k)
-            row = {"kind": kind, "shape": [b, tp, c], "k": k,
-                   "dtype": str(dtype).split(".")[-1], "bound_ms": bound_ms,
-                   "copy_ms": statistics.median(times.pop("copy")),
-                   "tilings": {name: statistics.median(v)
-                               for name, v in times.items()}}
-            rows.append(row)
-            print(json.dumps(row), flush=True)
+    for kind, shapes in (("forward", FORWARD_SHAPES),
+                         ("backward", DGRAD_SHAPES)):
+        for b, tp, c, k in shapes:
+            for dtype in (torch.float32, torch.bfloat16):
+                if kind == "forward":
+                    row = cs.kernel_case(b, tp, c, k, dtype, gen)
+                    src = torch.randn((b, tp, c), generator=gen,
+                                      device="cuda").to(dtype)
+                else:
+                    row = cs.dwconv_grad_case(b, tp, c, k, dtype, gen)
+                    src = torch.randn((b, tp - k + 1, c), generator=gen,
+                                      device="cuda").to(dtype)
+                w = (torch.randn((k, c), generator=gen, device="cuda")
+                     * 0.3).to(dtype)
+                n = cs._n_copies(2 * src.numel() * src.element_size())
+                srcs = [src.clone() for _ in range(n)]
+                dsts = [torch.empty_like(src) for _ in range(n)]
+                row["copy_ms"] = cs.device_ms(
+                    lambda i: dsts[i].copy_(srcs[i]), n)
+                if kind == "forward":
+                    row["host_us"] = host_us(
+                        lambda: dw.depthwise_conv1d(src, w))
+                else:
+                    row["dgrad_host_us"] = host_us(
+                        lambda: dw.depthwise_conv1d_dgrad(src, w))
+                row.update(kind=kind, tree=tree, card=card)
+                rows.append(row)
+                print(json.dumps(row), flush=True)
     os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "k3_sweep.json"), "w") as f:
-        json.dump({"card": card, "rows": rows}, f, indent=1)
-
-
-def ab(parent: str, change: str) -> None:
-    parent, change = os.path.abspath(parent), os.path.abspath(change)
-    os.makedirs(OUT_DIR, exist_ok=True)
-    card = card_line()
-    print(card, flush=True)
-    rows = []
-    for i, (label, tree) in enumerate((("parent", parent), ("change", change),
-                                       ("change", change),
-                                       ("parent", parent))):
-        turn = run_turn(label, tree)
-        for r in turn:
-            r["turn"] = i
-        rows += turn
-        if i < 2:
-            save_sass(label, tree)
-    with open(os.path.join(OUT_DIR, "k3_ab.json"), "w") as f:
-        json.dump({"card": card, "rows": rows}, f, indent=1)
-    keys = {(r["kind"], tuple(r["shape"]), r["dtype"]) for r in rows}
-    for kind, shape, dtype in sorted(keys):
-        mine = [r for r in rows if (r["kind"], tuple(r["shape"]),
-                                    r["dtype"]) == (kind, shape, dtype)]
-        prefix = "" if kind == "forward" else "dgrad_"
-        line = {"kind": kind, "shape": list(shape), "dtype": dtype,
-                "bound_ms": mine[0][f"{prefix}bound_ms"]}
-        for label in ("parent", "change"):
-            for key in ("ms", "plain_ms", "library_ms"):
-                line[f"{label}_{prefix}{key}"] = statistics.median(
-                    r[f"{prefix}{key}"] for r in mine if r["tree"] == label)
-        if kind == "backward":
-            line["change_wgrad_ms"] = statistics.median(
-                r["wgrad_ms"] for r in mine if r["tree"] == "change")
-        print(json.dumps(line), flush=True)
-
-
-def main() -> None:
-    if sys.argv[1:2] == ["ab"] and len(sys.argv) == 4:
-        ab(sys.argv[2], sys.argv[3])
-    elif sys.argv[1:] == ["sweep"]:
-        sweep()
-    else:
-        raise SystemExit(__doc__)
+    with open(os.path.join(OUT_DIR, "k3_bench.jsonl"), "a") as f:
+        for row in rows:
+            f.write(json.dumps(row) + "\n")
 
 
 if __name__ == "__main__":

@@ -32,7 +32,9 @@
 // out at the decode shape [8, 212, 256] float32), so the kernel has to put
 // all of its loads in flight at once, and at that size a launch and a
 // round trip to device memory cost about as much as the bytes
-// (chip_k3_bench.py times a plain copy of the same input beside it):
+// (chip_k3_bench.py times a plain copy of the same input beside it).
+// The tiles are fixed: other tilings (16 or 64 rows, 128 channels, one or
+// four blocks per SM) measured no faster on the H100 (PERF.md).
 // - A block owns one channel tile (C_TILE = 64 channels) for its whole
 //   life, keeps that tile's K x VEC taps in float32 registers (the
 //   compile-time K = 15 instance; other K read them from shared memory),
@@ -56,10 +58,11 @@
 //   bfloat16 channels a thread (16-byte accesses) halve the threads and
 //   double each one's multiply-adds, and measured slower; so do taps read
 //   with vector loads, which the compiler keeps packed and widens at every
-//   use (the VEC = 8 bfloat16 build stays for chip_k3_bench.py's sweep).
-// The launch plan (route, tiles, grid, shared memory) is computed by
-// openeat_torch/ops/depthwise_conv.py:launch_plan, which the CPU tests
-// reach, and checked here before the launch.
+//   use.
+// The caller picks the route (TMA or the cp.async copy size) from x's
+// address; launch_conv derives the tiles, the grid and the shared memory
+// from the constants below. openeat_torch/ops/depthwise_conv.py:
+// launch_plan states the same plan in Python, so the CPU tests reach it.
 //
 // The backward's wgrad (openeat_dwconv1d_wgrad below) is a [K, C]
 // reduction over B*T, also bound by bytes: it must read x and dy once
@@ -77,10 +80,14 @@ namespace {
 // ---------------------------------------------------------------- forward
 // and dgrad
 
+constexpr int VEC = 4;           // channels per thread
 constexpr int RT = 4;            // output rows per thread
+constexpr int C_TILE = 64;       // most channels per block (wgrad: exactly)
+constexpr int T_TILE = 32;       // output rows per item (wgrad: per block)
 constexpr int STAGES = 2;        // ring of input windows per block
+constexpr int BLOCKS_PER_SM = 2; // the persistent grid's occupancy
 constexpr int K_FIXED = 15;      // the compile-time K (the Conformer's)
-constexpr int MAX_THREADS = 256;
+constexpr int THREADS = C_TILE / VEC * (T_TILE / RT);  // at most
 constexpr int MAX_BOX = 256;     // a TMA box dimension's limit
 constexpr int SMEM_MAX = 232448; // dynamic shared memory a block may use
 constexpr int ERR_TENSOR_MAP = 10000;  // + the CUresult of the encoding
@@ -90,7 +97,7 @@ struct Params {
   const void* w;    // [k, c]
   void* out;        // [batch, t_out, c]
   int t_in, c, k, pad_left, t_out, flip;
-  int c_tile, t_tile, rows, t_tiles, n_items, stage_bytes;
+  int c_tile, rows, t_tiles, n_items, stage_bytes;
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -107,9 +114,9 @@ __device__ __forceinline__ void store_from_f32(__nv_bfloat16* p, float v) {
 }
 
 // VEC values of shared memory -> float32 (bfloat16 widens exactly: its
-// bits are the high half of the float32's): one 16-byte load, or 8 bytes
-// for 4 bfloat16
-__device__ __forceinline__ void load_vec(const float* p, float (&v)[4]) {
+// bits are the high half of the float32's): one 16-byte load of float32,
+// one 8-byte load of bfloat16
+__device__ __forceinline__ void load_vec(const float* p, float (&v)[VEC]) {
   const float4 q = *reinterpret_cast<const float4*>(p);
   v[0] = q.x;
   v[1] = q.y;
@@ -117,18 +124,7 @@ __device__ __forceinline__ void load_vec(const float* p, float (&v)[4]) {
   v[3] = q.w;
 }
 __device__ __forceinline__ void load_vec(const __nv_bfloat16* p,
-                                         float (&v)[8]) {
-  const uint4 q = *reinterpret_cast<const uint4*>(p);
-  const uint32_t u[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    v[2 * i] = __uint_as_float(u[i] << 16);
-    v[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
-  }
-}
-
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p,
-                                         float (&v)[4]) {
+                                         float (&v)[VEC]) {
   const uint2 q = *reinterpret_cast<const uint2*>(p);
   v[0] = __uint_as_float(q.x << 16);
   v[1] = __uint_as_float(q.x & 0xffff0000u);
@@ -136,7 +132,7 @@ __device__ __forceinline__ void load_vec(const __nv_bfloat16* p,
   v[3] = __uint_as_float(q.y & 0xffff0000u);
 }
 
-__device__ __forceinline__ void store_vec(float* p, const float (&v)[4]) {
+__device__ __forceinline__ void store_vec(float* p, const float (&v)[VEC]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
@@ -144,20 +140,14 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
          | ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
 }
 __device__ __forceinline__ void store_vec(__nv_bfloat16* p,
-                                          const float (&v)[8]) {
-  *reinterpret_cast<uint4*>(p) =
-      make_uint4(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]),
-                 pack_bf16x2(v[4], v[5]), pack_bf16x2(v[6], v[7]));
-}
-__device__ __forceinline__ void store_vec(__nv_bfloat16* p,
-                                          const float (&v)[4]) {
+                                          const float (&v)[VEC]) {
   *reinterpret_cast<uint2*>(p) =
       make_uint2(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]));
 }
 
 // n_valid channels from p on: one vector store where the whole vector is
 // valid and aligned (always, on the TMA route), else one per element
-template <typename T, int VEC>
+template <typename T>
 __device__ __forceinline__ void store_out(T* p, const float (&v)[VEC],
                                           int n_valid) {
   if (n_valid >= VEC &&
@@ -245,7 +235,7 @@ __device__ __forceinline__ void cp_async_wait() {
 // RT output rows from the window rows at xs (row stride `stride`
 // elements) with the K taps in registers. Input row i reaches output rows
 // o = i - j; i ascends, so each output still sums j = 0..K-1 in order.
-template <int KC, typename T, int VEC>
+template <int KC, typename T>
 __device__ __forceinline__ void conv_reg_taps(const T* xs, int stride,
                                               const float (&tap)[KC][VEC],
                                               float (&acc)[RT][VEC]) {
@@ -269,20 +259,13 @@ __device__ __forceinline__ void conv_reg_taps(const T* xs, int stride,
 
 // The same sum for a runtime k, with the taps in shared memory: float32
 // rows of `stride` values, this thread's VEC channels at ws.
-template <typename T, int VEC>
+template <typename T>
 __device__ __forceinline__ void conv_smem_taps(const T* xs, int stride,
                                                const float* ws, int k,
                                                float (&acc)[RT][VEC]) {
   for (int j = 0; j < k; ++j) {
     float tv[VEC];
-#pragma unroll
-    for (int q = 0; q < VEC; q += 4) {
-      const float4 t4 = *reinterpret_cast<const float4*>(ws + j * stride + q);
-      tv[q] = t4.x;
-      tv[q + 1] = t4.y;
-      tv[q + 2] = t4.z;
-      tv[q + 3] = t4.w;
-    }
+    load_vec(ws + j * stride, tv);
 #pragma unroll
     for (int o = 0; o < RT; ++o) {
       float xv[VEC];
@@ -300,10 +283,9 @@ __device__ __forceinline__ void conv_smem_taps(const T* xs, int stride,
 // copies of G bytes from p.x (map unused). KC = K_FIXED keeps the taps in
 // registers; KC = 0 takes p.k at run time. A thread computes VEC channels
 // of RT output rows.
-template <typename T, int KC, int G, int VEC>
-__global__ void __launch_bounds__(MAX_THREADS)
+template <typename T, int KC, int G>
+__global__ void __launch_bounds__(THREADS)
     dwconv1d_kernel(const __grid_constant__ CUtensorMap map, const Params p) {
-  static_assert(VEC == 4 || (VEC == 8 && sizeof(T) == 2), "16 or 8 bytes");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((128 - (smem_u32(smem_raw) & 127)) & 127);
   unsigned char* tiles = smem;  // STAGES x [rows][c_tile] of T
@@ -325,7 +307,7 @@ __global__ void __launch_bounds__(MAX_THREADS)
   auto request = [&](int n) {
     const int item = first + n * gridDim.y;
     const int b = item / p.t_tiles;
-    const int t_lo = (item % p.t_tiles) * p.t_tile - p.pad_left;
+    const int t_lo = (item % p.t_tiles) * T_TILE - p.pad_left;
     unsigned char* dst = tiles + (n % STAGES) * p.stage_bytes;
     if constexpr (G == 0) {
       mbar_expect_tx(&full[n % STAGES],
@@ -395,7 +377,7 @@ __global__ void __launch_bounds__(MAX_THREADS)
     }
     const int item = first + n * gridDim.y;
     const int b = item / p.t_tiles;
-    const int t0 = (item % p.t_tiles) * p.t_tile;
+    const int t0 = (item % p.t_tiles) * T_TILE;
     const T* xs = reinterpret_cast<const T*>(tiles + s * p.stage_bytes) +
                   r0 * p.c_tile + cl;
     float acc[RT][VEC];
@@ -452,7 +434,7 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-template <typename T, int KC, int G, int VEC>
+template <typename T, int KC, int G>
 int launch_instance(const CUtensorMap& map, const Params& p, dim3 grid,
                     dim3 block, int smem, cudaStream_t stream) {
   // allowed once per instance, before any capture can start, so that a
@@ -460,87 +442,95 @@ int launch_instance(const CUtensorMap& map, const Params& p, dim3 grid,
   static bool smem_raised = false;
   if (!smem_raised) {
     const cudaError_t e = cudaFuncSetAttribute(
-        dwconv1d_kernel<T, KC, G, VEC>,
+        dwconv1d_kernel<T, KC, G>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
     if (e != cudaSuccess) return (int)e;
     smem_raised = true;
   }
-  dwconv1d_kernel<T, KC, G, VEC><<<grid, block, smem, stream>>>(map, p);
+  dwconv1d_kernel<T, KC, G><<<grid, block, smem, stream>>>(map, p);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int KC, int VEC>
+template <typename T, int KC>
 int launch_route(int copy_bytes, const CUtensorMap& map, const Params& p,
                  dim3 grid, dim3 block, int smem, cudaStream_t stream) {
   switch (copy_bytes) {
     case 0:
-      return launch_instance<T, KC, 0, VEC>(map, p, grid, block, smem,
-                                            stream);
+      return launch_instance<T, KC, 0>(map, p, grid, block, smem, stream);
     case 4:
-      return launch_instance<T, KC, 4, VEC>(map, p, grid, block, smem,
-                                            stream);
+      return launch_instance<T, KC, 4>(map, p, grid, block, smem, stream);
     case 8:
-      return launch_instance<T, KC, 8, VEC>(map, p, grid, block, smem,
-                                            stream);
+      return launch_instance<T, KC, 8>(map, p, grid, block, smem, stream);
     case 16:
-      return launch_instance<T, KC, 16, VEC>(map, p, grid, block, smem,
-                                             stream);
+      return launch_instance<T, KC, 16>(map, p, grid, block, smem, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-template <typename T, int VEC>
-int launch_typed(bool reg_taps, int copy_bytes, const CUtensorMap& map,
-                 const Params& p, dim3 grid, dim3 block, int smem,
-                 cudaStream_t stream) {
-  if (reg_taps) {
-    return launch_route<T, K_FIXED, VEC>(copy_bytes, map, p, grid, block,
-                                         smem, stream);
+// the taps in registers for the compile-time K, else in shared memory
+template <typename T>
+int launch_typed(int copy_bytes, const CUtensorMap& map, const Params& p,
+                 dim3 grid, dim3 block, int smem, cudaStream_t stream) {
+  if (p.k == K_FIXED) {
+    return launch_route<T, K_FIXED>(copy_bytes, map, p, grid, block, smem,
+                                    stream);
   }
-  return launch_route<T, 0, VEC>(copy_bytes, map, p, grid, block, smem,
-                                 stream);
+  return launch_route<T, 0>(copy_bytes, map, p, grid, block, smem, stream);
 }
 
 bool aligned(const void* ptr, long long bytes) {
   return reinterpret_cast<uintptr_t>(ptr) % (uintptr_t)bytes == 0;
 }
 
-// Checks the plan against what the kernel assumes, encodes the tensor map
-// on the TMA route (copy_bytes == 0) and launches.
+// SMs of the current device, asked once per device
+int num_sms() {
+  static int sms[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (sms[dev] == 0) {
+    cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+  }
+  return sms[dev];
+}
+
+// Cuts the problem into the kernel's tiles and grid, checks that the
+// route (copy_bytes: 0 = TMA, else the cp.async size) fits x, encodes the
+// tensor map on the TMA route and launches.
 int launch_conv(const void* x, const void* w, void* out, int batch, int t_in,
                 int c, int k, int pad_left, int t_out, int flip, int dtype,
-                int vec, int c_tile, int t_tile, int reg_taps, int grid_y,
-                int copy_bytes, int smem_bytes, void* stream) {
-  if ((dtype != 0 && dtype != 1) || (reg_taps && k != K_FIXED)) {
-    return (int)cudaErrorInvalidValue;
-  }
+                int copy_bytes, void* stream) {
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   const int item = dtype == 0 ? 4 : 2;
-  if (vec != 4 && !(vec == 8 && item == 2)) return (int)cudaErrorInvalidValue;
-  if (batch <= 0 || t_in <= 0 || c <= 0 || k <= 0 || t_out <= 0 ||
-      c_tile <= 0 || c_tile % vec != 0 || c_tile > MAX_BOX ||
-      t_tile <= 0 || t_tile % RT != 0) {
+  if (batch <= 0 || t_in <= 0 || c <= 0 || k <= 0 || t_out <= 0) {
     return (int)cudaErrorInvalidValue;
   }
-  const int rows = t_tile + k - 1;
-  const long long threads = (long long)(c_tile / vec) * (t_tile / RT);
-  const long long t_tiles = (t_out + t_tile - 1) / t_tile;
+  // a channel tile of whole vectors and whole 16-byte rows (TMA boxes,
+  // 16-byte copies), no wider than C needs
+  const int step = 16 / item > VEC ? 16 / item : VEC;
+  const int c_round = (c + step - 1) / step * step;
+  const int c_tile = c_round < C_TILE ? c_round : C_TILE;
+  const int rows = T_TILE + k - 1;
+  const long long t_tiles = (t_out + T_TILE - 1) / T_TILE;
   const long long n_items = (long long)batch * t_tiles;
+  const int n_ctiles = (c + c_tile - 1) / c_tile;
+  const int sms = num_sms();
   const long long stage_bytes =
       ((long long)rows * c_tile * item + 127) / 128 * 128;
-  const long long need = 128 + STAGES * stage_bytes +
-                         (reg_taps ? 0 : (long long)k * c_tile * 4) +
+  const long long smem = 128 + STAGES * stage_bytes +
+                         (k == K_FIXED ? 0 : (long long)k * c_tile * 4) +
                          STAGES * 8;
-  if (rows > MAX_BOX || threads > MAX_THREADS || n_items > 0x7fffffffLL ||
-      grid_y <= 0 || grid_y > 65535 || grid_y > n_items ||
-      smem_bytes < need || smem_bytes > SMEM_MAX) {
+  if (rows > MAX_BOX || n_items > 0x7fffffffLL || sms <= 0 ||
+      smem > SMEM_MAX) {
     return (int)cudaErrorInvalidValue;
   }
+  long long grid_y = (BLOCKS_PER_SM * sms + n_ctiles - 1) / n_ctiles;
+  if (grid_y > n_items) grid_y = n_items;
+  if (grid_y > 65535) grid_y = 65535;
   const long long row_bytes = (long long)c * item;
   alignas(64) CUtensorMap map{};
   if (copy_bytes == 0) {
-    if (!aligned(x, 16) || !aligned(out, 16) || row_bytes % 16 != 0 ||
-        c_tile * item % 16 != 0) {
+    if (!aligned(x, 16) || !aligned(out, 16) || row_bytes % 16 != 0) {
       return (int)cudaErrorInvalidValue;
     }
     EncodeTiled encode = encode_tiled();
@@ -560,8 +550,7 @@ int launch_conv(const void* x, const void* w, void* out, int batch, int t_in,
         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     if (r != CUDA_SUCCESS) return ERR_TENSOR_MAP + (int)r;
   } else if (copy_bytes == 4 || copy_bytes == 8 || copy_bytes == 16) {
-    if (!aligned(x, copy_bytes) || row_bytes % copy_bytes != 0 ||
-        c_tile * item % copy_bytes != 0) {
+    if (!aligned(x, copy_bytes) || row_bytes % copy_bytes != 0) {
       return (int)cudaErrorInvalidValue;
     }
   } else {
@@ -578,31 +567,25 @@ int launch_conv(const void* x, const void* w, void* out, int batch, int t_in,
   p.t_out = t_out;
   p.flip = flip;
   p.c_tile = c_tile;
-  p.t_tile = t_tile;
   p.rows = rows;
   p.t_tiles = (int)t_tiles;
   p.n_items = (int)n_items;
   p.stage_bytes = (int)stage_bytes;
-  const dim3 grid((c + c_tile - 1) / c_tile, grid_y);
-  const dim3 block(c_tile / vec, t_tile / RT);
+  const dim3 grid(n_ctiles, (unsigned)grid_y);
+  const dim3 block(c_tile / VEC, T_TILE / RT);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return launch_typed<float, 4>(reg_taps, copy_bytes, map, p, grid, block,
-                                  smem_bytes, s);
+    return launch_typed<float>(copy_bytes, map, p, grid, block, (int)smem, s);
   }
-  if (vec == 8) {
-    return launch_typed<__nv_bfloat16, 8>(reg_taps, copy_bytes, map, p, grid,
-                                          block, smem_bytes, s);
-  }
-  return launch_typed<__nv_bfloat16, 4>(reg_taps, copy_bytes, map, p, grid,
-                                        block, smem_bytes, s);
+  return launch_typed<__nv_bfloat16>(copy_bytes, map, p, grid, block,
+                                     (int)smem, s);
 }
 
 // ---------------------------------------------------------------- wgrad
 
-constexpr int C_TILE = 64;  // channels per block, threads along x
-constexpr int T_ROWS = 4;   // threads along y
-constexpr int T_TILE = 32;  // output time steps per block
+// A block of C_TILE x T_ROWS threads owns C_TILE channels and T_TILE
+// output time steps.
+constexpr int T_ROWS = 4;  // threads along y
 
 // wgrad, pass 1. dw[j, c] = sum_{b,t} x[b, t+j, c] * dy[b, t, c], the
 // weight gradient that the JAX package leaves to XLA (ops/
@@ -674,33 +657,26 @@ __global__ void dwconv1d_wgrad_reduce_kernel(const float* __restrict__ partial,
 // Forward: x [batch, tp, c] and w [k, c] give out [batch, tp-k+1, c].
 // Dgrad: dy [batch, t, c] and the forward's w [k, c] give dx
 // [batch, t+k-1, c]. dtype: 0 = float32, 1 = bfloat16, shared by all
-// three tensors, which are contiguous. vec, c_tile, t_tile, reg_taps
-// (K == 15 only), grid_y,
-// copy_bytes (0 = TMA, else the cp.async size) and smem_bytes are the
-// fields of openeat_torch/ops/depthwise_conv.py:launch_plan. Each
+// three tensors, which are contiguous. copy_bytes is the route that
+// openeat_torch/ops/depthwise_conv.py:launch_plan picks from the input's
+// address: 0 = TMA, else the cp.async copy size (4, 8 or 16). Each
 // launches one kernel on `stream` and returns cudaGetLastError() (0 on
-// success), cudaErrorInvalidValue for a plan the kernel does not take,
-// or 10000 + the CUresult where the tensor map cannot be encoded.
+// success), cudaErrorInvalidValue for a problem or route the kernel does
+// not take, or 10000 + the CUresult where the tensor map cannot be
+// encoded.
 extern "C" int openeat_dwconv1d_fwd(const void* x, const void* w, void* out,
                                     int batch, int tp, int c, int k,
-                                    int dtype, int vec, int c_tile,
-                                    int t_tile, int reg_taps, int grid_y,
-                                    int copy_bytes, int smem_bytes,
-                                    void* stream) {
+                                    int dtype, int copy_bytes, void* stream) {
   return launch_conv(x, w, out, batch, tp, c, k, 0, tp - k + 1, 0, dtype,
-                     vec, c_tile, t_tile, reg_taps, grid_y, copy_bytes,
-                     smem_bytes, stream);
+                     copy_bytes, stream);
 }
 
 extern "C" int openeat_dwconv1d_dgrad(const void* dy, const void* w,
                                       void* dx, int batch, int t, int c,
-                                      int k, int dtype, int vec, int c_tile,
-                                      int t_tile, int reg_taps, int grid_y,
-                                      int copy_bytes, int smem_bytes,
+                                      int k, int dtype, int copy_bytes,
                                       void* stream) {
   return launch_conv(dy, w, dx, batch, t, c, k, k - 1, t + k - 1, 1, dtype,
-                     vec, c_tile, t_tile, reg_taps, grid_y, copy_bytes,
-                     smem_bytes, stream);
+                     copy_bytes, stream);
 }
 
 // Scratch that openeat_dwconv1d_wgrad needs in `partial`, in float32

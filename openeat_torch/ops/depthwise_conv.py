@@ -19,7 +19,8 @@ channels per thread per access (16 bytes of float32, 8 of bfloat16).
 The dgrad reads dy and the forward's w as they are: its K-1 halo is the
 loads' zero fill and its reversed taps a read order, so it is one
 launch. :func:`launch_plan` is the launch
-decision in Python, so the CPU tests reach it. wgrad writes per-block
+decision in Python (the route it passes, the tiles the kernel's launcher
+derives), so the CPU tests reach it. wgrad writes per-block
 partial sums and adds them in a second pass in a fixed order (no float
 atomics), so two runs give the same bits.
 
@@ -94,42 +95,38 @@ def _check(x: torch.Tensor, w: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name}: unsupported device {x.device}")
 
 
-# The kernel's shape (openeat_torch/csrc/depthwise_conv.cu): RT output
-# rows per thread, a ring of STAGES input windows per block, the taps in
-# registers for K_FIXED; and the plan's defaults: VEC channels per thread,
-# C_TILE channels and T_TILE output rows per item, at most BLOCKS_PER_SM
-# blocks per SM.
-RT = 4
-STAGES = 2
-K_FIXED = 15
-K_MAX = 64
+# The kernel's fixed tiling (openeat_torch/csrc/depthwise_conv.cu): VEC
+# channels and RT output rows per thread, at most C_TILE channels and
+# T_TILE output rows per item, a ring of STAGES input windows per block,
+# BLOCKS_PER_SM blocks per SM, the taps in registers for K_FIXED.
 VEC = 4
+RT = 4
 C_TILE = 64
 T_TILE = 32
+STAGES = 2
 BLOCKS_PER_SM = 2
+K_FIXED = 15
+K_MAX = 64
 H100_SMS = 132
 SMEM_MAX = 232448
 MAX_BOX = 256
-MAX_THREADS = 256
 
 
 @dataclasses.dataclass(frozen=True)
 class LaunchPlan:
     """How one call of the K3 kernel is cut. A block owns a ``c_tile``
     channel slice (``grid[0]`` of them) and walks items (batch row, time
-    tile of ``t_tile`` output rows) ``grid[1]`` apart. Each item reads
-    input rows [t0 - pad_left, t0 - pad_left + rows) of [B, t_in, C],
-    zero outside [0, t_in), through the TMA box ``tma_box`` (channels,
-    rows, batch) or, where ``route`` is ``"cp.async"``, copies of
+    tile of T_TILE output rows) ``grid[1]`` apart. Each item reads input
+    rows [t0 - pad_left, t0 - pad_left + rows) of [B, t_in, C], zero
+    outside [0, t_in), through the TMA box ``tma_box`` (channels, rows,
+    batch) or, where ``route`` is ``"cp.async"``, copies of
     ``copy_bytes``."""
 
     dgrad: bool           # the dgrad entry, else the forward's
     route: str            # "tma" or "cp.async"
     copy_bytes: int       # 0 on the TMA route, else 4, 8 or 16
-    vec: int              # channels per thread
     c_tile: int
-    t_tile: int
-    rows: int             # input window per item: t_tile + K - 1
+    rows: int             # input window per item: T_TILE + K - 1
     pad_left: int
     t_out: int
     t_tiles: int
@@ -141,22 +138,19 @@ class LaunchPlan:
     taps_in_registers: bool
 
 
+@functools.lru_cache(maxsize=1024)
 def launch_plan(batch: int, t_in: int, c: int, k: int, itemsize: int, *,
-                dgrad: bool, x_ptr: int = 0, num_sms: int = H100_SMS,
-                vec: int = VEC, c_tile: int = C_TILE, t_tile: int = T_TILE,
-                blocks_per_sm: int = BLOCKS_PER_SM,
-                registers_for_taps: bool = True) -> LaunchPlan:
+                dgrad: bool, x_ptr: int = 0,
+                num_sms: int = H100_SMS) -> LaunchPlan:
     """The launch of openeat_dwconv1d_fwd (``dgrad=False``: input
     [batch, t_in, C] is the caller-padded x, t_out = t_in - K + 1) or
     openeat_dwconv1d_dgrad (input is dy, t_out = t_in + K - 1, the K - 1
-    halo read as zeros). ``x_ptr`` is the input's address, whose alignment
-    picks the route with the row's bytes: TMA where both are multiples
-    of 16, else cp.async copies of the largest of 16, 8, 4 bytes that
-    divides both. ``vec`` (8 is compiled for bfloat16 only), ``c_tile``
-    (the most channels per block), ``t_tile``, ``blocks_per_sm`` and
-    ``registers_for_taps`` (K = 15 only) change the tiling:
-    chip_k3_bench.py compares tilings on the card. Raises ValueError for
-    what no route takes."""
+    halo read as zeros). ``x_ptr`` is the input's address (mod 16 is
+    enough), whose alignment picks the route with the row's bytes: TMA
+    where both are multiples of 16, else cp.async copies of the largest
+    of 16, 8, 4 bytes that divides both. The route is what the kernel is
+    told; the rest is what its launcher derives from the same constants.
+    Raises ValueError for what no route takes."""
     if itemsize not in (2, 4):
         raise ValueError(f"K3 kernel takes 2- or 4-byte elements, not "
                          f"{itemsize}")
@@ -179,36 +173,27 @@ def launch_plan(batch: int, t_in: int, c: int, k: int, itemsize: int, *,
                 f"to be multiples of 4 bytes; got C={c} x {itemsize} bytes "
                 f"at address offset {x_ptr % 16} mod 16")
         route, copy_bytes = "cp.async", sizes[0]
-    # a channel tile of whole vectors and whole 16-byte rows: TMA boxes and
-    # 16-byte copies
-    step = max(vec, 16 // itemsize)
-    if vec not in (4, 16 // itemsize) or c_tile % step or t_tile % RT \
-            or not step <= c_tile <= MAX_BOX or t_tile < RT \
-            or c_tile // vec * t_tile // RT > MAX_THREADS \
-            or t_tile + k - 1 > MAX_BOX or blocks_per_sm < 1:
-        raise ValueError(f"K3 tiling vec={vec}, c_tile={c_tile}, t_tile="
-                         f"{t_tile}, blocks_per_sm={blocks_per_sm} is not "
-                         f"compiled")
-    c_tile = min(c_tile, -(-c // step) * step)
-    taps_in_registers = registers_for_taps and k == K_FIXED
-    rows = t_tile + k - 1
-    t_tiles = -(-t_out // t_tile)
+    # a channel tile of whole vectors and whole 16-byte rows (TMA boxes,
+    # 16-byte copies), no wider than C needs
+    step = max(VEC, 16 // itemsize)
+    c_tile = min(C_TILE, -(-c // step) * step)
+    taps_in_registers = k == K_FIXED
+    rows = T_TILE + k - 1
+    t_tiles = -(-t_out // T_TILE)
     n_items = batch * t_tiles
     if n_items >= 2 ** 31:
         raise ValueError(f"K3 kernel takes fewer than 2**31 items; got "
                          f"B={batch} x {t_tiles} time tiles")
     n_ctiles = -(-c // c_tile)
-    grid_y = min(n_items, max(1, -(-blocks_per_sm * num_sms // n_ctiles)),
-                 65535)
+    grid_y = min(n_items, -(-BLOCKS_PER_SM * num_sms // n_ctiles), 65535)
     stage_bytes = -(-rows * c_tile * itemsize // 128) * 128
     smem = 128 + STAGES * stage_bytes \
         + (0 if taps_in_registers else k * c_tile * 4) + STAGES * 8
     return LaunchPlan(
-        dgrad=dgrad, route=route, copy_bytes=copy_bytes, vec=vec,
-        c_tile=c_tile, t_tile=t_tile, rows=rows, pad_left=pad_left,
-        t_out=t_out, t_tiles=t_tiles, n_items=n_items,
-        grid=(n_ctiles, grid_y), block=(c_tile // vec, t_tile // RT),
-        smem_bytes=smem,
+        dgrad=dgrad, route=route, copy_bytes=copy_bytes, c_tile=c_tile,
+        rows=rows, pad_left=pad_left, t_out=t_out, t_tiles=t_tiles,
+        n_items=n_items, grid=(n_ctiles, grid_y),
+        block=(c_tile // VEC, T_TILE // RT), smem_bytes=smem,
         tma_box=(c_tile, rows, 1) if route == "tma" else None,
         taps_in_registers=taps_in_registers)
 
@@ -222,38 +207,44 @@ def _num_sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def device_plan(src: torch.Tensor, k: int, dgrad: bool,
-                **tiling) -> LaunchPlan:
+@functools.cache
+def _entry(name: str, argtypes: tuple, restype=ctypes.c_int):
+    """The library's C function `name`, bound once per process."""
+    fn = getattr(nvcc.load_library(SOURCE), name)
+    fn.argtypes = list(argtypes)
+    fn.restype = restype
+    return fn
+
+
+def device_plan(src: torch.Tensor, k: int, dgrad: bool) -> LaunchPlan:
     """:func:`launch_plan` for the input tensor `src` on its card."""
     b, t_in, c = src.shape
     return launch_plan(b, t_in, c, k, src.element_size(), dgrad=dgrad,
-                       x_ptr=src.data_ptr(),
-                       num_sms=_num_sms(src.device.index), **tiling)
+                       x_ptr=src.data_ptr() % 16,
+                       num_sms=_num_sms(src.device.index))
+
+
+_CONV_ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 6 \
+    + (ctypes.c_void_p,)
 
 
 def launch(src: torch.Tensor, w: torch.Tensor,
            plan: LaunchPlan) -> torch.Tensor:
-    """One launch of the K3 kernel's forward or dgrad entry on the card,
-    as `plan` (from :func:`device_plan` for these tensors) cuts it: src
+    """One launch of the K3 kernel's forward or dgrad entry on the card
+    by `plan`'s route (from :func:`device_plan` for these tensors): src
     [B, T_in, C] and w [K, C] -> [B, plan.t_out, C]. Counts nothing: the
     wrappers do."""
     b, t_in, c = src.shape
-    k = w.shape[0]
-    entry = "openeat_dwconv1d_dgrad" if plan.dgrad else "openeat_dwconv1d_fwd"
-    fn = getattr(nvcc.load_library(SOURCE), entry)
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 12 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    name = "openeat_dwconv1d_dgrad" if plan.dgrad else "openeat_dwconv1d_fwd"
     out = torch.empty((b, plan.t_out, c), dtype=src.dtype,
                       device=src.device)
     with torch.cuda.device(src.device):
-        rc = fn(src.data_ptr(), w.data_ptr(), out.data_ptr(), b, t_in, c, k,
-                _DTYPE_CODE[src.dtype], plan.vec, plan.c_tile, plan.t_tile,
-                int(plan.taps_in_registers), plan.grid[1], plan.copy_bytes,
-                plan.smem_bytes, _stream(src))
+        rc = _entry(name, _CONV_ARGS)(
+            src.data_ptr(), w.data_ptr(), out.data_ptr(), b, t_in, c,
+            w.shape[0], _DTYPE_CODE[src.dtype], plan.copy_bytes,
+            _stream(src))
     if rc != 0:
-        raise RuntimeError(f"{entry} launch failed with code {rc} "
-                           f"({plan})")
+        raise RuntimeError(f"{name} launch failed with code {rc} ({plan})")
     return out
 
 
@@ -298,14 +289,10 @@ def depthwise_conv1d_wgrad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return depthwise_conv1d_wgrad_plain(x, dy)
     k = tp - dy.shape[1] + 1
-    lib = nvcc.load_library(SOURCE)
-    scratch = lib.openeat_dwconv1d_wgrad_scratch
-    scratch.argtypes = [ctypes.c_int] * 4
-    scratch.restype = ctypes.c_longlong
-    fn = lib.openeat_dwconv1d_wgrad
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    scratch = _entry("openeat_dwconv1d_wgrad_scratch", (ctypes.c_int,) * 4,
+                     ctypes.c_longlong)
+    fn = _entry("openeat_dwconv1d_wgrad", (ctypes.c_void_p,) * 4
+                + (ctypes.c_int,) * 5 + (ctypes.c_void_p,))
     partial = torch.empty((scratch(b, tp, c, k),), dtype=torch.float32,
                           device=x.device)
     dw = torch.empty((k, c), dtype=x.dtype, device=x.device)

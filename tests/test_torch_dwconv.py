@@ -113,16 +113,16 @@ def test_convolution_module_matches_flax(causal):
 # is given (dw.launch_plan) to the kernel's limits, and a numpy walk of
 # the plan's blocks, items and threads to the plain versions.
 
-def _plan(b, t_in, c, k, itemsize, dgrad=False, x_ptr=0, **tiling):
+def _plan(b, t_in, c, k, itemsize, dgrad=False, x_ptr=0, **device):
     return dw.launch_plan(b, t_in, c, k, itemsize, dgrad=dgrad, x_ptr=x_ptr,
-                          **tiling)
+                          **device)
 
 
 def _within_kernel_limits(p, itemsize, blocks=2 * 132):
     assert p.smem_bytes <= 227 * 1024
+    assert p.block == (p.c_tile // dw.VEC, dw.T_TILE // dw.RT)
     assert p.block[0] * p.block[1] <= 256
-    assert p.block == (p.c_tile // p.vec, p.t_tile // dw.RT)
-    assert p.vec * itemsize in (8, 16) and p.c_tile % p.vec == 0
+    assert dw.VEC * itemsize in (8, 16) and p.c_tile % dw.VEC == 0
     assert (p.c_tile * itemsize) % 16 == 0
     assert p.rows <= 256 and p.c_tile <= 256
     assert 1 <= p.grid[1] <= min(p.n_items, 65535) and p.grid[0] >= 1
@@ -149,7 +149,7 @@ def test_launch_plan_routes_and_limits(k, c, itemsize, route, copy_bytes,
     assert (p.route, p.copy_bytes) == (route, copy_bytes)
     assert p.pad_left == (k - 1 if dgrad else 0)
     assert p.t_out == (t + k - 1 if dgrad else t - k + 1)
-    assert p.rows == p.t_tile + k - 1
+    assert p.rows == dw.T_TILE + k - 1
     assert p.taps_in_registers == (k == 15)
     _within_kernel_limits(p, itemsize)
 
@@ -165,7 +165,8 @@ def test_launch_plan_at_the_main_path_shapes():
     p = _plan(22, 162, 256, 15, 4, dgrad=True)
     assert (p.grid, p.n_items, p.t_out) == ((4, 66), 132, 176)
     p = _plan(22, 162, 256, 15, 2, dgrad=True)
-    assert (p.route, p.vec, p.c_tile, p.grid) == ("tma", 4, 64, (4, 66))
+    assert (p.route, p.c_tile, p.grid, p.block) == ("tma", 64, (4, 66),
+                                                    (16, 8))
     assert p.smem_bytes == 128 + 2 * 46 * 128 + 16
 
 
@@ -198,13 +199,13 @@ def test_launch_plan_refuses_what_no_route_takes(args, match):
 
 
 def test_kernel_source_and_plan_share_their_constants():
-    """The plan is computed in Python and checked again in the kernel's
-    source; both must use the same tile constants."""
+    """The kernel's launcher derives its tiles from these constants and
+    the Python plan states the same tiles; both must use the same
+    values."""
     src = (nvcc.CSRC_DIR / dw.SOURCE).read_text()
-    for name in ("RT", "STAGES", "K_FIXED", "SMEM_MAX", "MAX_BOX",
-                 "MAX_THREADS"):
+    for name in ("VEC", "RT", "C_TILE", "T_TILE", "STAGES", "BLOCKS_PER_SM",
+                 "K_FIXED", "SMEM_MAX", "MAX_BOX"):
         assert f"constexpr int {name} = {getattr(dw, name)};" in src, name
-    assert "launch_typed<__nv_bfloat16, 8>" in src
     assert dw.C_TILE <= dw.MAX_BOX
 
 
@@ -223,7 +224,7 @@ def _walk(plan, xin, w, dgrad, itemsize):
         for by in range(plan.grid[1]):
             for item in range(by, plan.n_items, plan.grid[1]):
                 b, tt = divmod(item, plan.t_tiles)
-                t0 = tt * plan.t_tile
+                t0 = tt * dw.T_TILE
                 lo = t0 - plan.pad_left
                 win = np.full((plan.rows, plan.c_tile), np.nan, np.float32)
                 if plan.route == "tma":
@@ -245,14 +246,14 @@ def _walk(plan, xin, w, dgrad, itemsize):
                                 if 0 <= lo + r < t_in else 0.0)
                 tp = np.zeros((k, plan.c_tile), np.float32)
                 tp[:, :min(plan.c_tile, c - c0)] = taps[:, c0:c0 + plan.c_tile]
-                acc = win[0:plan.t_tile] * tp[0]
+                acc = win[0:dw.T_TILE] * tp[0]
                 for j in range(1, k):
-                    acc = acc + win[j:j + plan.t_tile] * tp[j]
+                    acc = acc + win[j:j + dw.T_TILE] * tp[j]
                 for ty in range(plan.block[1]):
                     for tx in range(plan.block[0]):
-                        r0, cl = ty * dw.RT, tx * plan.vec
+                        r0, cl = ty * dw.RT, tx * dw.VEC
                         t_hi = min(t0 + r0 + dw.RT, plan.t_out)
-                        c_hi = min(c0 + cl + plan.vec, c)
+                        c_hi = min(c0 + cl + dw.VEC, c)
                         if t0 + r0 >= t_hi or c0 + cl >= c_hi:
                             continue
                         out[b, t0 + r0:t_hi, c0 + cl:c_hi] = acc[
@@ -261,7 +262,7 @@ def _walk(plan, xin, w, dgrad, itemsize):
     return out, writes
 
 
-@pytest.mark.parametrize("b,t_in,c,k,dtype,dgrad,tiling", [
+@pytest.mark.parametrize("b,t_in,c,k,dtype,dgrad,device", [
     (3, 40, 100, 7, torch.float32, False, {}),    # ragged C tile, TMA
     (3, 40, 100, 7, torch.bfloat16, False, {}),   # cp.async, 8 B copies
     (2, 75, 136, 15, torch.float32, False, {}),   # TMA, C not a tile multiple
@@ -272,28 +273,26 @@ def _walk(plan, xin, w, dgrad, itemsize):
     (1, 1, 4, 15, torch.bfloat16, True, {}),
     (2, 5, 12, 31, torch.float32, True, {}),      # runtime K, T < K
     (2, 70, 64, 1, torch.float32, False, {}),
-    # the tilings chip_k3_bench.py sweeps
-    (2, 75, 136, 15, torch.bfloat16, True, {"vec": 8, "c_tile": 128}),
-    (3, 40, 100, 7, torch.bfloat16, False, {"vec": 8, "c_tile": 128}),
-    (4, 50, 72, 15, torch.float32, True, {"t_tile": 16, "blocks_per_sm": 4,
-                                          "num_sms": 3}),
-    (2, 75, 136, 15, torch.float32, False, {"t_tile": 64}),
-    (2, 75, 136, 15, torch.float32, False, {"c_tile": 128}),
-    (2, 75, 136, 15, torch.bfloat16, True, {"registers_for_taps": False,
-                                            "blocks_per_sm": 1,
-                                            "num_sms": 2}),
+    # cards with few SMs: blocks walk several items through the ring
+    (4, 50, 72, 15, torch.float32, True, {"num_sms": 3}),
+    (2, 75, 136, 15, torch.bfloat16, True, {"num_sms": 2}),
+    (3, 90, 256, 15, torch.bfloat16, False, {"num_sms": 1}),
+    # other routes: 4-byte copies of an unaligned input, K = 64
+    (2, 40, 6, 5, torch.bfloat16, True, {}),
+    (2, 40, 20, 7, torch.float32, False, {"x_ptr": 4}),
+    (2, 20, 16, 64, torch.float32, True, {}),
 ])
 def test_plan_walk_is_the_plain_version_bit_for_bit(b, t_in, c, k, dtype,
-                                                    dgrad, tiling):
+                                                    dgrad, device):
     rng = np.random.default_rng(t_in * 1000 + c + k)
     xin = torch.from_numpy(rng.standard_normal((b, t_in, c)).astype(
         np.float32)).to(dtype)
     w = torch.from_numpy((rng.standard_normal((k, c)) * 0.3).astype(
         np.float32)).to(dtype)
     itemsize = xin.element_size()
-    plan = _plan(b, t_in, c, k, itemsize, dgrad, **tiling)
-    _within_kernel_limits(plan, itemsize, tiling.get("blocks_per_sm", 2)
-                          * tiling.get("num_sms", 132))
+    plan = _plan(b, t_in, c, k, itemsize, dgrad, **device)
+    _within_kernel_limits(plan, itemsize,
+                          dw.BLOCKS_PER_SM * device.get("num_sms", 132))
     out, writes = _walk(plan, xin.float().numpy(), w.float().numpy(), dgrad,
                         itemsize)
     assert (writes == 1).all()
