@@ -5,34 +5,37 @@
 1. Prints the card's name and power limit (nvidia-smi) and turns TF32
    off for the float32 phases. Builds openeat_torch/csrc/*.cu with nvcc,
    one process per source, all started together, and prints each kernel
-   entry's registers and spills (ptxas -v); a K3 entry that spills fails.
+   entry's registers and spills (ptxas -v); an entry that spills fails.
 2. Kernel phase: holds K3 (openeat_torch/csrc/depthwise_conv.cu) against
    depthwise_conv1d_plain on the card, at the decode shape [8, 138, 256]
    K=15, at ragged shapes (C=100 in bfloat16 takes the cp.async route,
-   the rest TMA), and at the shapes the decode runs below give it, in
-   float32 (bit-equal) and bfloat16 (<= 1 bf16 ulp of the float32 sum).
-   Times the kernel, the plain version and F.conv1d(groups=C) (the
-   library yardstick, which the port never calls) as device time per
-   call from CUDA-graph replays over inputs rotated through more than
-   the 50 MB L2, beside the least time the card needs for the bytes and
-   operations.
+   the rest TMA; C=99 in bfloat16 and a bfloat16 input at a 2-byte offset
+   take the element-load route), and at the shapes the decode runs below
+   give it, in float32 (bit-equal) and bfloat16 (<= 1 bf16 ulp of the
+   float32 sum; bit-equal on the element route). Times the kernel, the
+   plain version and F.conv1d(groups=C) (the library yardstick, which
+   the port never calls) as device time per call from CUDA-graph
+   replays over inputs rotated through more than the 50 MB L2, beside
+   the least time the card needs for the bytes and operations.
    Then the training kernels, at the shapes the training run below
    gives them, at fixed larger ones and at ragged ones ([3, 40, 100]
-   K=7, and [1, 15, 4] K=15, whose dgrad has T < K): K3's dgrad (the
-   kernel's dgrad entry on dy and w as they are; float32 bit-equal to
-   the plain dgrad, bfloat16 within 1 bf16 ulp) and wgrad
-   (float32 within 1e-5 x max|dw| of the plain sum; bfloat16 within 1
-   bf16 ulp of the kernel's own float32 sums), with
-   aten.convolution_backward as their yardstick. torch.profiler shows
-   that one depthwise_conv1d call and one depthwise_conv1d_dgrad call
-   each run exactly one device kernel, on both routes. Then the CTC
-   forward-backward K1/K2 counterparts (openeat_torch/csrc/ctc_loss.cu)
-   against the plain recursions (loss within 1e-5 relative, gamma
-   within 1e-4 on finite entries, NEG_INF entries equal), with repeats,
-   an infeasible row and len == 1 in every case. The port's whole CTC
-   op (gather, kernel, scatter; forward and backward) is timed beside
-   F.ctc_loss forward and backward at the same (B, T, V, L), the
-   yardstick the port never calls.
+   K=7, [1, 15, 4] K=15, whose dgrad has T < K, and the element route):
+   K3's dgrad (the kernel's dgrad entry on dy and w as they are; float32
+   bit-equal to the plain dgrad, bfloat16 within 1 bf16 ulp) and wgrad
+   (one launch; the same bits on two runs; float32 within 1e-5 x
+   max|dw| of the plain sum; bfloat16 within 1 bf16 ulp of the kernel's
+   own float32 sums), with aten.convolution_backward as their
+   yardstick. torch.profiler shows that one call of depthwise_conv1d,
+   depthwise_conv1d_dgrad, depthwise_conv1d_wgrad and ctc_dp_shared
+   each runs exactly one device kernel. Then the CTC forward-backward
+   K1/K2 counterparts (openeat_torch/csrc/ctc_loss.cu) against the plain
+   recursions, bit for bit in loss and gamma (NEG_INF entries equal),
+   with repeats, an infeasible row and len == 1 in every case, each
+   beside its bytes bound and its chain bound (T x one dependent step,
+   timed by ctc.chain_step_ms). The port's whole CTC op (gather, kernel,
+   scatter; forward and backward) is timed beside F.ctc_loss forward and
+   backward at the same (B, T, V, L), the yardstick the port never
+   calls.
 3. Slice phase: writes 16 synthetic 3-8 s wavs, a 4233-entry dict, the
    flagship AIShell Conformer config (examples/aishell/conf/
    train_conformer.yaml model_conf: d=256, 12 blocks, 3+3 decoders) as
@@ -207,11 +210,27 @@ def bf16_ulp(ref: torch.Tensor) -> torch.Tensor:
 
 # ---------------------------------------------------------------- kernel
 
-def kernel_case(b: int, tp: int, c: int, k: int, dtype, gen) -> dict:
+def offset_view(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of `t` one element past a buffer's start: for
+    bfloat16 an address 2 bytes off every 4-byte boundary, which only
+    K3's element-load route takes."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def kernel_case(b: int, tp: int, c: int, k: int, dtype, gen,
+                offset: bool = False) -> dict:
+    """K3's forward against its plain version; times it, the plain version
+    and the library call, unless `offset` (the input at a 2-byte offset,
+    checked only)."""
     dev = torch.device("cuda")
     x32 = torch.randn((b, tp, c), generator=gen, device=dev)
     w32 = torch.randn((k, c), generator=gen, device=dev) * 0.3
     x, w = x32.to(dtype), w32.to(dtype)
+    if offset:
+        x = offset_view(x)
     out = dw.depthwise_conv1d(x, w)
     plain = dw.depthwise_conv1d_plain(x, w)
     torch.cuda.synchronize()
@@ -219,7 +238,7 @@ def kernel_case(b: int, tp: int, c: int, k: int, dtype, gen) -> dict:
     err = (out.float() - plain.float()).abs()
     row = {"shape": [b, tp, c], "k": k, "dtype": str(dtype).split(".")[-1],
            "route": dw.device_plan(x, k, dgrad=False).route,
-           "max_abs_err": float(err.max())}
+           "offset_bytes": x.data_ptr() % 16, "max_abs_err": float(err.max())}
     if dtype == torch.float32:
         ok = row["max_abs_err"] == 0.0
     else:
@@ -228,6 +247,8 @@ def kernel_case(b: int, tp: int, c: int, k: int, dtype, gen) -> dict:
         ok = row["max_err_ulps"] <= 1.0
     if not ok:
         raise AssertionError(f"K3 disagrees with its plain version: {row}")
+    if offset:
+        return row
 
     t_out = tp - k + 1
     item = x.element_size()
@@ -492,13 +513,17 @@ def _n_copies(nbytes: int) -> int:
 
 # ---------------------------------------------------------- K3 backward
 
-def dwconv_grad_case(b: int, tp: int, c: int, k: int, dtype, gen) -> dict:
-    """K3 dgrad and wgrad against their plain versions; times."""
+def dwconv_grad_case(b: int, tp: int, c: int, k: int, dtype, gen,
+                     offset: bool = False) -> dict:
+    """K3 dgrad and wgrad against their plain versions; times them, unless
+    `offset` (x and dy at a 2-byte offset, checked only)."""
     dev = torch.device("cuda")
     t = tp - k + 1
     x = torch.randn((b, tp, c), generator=gen, device=dev).to(dtype)
     dy = torch.randn((b, t, c), generator=gen, device=dev).to(dtype)
     w = (torch.randn((k, c), generator=gen, device=dev) * 0.3).to(dtype)
+    if offset:
+        x, dy = offset_view(x), offset_view(dy)
     name = str(dtype).split(".")[-1]
     dx = dw.depthwise_conv1d_dgrad(dy, w)
     dx_plain = dw.depthwise_conv1d_dgrad_plain(dy, w)
@@ -510,14 +535,18 @@ def dwconv_grad_case(b: int, tp: int, c: int, k: int, dtype, gen) -> dict:
     wgrad_err = float((dwk.float() - w_ref).abs().max())
     row = {"shape": [b, tp, c], "k": k, "dtype": name,
            "dgrad_route": dw.device_plan(dy, k, dgrad=True).route,
+           "wgrad_route": dw.wgrad_plan(
+               b, tp, c, k, x.element_size(), x_ptr=x.data_ptr() % 16,
+               dy_ptr=dy.data_ptr() % 16).route,
+           "offset_bytes": x.data_ptr() % 16,
            "dgrad_max_abs_err": dgrad_err, "wgrad_max_abs_err": wgrad_err,
            "wgrad_rel_err": wgrad_err / float(w_ref.abs().max()),
            "wgrad_vs_plain_max_abs_err": float(
                (dwk.float() - dw_plain.float()).abs().max())}
+    if not torch.equal(dw.depthwise_conv1d_wgrad(x, dy), dwk):
+        raise AssertionError("wgrad differs between two runs")
     if dtype == torch.float32:
         ok = dgrad_err == 0.0 and row["wgrad_rel_err"] <= 1e-5
-        if not torch.equal(dw.depthwise_conv1d_wgrad(x, dy), dwk):
-            raise AssertionError("wgrad differs between two runs")
     else:
         ulp_dx = bf16_ulp(dw.depthwise_conv1d_dgrad_plain(dy.float(),
                                                           w.float()))
@@ -534,6 +563,8 @@ def dwconv_grad_case(b: int, tp: int, c: int, k: int, dtype, gen) -> dict:
     if not ok:
         raise AssertionError(f"K3 backward disagrees with its plain "
                              f"version: {row}")
+    if offset:
+        return row
 
     item = x.element_size()
     n = _n_copies((x.numel() + 2 * dy.numel()) * item)
@@ -568,11 +599,26 @@ def dwconv_grad_case(b: int, tp: int, c: int, k: int, dtype, gen) -> dict:
     return row
 
 
-def k3_kernels_per_call(shapes: list[tuple], gen) -> list[dict]:
-    """torch.profiler over one depthwise_conv1d call and one
-    depthwise_conv1d_dgrad call (each after a warm-up call): each must run
-    exactly one device kernel."""
+def _device_kernels(call) -> list[str]:
+    """Names of the device kernels one call runs (torch.profiler), after a
+    warm-up call."""
     from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def k3_kernels_per_call(shapes: list[tuple], ctc_shape: tuple,
+                        gen) -> list[dict]:
+    """torch.profiler over one call each of depthwise_conv1d,
+    depthwise_conv1d_dgrad and depthwise_conv1d_wgrad at `shapes`, and of
+    ctc_dp_shared at `ctc_shape` (B, T, L) with its inputs already in the
+    kernel's dtypes: each must run exactly one device kernel."""
     dev = torch.device("cuda")
     rows = []
     for b, tp, c, k, dtype in shapes:
@@ -583,21 +629,24 @@ def k3_kernels_per_call(shapes: list[tuple], gen) -> list[dict]:
         for name, call in (("depthwise_conv1d",
                             lambda: dw.depthwise_conv1d(x, w)),
                            ("depthwise_conv1d_dgrad",
-                            lambda: dw.depthwise_conv1d_dgrad(dy, w))):
-            call()
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                call()
-                torch.cuda.synchronize()
-            kernels = [e.name for e in prof.events()
-                       if e.device_type == torch.autograd.DeviceType.CUDA]
-            row = {"call": name, "shape": [b, tp, c], "k": k,
-                   "dtype": str(dtype).split(".")[-1], "kernels": kernels}
-            if len(kernels) != 1:
-                raise AssertionError(f"one K3 call ran {len(kernels)} device "
-                                     f"kernels: {row}")
-            rows.append(row)
+                            lambda: dw.depthwise_conv1d_dgrad(dy, w)),
+                           ("depthwise_conv1d_wgrad",
+                            lambda: dw.depthwise_conv1d_wgrad(x, dy))):
+            rows.append({"call": name, "shape": [b, tp, c], "k": k,
+                         "dtype": str(dtype).split(".")[-1],
+                         "kernels": _device_kernels(call)})
+    p = ctc_problem(*ctc_shape, VOCAB, gen)
+    z, s_lens = ctc.extended_labels(p["labels"], p["ll"])
+    llp = ctc.gather_label_logp(p["log_probs"], z)
+    il, sl = p["il"].int(), s_lens.int()
+    a2 = ctc.transition_masks(z).to(torch.uint8)
+    rows.append({"call": "ctc_dp_shared", "shape": list(llp.shape),
+                 "kernels": _device_kernels(
+                     lambda: ctc.ctc_dp_shared(llp, il, sl, a2))})
+    for row in rows:
+        if len(row["kernels"]) != 1:
+            raise AssertionError(f"one call ran {len(row['kernels'])} "
+                                 f"device kernels: {row}")
     return rows
 
 
@@ -622,10 +671,14 @@ def ctc_problem(b: int, t: int, l_pad: int, v: int, gen) -> dict:
     return {"log_probs": lp, "labels": labels, "il": il, "ll": ll}
 
 
-def ctc_case(b: int, t: int, l_pad: int, v: int, gen) -> dict:
+def ctc_case(b: int, t: int, l_pad: int, v: int, gen,
+             step_ms: float | None = None) -> dict:
     """The CTC kernel dispatch_variant picks at [B, T, S=2L+1] against
-    the plain recursions; times of the kernel alone, the plain version,
-    the port's whole CTC op and F.ctc_loss (forward and backward)."""
+    the plain recursions, bit for bit (loss and gamma, NEG_INF entries
+    included); times of the kernel alone, the plain version, the port's
+    whole CTC op and F.ctc_loss (forward and backward). `step_ms`, one
+    chain step's device time (ctc.chain_step_ms), gives the chain bound:
+    T dependent steps, alpha and beta side by side."""
     p = ctc_problem(b, t, l_pad, v, gen)
     z, s_lens = ctc.extended_labels(p["labels"], p["ll"])
     allow2 = ctc.transition_masks(z)
@@ -638,26 +691,27 @@ def ctc_case(b: int, t: int, l_pad: int, v: int, gen) -> dict:
     torch.cuda.synchronize()
     fin = ref_gamma > -1e29
     row = {"shape": [b, t, s], "v": v, "variant": variant,
-           "loss_rel_err": float(((loss - ref_loss).abs()
-                                  / ref_loss.abs().clamp(min=1e-6)).max()),
-           "gamma_max_abs_err": float((gamma - ref_gamma).abs()[fin].max()),
+           "loss_max_abs_err": float((loss - ref_loss).abs().max()),
+           "gamma_max_abs_err": float((gamma - ref_gamma).abs().max()),
            "neg_inf_equal": bool(torch.equal(gamma <= -1e29, ~fin)),
            "infeasible_loss": float(loss[2]) if b > 2 else None}
-    row["max_abs_err"] = row["gamma_max_abs_err"]
-    if not (row["loss_rel_err"] <= 1e-5 and row["gamma_max_abs_err"] <= 1e-4
-            and row["neg_inf_equal"]):
+    row["max_abs_err"] = max(row["loss_max_abs_err"],
+                             row["gamma_max_abs_err"])
+    if not (row["max_abs_err"] == 0.0 and row["neg_inf_equal"]):
         raise AssertionError(f"CTC kernel disagrees with its plain version: "
                              f"{row}")
 
     nbytes = 2 * llp.numel() * 4 + allow2.numel() + 3 * b * 4
     n = _n_copies(nbytes)
     llps = [llp.clone() for _ in range(n)]
-    row["ms"] = device_ms(lambda i: kernel(llps[i], p["il"], s_lens, allow2),
-                          n)
+    # the kernel alone: lengths already in its int32
+    il32, sl32 = p["il"].int(), s_lens.int()
+    row["ms"] = device_ms(lambda i: kernel(llps[i], il32, sl32, allow2), n)
     row["plain_ms"] = event_ms(lambda: ctc.ctc_dp_plain(
         llp, p["il"], s_lens, allow2), reps=2)
-    # the bytes bound; 2*T dependent steps make the kernel latency-bound
+    # the bytes bound; the chain of dependent steps bounds the kernel
     row["bound_ms"], row["bound_by"] = _bound(nbytes, 20.0 * b * t * s)
+    row["chain_bound_ms"] = t * step_ms if step_ms is not None else None
 
     lp = p["log_probs"].detach().requires_grad_()
     lp_tbv = p["log_probs"].transpose(0, 1).detach().requires_grad_()
@@ -1028,10 +1082,10 @@ def main() -> None:
         for source, entries in report["ptxas"].items():
             for e in entries:
                 print(f"ptxas {source} {json.dumps(e)}", flush=True)
-        spilled = [e for e in report["ptxas"][dw.SOURCE]
+        spilled = [e for entries in report["ptxas"].values() for e in entries
                    if e["spill_stores"] or e["spill_loads"]]
         if spilled:
-            raise AssertionError(f"K3 kernels spill: {spilled}")
+            raise AssertionError(f"kernels spill: {spilled}")
 
         rng = np.random.default_rng(SEED)
         manifest, dict_path, durations = write_corpus(rng)
@@ -1048,6 +1102,14 @@ def main() -> None:
                 row = kernel_case(*shape, dtype, gen)
                 rows.append(row)
                 print("K3 " + json.dumps(row), flush=True)
+        # the element-load route: odd C in bfloat16, a 2-byte-offset input
+        for shape, offset in (((3, 40, 99, 7), False),
+                              ((2, 40, 256, 7), True)):
+            row = kernel_case(*shape, torch.bfloat16, gen, offset=offset)
+            if row["route"] != "element":
+                raise AssertionError(f"not the element route: {row}")
+            rows.append(row)
+            print("K3 " + json.dumps(row), flush=True)
         report["k3_cases"] = rows
 
         # ---- training kernels at the training run's shapes and beyond
@@ -1061,17 +1123,30 @@ def main() -> None:
                 row = dwconv_grad_case(*shape, dtype, gen)
                 grad_rows.append(row)
                 print("K3 bwd " + json.dumps(row), flush=True)
+        for shape, offset in (((3, 40, 99, 7), False),
+                              ((2, 40, 256, 7), True)):
+            row = dwconv_grad_case(*shape, torch.bfloat16, gen, offset=offset)
+            if row["dgrad_route"] != "element" \
+                    or row["wgrad_route"] != "element":
+                raise AssertionError(f"not the element route: {row}")
+            grad_rows.append(row)
+            print("K3 bwd " + json.dumps(row), flush=True)
         report["k3_backward_cases"] = grad_rows
         report["k3_kernels_per_call"] = k3_kernels_per_call(
             [(8, 212, 256, 15, torch.float32),
              (8, 212, 256, 15, torch.bfloat16),
-             (3, 40, 100, 7, torch.bfloat16)], gen)
-        print("K3 kernels per call "
+             (3, 40, 100, 7, torch.bfloat16)], (14, 198, 24), gen)
+        print("kernels per call "
               + json.dumps(report["k3_kernels_per_call"]), flush=True)
+        report["ctc_chain_step_ms"] = step_ms = ctc.chain_step_ms()
+        print(f"CTC chain step {step_ms * 1e6:.1f} ns", flush=True)
         ctc_rows = []
-        for b, t, l_pad in sorted(set(tshapes)) + [(256, 77, 24),
-                                                    (8, 1024, 120)]:
-            row = ctc_case(b, t, l_pad, VOCAB, gen)
+        train_ctc_shapes = sorted(set(tshapes))
+        # then the TPU batch, a tall K2 case, and K1 at 1 and 4 label
+        # positions a lane
+        for b, t, l_pad in train_ctc_shapes + [(256, 77, 24), (8, 1024, 120),
+                                               (5, 30, 15), (4, 70, 60)]:
+            row = ctc_case(b, t, l_pad, VOCAB, gen, step_ms)
             ctc_rows.append(row)
             print("CTC " + json.dumps(row), flush=True)
         report["ctc_cases"] = ctc_rows
@@ -1145,7 +1220,8 @@ def main() -> None:
                and (*r["shape"], r["k"]) == largest)
 
     def train_ctc(variant):
-        cands = [r for r in ctc_rows[:-2] if r["variant"] == variant]
+        cands = [r for r in ctc_rows[:len(train_ctc_shapes)]
+                 if r["variant"] == variant]
         return max(cands, key=lambda r: math.prod(r["shape"]))
 
     n = train_counts

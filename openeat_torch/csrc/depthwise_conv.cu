@@ -32,7 +32,7 @@
 // out at the decode shape [8, 212, 256] float32), so the kernel has to put
 // all of its loads in flight at once, and at that size a launch and a
 // round trip to device memory cost about as much as the bytes
-// (chip_k3_bench.py times a plain copy of the same input beside it).
+// (chip_kernel_bench.py times a plain copy of the same input beside it).
 // The tiles are fixed: other tilings (16 or 64 rows, 128 channels, one or
 // four blocks per SM) measured no faster on the H100 (PERF.md).
 // - A block owns one channel tile (C_TILE = 64 channels) for its whole
@@ -48,8 +48,12 @@
 //   multiple of 16 bytes, one thread asks the Tensor Memory Accelerator
 //   for the window (a 3-D tensor map over [B, t_in, C], completion on an
 //   mbarrier); the map fills rows outside [0, t_in), negative ones too,
-//   with zeros. Elsewhere every thread issues cp.async copies of 16, 8 or
-//   4 bytes, with source size 0 (zero fill) outside [0, t_in).
+//   with zeros. Elsewhere every thread issues cp.async copies of 8 or 4
+//   bytes, with source size 0 (zero fill) outside [0, t_in); where no
+//   4-byte copy fits (bfloat16 rows of odd C, an input at a 2-byte
+//   offset), synchronous 2-byte element loads into the same ring, zeros
+//   outside [0, t_in). That route serves no shape of the port's models
+//   and is there so the kernel takes every input the JAX kernel takes.
 // - A thread owns VEC = 4 channels (16 bytes of float32, 8 of bfloat16)
 //   and RT consecutive output rows. It reads each of its RT + K - 1 input
 //   rows once from shared memory as one vector load, adds it into every
@@ -59,15 +63,14 @@
 //   double each one's multiply-adds, and measured slower; so do taps read
 //   with vector loads, which the compiler keeps packed and widens at every
 //   use.
-// The caller picks the route (TMA or the cp.async copy size) from x's
-// address; launch_conv derives the tiles, the grid and the shared memory
+// The caller picks the route (TMA, the cp.async copy size, or element
+// loads) from x's address; launch_conv derives the tiles, the grid and the shared memory
 // from the constants below. openeat_torch/ops/depthwise_conv.py:
 // launch_plan states the same plan in Python, so the CPU tests reach it.
 //
 // The backward's wgrad (openeat_dwconv1d_wgrad below) is a [K, C]
-// reduction over B*T, also bound by bytes: it must read x and dy once
-// and write dw. Pass 1 gives each (channel slice, batch row, time tile)
-// block its own partial sums; pass 2 adds the partials in a fixed order.
+// reduction over B*T, also bound by bytes, in one launch with the same
+// routes; its design is set out above its kernel.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -205,21 +208,52 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// G bytes from src to dst, or G zero bytes where !valid (source size 0)
+// G = 4 or 8 bytes from src to dst, or G zero bytes where !valid (source
+// size 0); rows and addresses that take 16-byte copies take TMA instead
 template <int G>
 __device__ __forceinline__ void cp_async(void* dst, const void* src,
                                          bool valid) {
-  const int n = valid ? G : 0;
-  if constexpr (G == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
-                     smem_u32(dst)),
-                 "l"(src), "r"(n)
-                 : "memory");
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "n"(G), "r"(valid ? G : 0)
+               : "memory");
+}
+
+// G = 4, 8 or 16: cp_async<G>. G = 2, for what no 4-byte copy fits
+// (bfloat16 rows of odd C, an input at a 2-byte offset): one synchronous
+// element load and store, zero where !valid; the ring's wait and
+// __syncthreads order it like the copies
+template <int G>
+__device__ __forceinline__ void copy_in(void* dst, const void* src,
+                                        bool valid) {
+  if constexpr (G == 2) {
+    *static_cast<unsigned short*>(dst) =
+        valid ? *static_cast<const unsigned short*>(src) : (unsigned short)0;
   } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;" ::"r"(
-                     smem_u32(dst)),
-                 "l"(src), "n"(G), "r"(n)
-                 : "memory");
+    cp_async<G>(dst, src, valid);
+  }
+}
+
+// Rows [t_lo, t_lo + n_rows) of batch row b of src [batch, t_len, c],
+// channels [c0, c0 + c_tile), into dst ([n_rows][c_tile] of T) by copies
+// of G bytes shared over the block's threads; rows outside [0, t_len)
+// arrive as zeros, channels past c are never copied (nor stored)
+template <typename T, int G>
+__device__ __forceinline__ void copy_window(unsigned char* dst, const T* src,
+                                            int b, int t_lo, int n_rows,
+                                            int t_len, int c, int c0,
+                                            int c_tile, int tid, int nthr) {
+  constexpr int E = G / (int)sizeof(T);  // elements per copy
+  const int per_row = c_tile / E;
+  const T* sb = src + (size_t)b * t_len * c;
+  for (int i = tid; i < n_rows * per_row; i += nthr) {
+    const int r = i / per_row;
+    const int cc = c0 + (i % per_row) * E;
+    if (cc >= c) continue;
+    const int t = t_lo + r;
+    const bool in = t >= 0 && t < t_len;
+    copy_in<G>(dst + ((size_t)r * c_tile + (cc - c0)) * sizeof(T),
+               in ? sb + (size_t)t * c + cc : sb, in);
   }
 }
 
@@ -314,18 +348,8 @@ __global__ void __launch_bounds__(THREADS)
                      (uint32_t)(p.rows * p.c_tile * sizeof(T)));
       tma_load_3d(dst, &map, &full[n % STAGES], c0, t_lo, b);
     } else {
-      constexpr int E = G / (int)sizeof(T);  // elements per copy
-      const int per_row = p.c_tile / E;
-      const T* xb = static_cast<const T*>(p.x) + (size_t)b * p.t_in * p.c;
-      for (int i = tid; i < p.rows * per_row; i += nthr) {
-        const int r = i / per_row;
-        const int cc = c0 + (i % per_row) * E;
-        if (cc >= p.c) continue;  // past C: never stored
-        const int t = t_lo + r;
-        const bool in = t >= 0 && t < p.t_in;
-        cp_async<G>(dst + ((size_t)r * p.c_tile + (cc - c0)) * sizeof(T),
-                    in ? xb + (size_t)t * p.c + cc : xb, in);
-      }
+      copy_window<T, G>(dst, static_cast<const T*>(p.x), b, t_lo, p.rows,
+                        p.t_in, p.c, c0, p.c_tile, tid, nthr);
     }
   };
 
@@ -434,6 +458,30 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
+// A 3-D tensor map over src [batch, t_len, c] (dtype 0 = float32, 1 =
+// bfloat16) whose box is c_tile channels x box_rows rows x one batch row;
+// rows outside the tensor, negative ones too, load as zeros. Returns 0
+// or ERR_TENSOR_MAP + the CUresult.
+int encode_map(CUtensorMap* map, const void* src, int dtype, int batch,
+               int t_len, int c, int c_tile, int box_rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return ERR_TENSOR_MAP + (int)CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t row_bytes = (cuuint64_t)c * (dtype == 0 ? 4 : 2);
+  const cuuint64_t dims[3] = {(cuuint64_t)c, (cuuint64_t)t_len,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {row_bytes, row_bytes * (cuuint64_t)t_len};
+  const cuuint32_t box[3] = {(cuuint32_t)c_tile, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map,
+      dtype == 0 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      3, const_cast<void*>(src), dims, strides, box, elem_strides,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ERR_TENSOR_MAP + (int)r;
+}
+
 template <typename T, int KC, int G>
 int launch_instance(const CUtensorMap& map, const Params& p, dim3 grid,
                     dim3 block, int smem, cudaStream_t stream) {
@@ -461,8 +509,11 @@ int launch_route(int copy_bytes, const CUtensorMap& map, const Params& p,
       return launch_instance<T, KC, 4>(map, p, grid, block, smem, stream);
     case 8:
       return launch_instance<T, KC, 8>(map, p, grid, block, smem, stream);
-    case 16:
-      return launch_instance<T, KC, 16>(map, p, grid, block, smem, stream);
+    case 2:  // element loads, bfloat16 only
+      if constexpr (sizeof(T) == 2) {
+        return launch_instance<T, KC, 2>(map, p, grid, block, smem, stream);
+      }
+      return (int)cudaErrorInvalidValue;
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -481,6 +532,25 @@ int launch_typed(int copy_bytes, const CUtensorMap& map, const Params& p,
 
 bool aligned(const void* ptr, long long bytes) {
   return reinterpret_cast<uintptr_t>(ptr) % (uintptr_t)bytes == 0;
+}
+
+// whether the route (copy_bytes: 0 = TMA, else the copy size: 2 for
+// element loads, 4 or 8 for cp.async) fits rows of c elements of `item`
+// bytes at ptr
+bool route_fits(int copy_bytes, int item, int c, const void* ptr) {
+  const long long row_bytes = (long long)c * item;
+  if (copy_bytes == 0) return aligned(ptr, 16) && row_bytes % 16 == 0;
+  if (copy_bytes != 2 && copy_bytes != 4 && copy_bytes != 8) return false;
+  return copy_bytes >= item && aligned(ptr, copy_bytes) &&
+         row_bytes % copy_bytes == 0;
+}
+
+// a channel tile of whole vectors and whole 16-byte rows (TMA boxes), at
+// most `cap` channels and no wider than C needs
+int channel_tile(int c, int item, int cap) {
+  const int step = 16 / item > VEC ? 16 / item : VEC;
+  const int c_round = (c + step - 1) / step * step;
+  return c_round < cap ? c_round : cap;
 }
 
 // SMs of the current device, asked once per device
@@ -505,11 +575,7 @@ int launch_conv(const void* x, const void* w, void* out, int batch, int t_in,
   if (batch <= 0 || t_in <= 0 || c <= 0 || k <= 0 || t_out <= 0) {
     return (int)cudaErrorInvalidValue;
   }
-  // a channel tile of whole vectors and whole 16-byte rows (TMA boxes,
-  // 16-byte copies), no wider than C needs
-  const int step = 16 / item > VEC ? 16 / item : VEC;
-  const int c_round = (c + step - 1) / step * step;
-  const int c_tile = c_round < C_TILE ? c_round : C_TILE;
+  const int c_tile = channel_tile(c, item, C_TILE);
   const int rows = T_TILE + k - 1;
   const long long t_tiles = (t_out + T_TILE - 1) / T_TILE;
   const long long n_items = (long long)batch * t_tiles;
@@ -527,34 +593,14 @@ int launch_conv(const void* x, const void* w, void* out, int batch, int t_in,
   long long grid_y = (BLOCKS_PER_SM * sms + n_ctiles - 1) / n_ctiles;
   if (grid_y > n_items) grid_y = n_items;
   if (grid_y > 65535) grid_y = 65535;
-  const long long row_bytes = (long long)c * item;
+  if (!route_fits(copy_bytes, item, c, x) ||
+      (copy_bytes == 0 && !aligned(out, 16))) {
+    return (int)cudaErrorInvalidValue;
+  }
   alignas(64) CUtensorMap map{};
   if (copy_bytes == 0) {
-    if (!aligned(x, 16) || !aligned(out, 16) || row_bytes % 16 != 0) {
-      return (int)cudaErrorInvalidValue;
-    }
-    EncodeTiled encode = encode_tiled();
-    if (encode == nullptr) return ERR_TENSOR_MAP + (int)CUDA_ERROR_NOT_FOUND;
-    const cuuint64_t dims[3] = {(cuuint64_t)c, (cuuint64_t)t_in,
-                                (cuuint64_t)batch};
-    const cuuint64_t strides[2] = {(cuuint64_t)row_bytes,
-                                   (cuuint64_t)row_bytes * t_in};
-    const cuuint32_t box[3] = {(cuuint32_t)c_tile, (cuuint32_t)rows, 1};
-    const cuuint32_t elem_strides[3] = {1, 1, 1};
-    const CUresult r = encode(
-        &map,
-        dtype == 0 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                   : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-        3, const_cast<void*>(x), dims, strides, box, elem_strides,
-        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-    if (r != CUDA_SUCCESS) return ERR_TENSOR_MAP + (int)r;
-  } else if (copy_bytes == 4 || copy_bytes == 8 || copy_bytes == 16) {
-    if (!aligned(x, copy_bytes) || row_bytes % copy_bytes != 0) {
-      return (int)cudaErrorInvalidValue;
-    }
-  } else {
-    return (int)cudaErrorInvalidValue;
+    const int rc = encode_map(&map, x, dtype, batch, t_in, c, c_tile, rows);
+    if (rc != 0) return rc;
   }
   Params p;
   p.x = x;
@@ -582,74 +628,347 @@ int launch_conv(const void* x, const void* w, void* out, int batch, int t_in,
 }
 
 // ---------------------------------------------------------------- wgrad
+//
+// dw[j, c] = sum_{b,t} x[b, t+j, c] * dy[b, t, c], the weight gradient
+// that the JAX package leaves to XLA (openeat_tpu/ops/depthwise_conv.py:
+// _bwd). Bound by bytes, like the forward: one read of x and dy, K x C
+// written. One launch (openeat_dwconv1d_wgrad):
+// - Items are (batch row, chunk of `rows` <= W_ROWS output steps): each
+//   batch row is cut into q even chunks. A block owns one channel tile of
+//   at most W_C_TILE channels and a contiguous run of `per` items, a long
+//   span of time, so the K-1 halo of x is reread once per chunk, and
+//   mostly from L2; the grid has about W_BLOCKS_PER_SM blocks per SM.
+//   Narrow tiles keep each tile's final sum small: at [22, 162, 256], 8
+//   tiles of 15 blocks leave each tile's last block 29 KB of partials,
+//   where 64-channel tiles of 33 blocks left it 127 KB, whose reads
+//   measured slower on the H100 than the narrow tiles' loads cost.
+// - Each item's x window (rows + K - 1 rows) and dy rows land in a ring
+//   of W_STAGES stages in shared memory by the forward's routes: TMA
+//   through two tensor maps, else cp.async or element copies.
+// - A thread owns VEC channels and a contiguous share of the item's rows
+//   (one of W_GROUPS row groups). It keeps KC x VEC float32 accumulators
+//   and a sliding window of KC x rows in registers (the compile-time
+//   K = 15: one pass of KC = 15 taps; other K: passes of W_KC taps), so
+//   each x row and each dy row is one vector load from shared memory per
+//   pass. With K = 15 the sums stay in registers over all of the block's
+//   items and go to the thread's own slots of red [row group][K][c_tile]
+//   in shared memory once; other K add each item's passes into them.
+// - The block adds its row groups in order and writes its K x c_tile
+//   partial to the workspace. Across blocks the sum is taken by the last
+//   block to finish (way (b)): each block takes a ticket, an integer
+//   atomic per channel tile, once its partial is visible; the block that
+//   takes the last one adds the tile's partials in split order, rounds
+//   once to dw's dtype and resets the ticket; it loads up to W_FINAL
+//   partials at once, so the sum waits on few round trips. A cluster
+//   (way (a)) would cap a channel tile at 8 blocks (16 non-portable):
+//   64 blocks on 132 SMs at C = 256; a ticket takes any number. No
+//   float atomics: two runs give the same bits.
 
-// A block of C_TILE x T_ROWS threads owns C_TILE channels and T_TILE
-// output time steps.
-constexpr int T_ROWS = 4;  // threads along y
+constexpr int W_C_TILE = 32;        // most channels per block
+constexpr int W_ROWS = 128;         // most output rows per item
+constexpr int W_GROUPS = 16;        // row groups per block (blockDim.y)
+constexpr int W_KC = 8;             // taps per pass for a runtime K
+constexpr int W_STAGES = 3;         // ring of items per block
+constexpr int W_BLOCKS_PER_SM = 1;  // the grid's target
+constexpr int W_MAX_CTILES = 1024;  // tickets at the workspace's head
+constexpr int W_FINAL = 32;         // partials the final sum loads at once
 
-// wgrad, pass 1. dw[j, c] = sum_{b,t} x[b, t+j, c] * dy[b, t, c], the
-// weight gradient that the JAX package leaves to XLA (ops/
-// depthwise_conv.py:_bwd). A block owns (a C_TILE slice of channels, one
-// (b, T_TILE) tile of output time), stages its x halo tile and dy tile
-// in shared memory as float32, and writes its K x C_TILE partial sums to
-// partial[tile][K][C]. No atomics: pass 2 adds the tiles in a fixed
-// order, so the result is the same bits on every run.
-template <typename T>
-__global__ void __launch_bounds__(C_TILE* T_ROWS)
-    dwconv1d_wgrad_partial_kernel(const T* __restrict__ x,
-                                  const T* __restrict__ dy,
-                                  float* __restrict__ partial, int tp, int c,
-                                  int k, int t_tiles) {
-  extern __shared__ float smem[];
-  const int t_out = tp - k + 1;
-  const int halo = T_TILE + k - 1;
-  float* xs = smem;                   // [halo][C_TILE]
-  float* ds = smem + halo * C_TILE;   // [T_TILE][C_TILE]
+struct WParams {
+  const void* x;     // [batch, t_in, c]
+  const void* dy;    // [batch, t_out, c]
+  void* dw;          // [k, c]
+  float* part;       // [n_ctiles][splits][k][c_tile]
+  unsigned* ticket;  // [n_ctiles], 0 between launches
+  int t_in, t_out, c, k, c_tile, rows, q, n_items, per, splits;
+  int x_rows, x_bytes, stage_bytes;
+};
 
-  const int tile = blockIdx.y;        // b * t_tiles + time tile
-  const int b = tile / t_tiles;
-  const int t0 = (tile % t_tiles) * T_TILE;
-  const int cx = threadIdx.x;
-  const int ch = blockIdx.x * C_TILE + cx;
-  const bool c_ok = ch < c;
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
 
-  const T* xb = x + (size_t)b * tp * c;
-  const T* db = dy + (size_t)b * t_out * c;
-  for (int r = threadIdx.y; r < halo; r += T_ROWS) {
-    const int t = t0 + r;
-    xs[r * C_TILE + cx] =
-        (c_ok && t < tp) ? load_f32(xb + (size_t)t * c + ch) : 0.0f;
+// acc[jj] += x[r + j0 + jj] * dy[r] for the staged rows r in [lo, hi),
+// x rows clamped to x_last (rows past it feed only taps j0 + jj >= K,
+// which the caller drops). xw holds x rows r + j0 .. r + j0 + KC - 1 in
+// slots (r - lo + jj) % KC; unrolled by KC, every slot index is a
+// compile-time constant.
+template <int KC, typename T>
+__device__ __forceinline__ void wgrad_rows(const T* xs, const T* ds,
+                                           int stride, int lo, int hi,
+                                           int j0, int x_last,
+                                           float (&acc)[KC][VEC]) {
+  float xw[KC][VEC];
+#pragma unroll
+  for (int i = 0; i < KC - 1; ++i) {
+    load_vec(xs + min(lo + j0 + i, x_last) * stride, xw[i]);
   }
-  for (int r = threadIdx.y; r < T_TILE; r += T_ROWS) {
-    const int t = t0 + r;
-    ds[r * C_TILE + cx] =
-        (c_ok && t < t_out) ? load_f32(db + (size_t)t * c + ch) : 0.0f;
-  }
-  __syncthreads();
-  if (!c_ok) return;
-  float* pb = partial + (size_t)tile * k * c;
-  for (int j = threadIdx.y; j < k; j += T_ROWS) {
-    float acc = 0.0f;
-    for (int r = 0; r < T_TILE; ++r) {
-      acc += xs[(r + j) * C_TILE + cx] * ds[r * C_TILE + cx];
+  for (int base = lo; base < hi; base += KC) {
+#pragma unroll
+    for (int u = 0; u < KC; ++u) {
+      const int r = base + u;
+      if (r < hi) {
+        load_vec(xs + min(r + j0 + KC - 1, x_last) * stride,
+                 xw[(u + KC - 1) % KC]);
+        float d[VEC];
+        load_vec(ds + r * stride, d);
+#pragma unroll
+        for (int jj = 0; jj < KC; ++jj) {
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) {
+            acc[jj][v] = fmaf(xw[(u + jj) % KC][v], d[v], acc[jj][v]);
+          }
+        }
+      }
     }
-    pb[(size_t)j * c + ch] = acc;
   }
 }
 
-// wgrad, pass 2: dw[j, c] = sum over tiles of partial[tile][j][c], tiles
-// in order, then one rounding to dw's dtype.
-template <typename T>
-__global__ void dwconv1d_wgrad_reduce_kernel(const float* __restrict__ partial,
-                                             T* __restrict__ dw, int kc,
-                                             int n_tiles) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= kc) return;
-  float acc = 0.0f;
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    acc += partial[(size_t)tile * kc + i];
+// G = 0: items arrive by TMA through xmap and dmap; G = 2, 4 or 8: by
+// copies of G bytes (maps unused). KC taps per pass.
+template <typename T, int KC, int G>
+__global__ void __launch_bounds__(W_C_TILE / VEC * W_GROUPS)
+    dwconv1d_wgrad_kernel(const __grid_constant__ CUtensorMap xmap,
+                          const __grid_constant__ CUtensorMap dmap,
+                          const WParams p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((128 - (smem_u32(smem_raw) & 127)) & 127);
+  float* red = reinterpret_cast<float*>(smem + W_STAGES * p.stage_bytes);
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(red + (size_t)W_GROUPS * p.k * p.c_tile);
+  unsigned* last = reinterpret_cast<unsigned*>(full + W_STAGES);
+
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nthr = blockDim.x * blockDim.y;
+  const int ctile = blockIdx.x;
+  const int c0 = ctile * p.c_tile;
+  const int cl = threadIdx.x * VEC;
+  const int g = threadIdx.y;
+  const int i0 = blockIdx.y * p.per;
+  const int n_mine = min(p.per, p.n_items - i0);
+
+  // request this block's n-th item into stage n % W_STAGES
+  auto request = [&](int n) {
+    const int item = i0 + n;
+    const int b = item / p.q;
+    const int t0 = (item % p.q) * p.rows;
+    unsigned char* dst = smem + (n % W_STAGES) * p.stage_bytes;
+    if constexpr (G == 0) {
+      mbar_expect_tx(&full[n % W_STAGES],
+                     (uint32_t)((p.x_rows + p.rows) * p.c_tile * sizeof(T)));
+      tma_load_3d(dst, &xmap, &full[n % W_STAGES], c0, t0, b);
+      tma_load_3d(dst + p.x_bytes, &dmap, &full[n % W_STAGES], c0, t0, b);
+    } else {
+      copy_window<T, G>(dst, static_cast<const T*>(p.x), b, t0, p.x_rows,
+                        p.t_in, p.c, c0, p.c_tile, tid, nthr);
+      copy_window<T, G>(dst + p.x_bytes, static_cast<const T*>(p.dy), b, t0,
+                        p.rows, p.t_out, p.c, c0, p.c_tile, tid, nthr);
+    }
+  };
+
+  if constexpr (G == 0) {
+    if (tid == 0) {
+      for (int s = 0; s < W_STAGES; ++s) mbar_init(&full[s], 1);
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+      for (int n = 0; n < W_STAGES && n < n_mine; ++n) request(n);
+    }
+  } else {
+    for (int n = 0; n < W_STAGES; ++n) {
+      if (n < n_mine) request(n);
+      cp_async_commit();  // one group per stage, empty or not
+    }
   }
-  store_from_f32(dw + i, acc);
+  if constexpr (KC != K_FIXED) {
+    for (int i = tid; i < W_GROUPS * p.k * p.c_tile; i += nthr) red[i] = 0.0f;
+  }
+  __syncthreads();  // barriers initialised, red zeroed
+
+  float* my_red = red + (size_t)g * p.k * p.c_tile + cl;
+  float keep[KC][VEC] = {};  // K_FIXED: one pass, sums over all items
+  for (int n = 0; n < n_mine; ++n) {
+    const int s = n % W_STAGES;
+    if constexpr (G == 0) {
+      mbar_wait(&full[s], (uint32_t)(n / W_STAGES) & 1u);
+    } else {
+      cp_async_wait<W_STAGES - 1>();
+      __syncthreads();  // every thread's copies have landed
+    }
+    const int t0 = ((i0 + n) % p.q) * p.rows;
+    const int n_rows = min(p.rows, p.t_out - t0);
+    const int lo = g * n_rows / W_GROUPS;
+    const int hi = (g + 1) * n_rows / W_GROUPS;
+    const unsigned char* stage = smem + s * p.stage_bytes;
+    const T* xs = reinterpret_cast<const T*>(stage) + cl;
+    const T* ds = reinterpret_cast<const T*>(stage + p.x_bytes) + cl;
+    if (KC == K_FIXED && lo < hi) {
+      wgrad_rows<KC>(xs, ds, p.c_tile, lo, hi, 0, p.x_rows - 1, keep);
+    } else if (lo < hi) {
+      for (int j0 = 0; j0 < p.k; j0 += KC) {
+        float acc[KC][VEC] = {};
+        wgrad_rows<KC>(xs, ds, p.c_tile, lo, hi, j0, p.x_rows - 1, acc);
+#pragma unroll
+        for (int jj = 0; jj < KC; ++jj) {
+          if (j0 + jj < p.k) {
+            float4* r4 =
+                reinterpret_cast<float4*>(my_red + (size_t)(j0 + jj) * p.c_tile);
+            *r4 = add4(*r4, make_float4(acc[jj][0], acc[jj][1], acc[jj][2],
+                                        acc[jj][3]));
+          }
+        }
+      }
+    }
+    __syncthreads();  // stage s is free again
+    if (n + W_STAGES < n_mine) {
+      if constexpr (G == 0) {
+        if (tid == 0) request(n + W_STAGES);
+      } else {
+        request(n + W_STAGES);
+      }
+    }
+    if constexpr (G != 0) cp_async_commit();
+  }
+  if constexpr (KC == K_FIXED) {
+#pragma unroll
+    for (int j = 0; j < KC; ++j) {
+      *reinterpret_cast<float4*>(my_red + (size_t)j * p.c_tile) =
+          make_float4(keep[j][0], keep[j][1], keep[j][2], keep[j][3]);
+    }
+  }
+  __syncthreads();  // every row group's sums are in red
+
+  // this block's partial: the row groups added in order
+  const int nvec = p.k * p.c_tile / VEC;
+  const float4* red4 = reinterpret_cast<const float4*>(red);
+  float4* part = reinterpret_cast<float4*>(p.part) +
+                 (size_t)ctile * p.splits * nvec;
+  for (int i = tid; i < nvec; i += nthr) {
+    float4 a = red4[i];
+    for (int gg = 1; gg < W_GROUPS; ++gg) a = add4(a, red4[(size_t)gg * nvec + i]);
+    __stcg(part + (size_t)blockIdx.y * nvec + i, a);
+  }
+  __threadfence();  // the partial is visible before the ticket is taken
+  __syncthreads();
+  if (tid == 0) *last = atomicAdd(&p.ticket[ctile], 1u);
+  __syncthreads();
+  if (*last != (unsigned)p.splits - 1) return;
+
+  // the tile's last block: all partials in split order, one rounding
+  __threadfence();
+  T* dw = static_cast<T*>(p.dw);
+  const int cvec = p.c_tile / VEC;
+  for (int i = tid; i < nvec; i += nthr) {
+    // up to W_FINAL partials in flight at once, added in split order
+    float4 a = __ldcg(part + i);
+    for (int s0 = 1; s0 < p.splits; s0 += W_FINAL) {
+      float4 got[W_FINAL];
+#pragma unroll
+      for (int u = 0; u < W_FINAL; ++u) {
+        if (s0 + u < p.splits) got[u] = __ldcg(part + (size_t)(s0 + u) * nvec + i);
+      }
+#pragma unroll
+      for (int u = 0; u < W_FINAL; ++u) {
+        if (s0 + u < p.splits) a = add4(a, got[u]);
+      }
+    }
+    const float v[VEC] = {a.x, a.y, a.z, a.w};
+    const int j = i / cvec;
+    const int ch = c0 + (i % cvec) * VEC;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      if (ch + e < p.c) store_from_f32(dw + (size_t)j * p.c + ch + e, v[e]);
+    }
+  }
+  if (tid == 0) p.ticket[ctile] = 0;  // for the next launch on the stream
+}
+
+template <typename T, int KC, int G>
+int wgrad_instance(const CUtensorMap& xmap, const CUtensorMap& dmap,
+                   const WParams& p, dim3 grid, dim3 block, int smem,
+                   cudaStream_t stream) {
+  static bool smem_raised = false;  // as in launch_instance
+  if (!smem_raised) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        dwconv1d_wgrad_kernel<T, KC, G>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+    if (e != cudaSuccess) return (int)e;
+    smem_raised = true;
+  }
+  dwconv1d_wgrad_kernel<T, KC, G><<<grid, block, smem, stream>>>(xmap, dmap,
+                                                                 p);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int KC>
+int wgrad_route(int copy_bytes, const CUtensorMap& xmap,
+                const CUtensorMap& dmap, const WParams& p, dim3 grid,
+                dim3 block, int smem, cudaStream_t stream) {
+  switch (copy_bytes) {
+    case 0:
+      return wgrad_instance<T, KC, 0>(xmap, dmap, p, grid, block, smem,
+                                      stream);
+    case 4:
+      return wgrad_instance<T, KC, 4>(xmap, dmap, p, grid, block, smem,
+                                      stream);
+    case 8:
+      return wgrad_instance<T, KC, 8>(xmap, dmap, p, grid, block, smem,
+                                      stream);
+    case 2:  // element loads, bfloat16 only
+      if constexpr (sizeof(T) == 2) {
+        return wgrad_instance<T, KC, 2>(xmap, dmap, p, grid, block, smem,
+                                        stream);
+      }
+      return (int)cudaErrorInvalidValue;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The wgrad's plan: the items, the grid, the shared memory and the
+// workspace, from the constants above. openeat_torch/ops/
+// depthwise_conv.py:wgrad_plan states the same plan. Returns false for a
+// problem the kernel does not take.
+struct WPlan {
+  int c_tile, n_ctiles, rows, q, n_items, per, splits, x_rows, x_bytes,
+      stage_bytes, smem;
+  long long ws_floats;
+};
+
+bool wgrad_plan(int batch, int t_in, int c, int k, int item, int sms,
+                WPlan* w) {
+  const int t_out = t_in - k + 1;
+  if (batch <= 0 || c <= 0 || k <= 0 || t_out <= 0 || sms <= 0) return false;
+  w->c_tile = channel_tile(c, item, W_C_TILE);
+  w->n_ctiles = (c + w->c_tile - 1) / w->c_tile;
+  // items of at most W_ROWS rows, shorter where a large K leaves less
+  // shared memory for the ring
+  long long x_bytes = 0, stage_bytes = 0, smem = 0;
+  for (w->q = (t_out + W_ROWS - 1) / W_ROWS;; ++w->q) {
+    w->rows = (t_out + w->q - 1) / w->q;
+    w->x_rows = w->rows + k - 1;
+    x_bytes = ((long long)w->x_rows * w->c_tile * item + 127) / 128 * 128;
+    stage_bytes =
+        x_bytes + ((long long)w->rows * w->c_tile * item + 127) / 128 * 128;
+    smem = 128 + W_STAGES * stage_bytes +
+           (long long)W_GROUPS * k * w->c_tile * 4 + W_STAGES * 8 + 8;
+    if (smem <= SMEM_MAX || w->rows == 1) break;
+  }
+  const long long n_items = (long long)batch * w->q;
+  const long long target =
+      ((long long)W_BLOCKS_PER_SM * sms + w->n_ctiles - 1) / w->n_ctiles;
+  long long per = (n_items + target - 1) / target;
+  if (per < (n_items + 65534) / 65535) per = (n_items + 65534) / 65535;
+  if (n_items > 0x7fffffffLL || w->x_rows > MAX_BOX || smem > SMEM_MAX ||
+      w->n_ctiles > W_MAX_CTILES) {
+    return false;
+  }
+  w->n_items = (int)n_items;
+  w->per = (int)per;
+  w->splits = (int)((n_items + per - 1) / per);
+  w->x_bytes = (int)x_bytes;
+  w->stage_bytes = (int)stage_bytes;
+  w->smem = (int)smem;
+  w->ws_floats = W_MAX_CTILES +
+                 (long long)w->n_ctiles * w->splits * k * w->c_tile;
+  return true;
 }
 
 }  // namespace
@@ -659,7 +978,8 @@ __global__ void dwconv1d_wgrad_reduce_kernel(const float* __restrict__ partial,
 // [batch, t+k-1, c]. dtype: 0 = float32, 1 = bfloat16, shared by all
 // three tensors, which are contiguous. copy_bytes is the route that
 // openeat_torch/ops/depthwise_conv.py:launch_plan picks from the input's
-// address: 0 = TMA, else the cp.async copy size (4, 8 or 16). Each
+// address: 0 = TMA, 4 or 8 = the cp.async copy size, 2 = element loads
+// (bfloat16 rows of odd C, or an input at a 2-byte offset). Each
 // launches one kernel on `stream` and returns cudaGetLastError() (0 on
 // success), cudaErrorInvalidValue for a problem or route the kernel does
 // not take, or 10000 + the CUresult where the tensor map cannot be
@@ -679,54 +999,73 @@ extern "C" int openeat_dwconv1d_dgrad(const void* dy, const void* w,
                      copy_bytes, stream);
 }
 
-// Scratch that openeat_dwconv1d_wgrad needs in `partial`, in float32
-// elements: one K x C slab per (batch row, T_TILE slice of output time).
-extern "C" long long openeat_dwconv1d_wgrad_scratch(int batch, int tp, int c,
-                                                    int k) {
-  const int t_out = tp - k + 1;
-  const long long t_tiles = (t_out + T_TILE - 1) / T_TILE;
-  return (long long)batch * t_tiles * k * c;
-}
-
 // Weight gradient of the VALID depthwise conv: x [batch, tp, c] and dy
 // [batch, tp-k+1, c] of dtype `dtype` (0 = float32, 1 = bfloat16) give
-// dw [k, c] in the same dtype, summed in float32. `partial` is float32
-// scratch of openeat_dwconv1d_wgrad_scratch() elements. Launches two
-// kernels on `stream` and returns cudaGetLastError() (0 on success).
+// dw [k, c] in the same dtype, summed in float32 in a fixed order.
+// copy_bytes is the route (as for the forward) that fits both x and dy.
+// `ws` is a workspace of ws_floats float32 values whose first
+// W_MAX_CTILES words (the tickets) are 0 and stay 0 after each launch;
+// openeat_torch/ops/depthwise_conv.py:wgrad_plan gives its size. Calls
+// that share a workspace run one after another (one stream). Launches
+// one kernel on `stream` and returns cudaGetLastError() (0 on success),
+// cudaErrorInvalidValue for what the kernel does not take (a workspace
+// too small among it), or 10000 + the CUresult of a tensor map.
 extern "C" int openeat_dwconv1d_wgrad(const void* x, const void* dy,
-                                      void* partial, void* dw, int batch,
-                                      int tp, int c, int k, int dtype,
+                                      void* ws, long long ws_floats,
+                                      void* dw, int batch, int tp, int c,
+                                      int k, int dtype, int copy_bytes,
                                       void* stream) {
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  const int item = dtype == 0 ? 4 : 2;
+  WPlan w;
+  if (!wgrad_plan(batch, tp, c, k, item, num_sms(), &w) ||
+      ws_floats < w.ws_floats || !aligned(ws, 16) ||
+      !route_fits(copy_bytes, item, c, x) ||
+      !route_fits(copy_bytes, item, c, dy)) {
+    return (int)cudaErrorInvalidValue;
+  }
   const int t_out = tp - k + 1;
-  if (batch <= 0 || c <= 0 || k <= 0 || t_out <= 0) {
-    return (int)cudaErrorInvalidValue;
+  alignas(64) CUtensorMap xmap{};
+  alignas(64) CUtensorMap dmap{};
+  if (copy_bytes == 0) {
+    int rc = encode_map(&xmap, x, dtype, batch, tp, c, w.c_tile, w.x_rows);
+    if (rc == 0) {
+      rc = encode_map(&dmap, dy, dtype, batch, t_out, c, w.c_tile, w.rows);
+    }
+    if (rc != 0) return rc;
   }
-  const int t_tiles = (t_out + T_TILE - 1) / T_TILE;
-  const long long n_tiles = (long long)batch * t_tiles;
-  if (n_tiles > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 block(C_TILE, T_ROWS);
-  const dim3 grid((c + C_TILE - 1) / C_TILE, (unsigned)n_tiles);
-  const size_t smem =
-      (size_t)(2 * T_TILE + k - 1) * C_TILE * sizeof(float);
-  const int kc = k * c;
-  const int threads = 256;
-  const int blocks = (kc + threads - 1) / threads;
+  WParams p;
+  p.x = x;
+  p.dy = dy;
+  p.dw = dw;
+  p.ticket = static_cast<unsigned*>(ws);
+  p.part = static_cast<float*>(ws) + W_MAX_CTILES;
+  p.t_in = tp;
+  p.t_out = t_out;
+  p.c = c;
+  p.k = k;
+  p.c_tile = w.c_tile;
+  p.rows = w.rows;
+  p.q = w.q;
+  p.n_items = w.n_items;
+  p.per = w.per;
+  p.splits = w.splits;
+  p.x_rows = w.x_rows;
+  p.x_bytes = w.x_bytes;
+  p.stage_bytes = w.stage_bytes;
+  const dim3 grid(w.n_ctiles, w.splits);
+  const dim3 block(w.c_tile / VEC, W_GROUPS);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* part = static_cast<float*>(partial);
   if (dtype == 0) {
-    dwconv1d_wgrad_partial_kernel<float><<<grid, block, smem, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(dy), part,
-        tp, c, k, t_tiles);
-    dwconv1d_wgrad_reduce_kernel<float><<<blocks, threads, 0, s>>>(
-        part, static_cast<float*>(dw), kc, (int)n_tiles);
-  } else if (dtype == 1) {
-    dwconv1d_wgrad_partial_kernel<__nv_bfloat16><<<grid, block, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(dy), part, tp, c, k, t_tiles);
-    dwconv1d_wgrad_reduce_kernel<__nv_bfloat16><<<blocks, threads, 0, s>>>(
-        part, static_cast<__nv_bfloat16*>(dw), kc, (int)n_tiles);
-  } else {
-    return (int)cudaErrorInvalidValue;
+    return k == K_FIXED
+               ? wgrad_route<float, K_FIXED>(copy_bytes, xmap, dmap, p, grid,
+                                             block, w.smem, s)
+               : wgrad_route<float, W_KC>(copy_bytes, xmap, dmap, p, grid,
+                                          block, w.smem, s);
   }
-  return (int)cudaGetLastError();
+  return k == K_FIXED
+             ? wgrad_route<__nv_bfloat16, K_FIXED>(copy_bytes, xmap, dmap, p,
+                                                   grid, block, w.smem, s)
+             : wgrad_route<__nv_bfloat16, W_KC>(copy_bytes, xmap, dmap, p,
+                                                grid, block, w.smem, s);
 }

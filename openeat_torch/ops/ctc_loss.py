@@ -9,13 +9,17 @@ beta over blank-interleaved labels, giving ``loss = -logZ`` and
 log_probs [B, T, V] and the scatter of exp(gamma) back into the [B, T, V]
 gradient are XLA ops around the kernel in JAX and torch ops here.
 
-On Hopper the two are one recurrence (openeat_torch/csrc/ctc_loss.cu):
-one block per utterance, threads over S, T walked in order. K1's
-counterpart keeps alpha's [T, S] history in shared memory; K2's keeps it
-in device memory for the tall T x S that do not fit.
-:func:`dispatch_variant` picks between them from the H100's shared memory
-per block. The kernels are bound by latency (2*T dependent steps), not by
-the bytes they move.
+On Hopper (openeat_torch/csrc/ctc_loss.cu) each is one block per
+utterance. K1's counterpart runs alpha and beta at once, a warp each
+(lanes own S/32 positions and swap neighbours by shuffles), over
+label_logp staged into shared memory before the first step, with both
+[T, S] histories in shared memory: a chain of T steps. K2's counterpart
+walks alpha, then beta, a thread per position, with alpha's history in
+device memory, for the tall T x S that do not fit: 2T steps.
+:func:`dispatch_variant` picks between them from the H100's shared
+memory per block. The kernels are bound by latency (the chain of
+dependent steps), not by the bytes they move; :func:`chain_step_ms`
+times one step of the chain.
 
 ``ctc_forward_scan``/``ctc_backward_scan`` are the plain version: the
 same recursions as loops over T on [B, S] tensors. One deliberate
@@ -27,6 +31,7 @@ oracle counts position 0 twice when a label sequence is empty (s_len 1).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -37,7 +42,12 @@ NEG_INF = -1.0e30
 # H100: 227 KB (232,448 bytes) of shared memory per block, less the
 # kernel's static shared memory and a margin
 SMEM_BUDGET = 232448 - 1024
-MAX_S = 1024  # one thread per label position
+# The kernels' constants (openeat_torch/csrc/ctc_loss.cu): K2 takes S <=
+# MAX_S (a thread per label position); K1 takes S <= 32 x K1_MAX_P (a
+# warp per recursion, at most K1_MAX_P positions a lane).
+MAX_S = 1024
+K1_MAX_P = 4
+PAIR_MAX_S = 32 * K1_MAX_P
 
 
 def extended_labels(labels: torch.Tensor, label_lens: torch.Tensor,
@@ -143,50 +153,100 @@ def ctc_dp_plain(label_logp: torch.Tensor, input_lens: torch.Tensor,
     return loss, torch.where(valid, gamma, NEG_INF)
 
 
+def smem_bytes(t: int, s: int, variant: str) -> int:
+    """Dynamic shared memory of a variant at [T, S], as
+    openeat_ctc_dp_smem_bytes gives it: K1's ("shared") alpha and beta
+    histories [T, S]; K2's ("global") its two rows [2, S]. float32."""
+    if variant == "shared":
+        return 2 * t * s * 4
+    return 2 * s * 4
+
+
 def dispatch_variant(b: int, t: int, s: int) -> str:
     """Which kernel a [B, T, S] problem goes to on the H100: "shared"
-    (K1's counterpart) when alpha's T x S float32 history and two rows
-    fit the shared memory of one block, else "global" (K2's). The batch
+    (K1's counterpart) when S <= PAIR_MAX_S and its shared memory
+    (:func:`smem_bytes`) fits one block, else "global" (K2's). The batch
     size does not enter: each utterance is its own block."""
     if s > MAX_S:
         raise ValueError(f"CTC kernel takes S = 2L+1 <= {MAX_S}; got {s}")
-    if (t * s + 2 * s) * 4 <= SMEM_BUDGET:
+    if s <= PAIR_MAX_S and smem_bytes(t, s, "shared") <= SMEM_BUDGET:
         return "shared"
     return "global"
 
 
+@functools.cache
+def _entry(name: str, argtypes: tuple):
+    """The library's C function `name`, bound once per process."""
+    fn = getattr(nvcc.load_library(SOURCE), name)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+_DP_ARGS = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 4 + (ctypes.c_void_p,)
+
+
 def _launch(label_logp, input_lens, s_lens, allow2, smem_hist: bool):
     b, t, s = label_logp.shape
-    dispatch_variant(b, t, s)   # raises for S > MAX_S
-    lib = nvcc.load_library(SOURCE)
-    fn = lib.openeat_ctc_dp
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     dev = label_logp.device
     lp = label_logp.float().contiguous()
     il = input_lens.to(device=dev, dtype=torch.int32).contiguous()
     sl = s_lens.to(device=dev, dtype=torch.int32).contiguous()
-    a2 = allow2.to(device=dev, dtype=torch.uint8).contiguous()
+    # bool is one byte of 0 or 1: the kernel reads it as it is
+    a2 = allow2.to(dev).contiguous()
+    a2 = a2.view(torch.uint8) if a2.dtype == torch.bool \
+        else a2.to(torch.uint8)
     loss = torch.empty((b,), dtype=torch.float32, device=dev)
     gamma = torch.empty((b, t, s), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(lp.data_ptr(), il.data_ptr(), sl.data_ptr(), a2.data_ptr(),
-                loss.data_ptr(), gamma.data_ptr(), b, t, s, int(smem_hist),
-                stream)
+        rc = _entry("openeat_ctc_dp", _DP_ARGS)(
+            lp.data_ptr(), il.data_ptr(), sl.data_ptr(), a2.data_ptr(),
+            loss.data_ptr(), gamma.data_ptr(), b, t, s, int(smem_hist),
+            stream)
     if rc != 0:
         raise RuntimeError(f"CTC kernel launch failed: cudaError {rc}")
     return loss, gamma
 
 
+def chain_step_ms() -> float:
+    """Device time of one step of K1's chain (one lae3, the add, one
+    warp-wide named barrier, no memory traffic) on the current card:
+    openeat_ctc_chain_step timed with CUDA events at 2000 and 6000 steps,
+    the difference over the extra 4000, median of 5. For measurement
+    only; the port's path does not call it."""
+    steps, reps = (2000, 6000), 5
+    out = torch.empty((64,), dtype=torch.float32, device="cuda")
+    fn = _entry("openeat_ctc_chain_step", (ctypes.c_int, ctypes.c_void_p,
+                                           ctypes.c_void_p))
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run_ms(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        rc = fn(n, out.data_ptr(), stream)
+        end.record()
+        end.synchronize()
+        if rc != 0:
+            raise RuntimeError(f"chain step launch failed: cudaError {rc}")
+        return start.elapsed_time(end)
+
+    run_ms(steps[0])
+    per = sorted((run_ms(steps[1]) - run_ms(steps[0]))
+                 / (steps[1] - steps[0]) for _ in range(reps))
+    return per[reps // 2]
+
+
 def ctc_dp_shared(label_logp, input_lens, s_lens, allow2):
-    """K1's counterpart: alpha history in shared memory. CUDA only;
-    every launch adds one to ``ctc_dp_shared.launches``."""
+    """K1's counterpart: alpha and beta at once, both histories in
+    shared memory. CUDA only; every launch adds one to
+    ``ctc_dp_shared.launches``."""
     _check_cuda(label_logp)
     if dispatch_variant(*label_logp.shape) != "shared":
-        raise ValueError(f"alpha history of {tuple(label_logp.shape)} does "
-                         "not fit shared memory; use ctc_dp_global")
+        raise ValueError(f"{tuple(label_logp.shape)} does not fit K1's "
+                         f"block (S <= {PAIR_MAX_S}, shared memory); use "
+                         f"ctc_dp_global")
     ctc_dp_shared.launches += 1
     return _launch(label_logp, input_lens, s_lens, allow2, True)
 
@@ -195,6 +255,7 @@ def ctc_dp_global(label_logp, input_lens, s_lens, allow2):
     """K2's counterpart: alpha history in device memory. CUDA only;
     every launch adds one to ``ctc_dp_global.launches``."""
     _check_cuda(label_logp)
+    dispatch_variant(*label_logp.shape)   # raises for S > MAX_S
     ctc_dp_global.launches += 1
     return _launch(label_logp, input_lens, s_lens, allow2, False)
 

@@ -14,15 +14,17 @@ All three are bound by device-memory bytes. The forward and the dgrad
 are one kernel body with two entries (openeat_torch/csrc/
 depthwise_conv.cu): each block loads zero-filled input windows into a
 ring in shared memory asynchronously (TMA, or cp.async where the rows
-are not 16-byte multiples), keeps its taps in registers, and moves four
-channels per thread per access (16 bytes of float32, 8 of bfloat16).
-The dgrad reads dy and the forward's w as they are: its K-1 halo is the
-loads' zero fill and its reversed taps a read order, so it is one
-launch. :func:`launch_plan` is the launch
-decision in Python (the route it passes, the tiles the kernel's launcher
-derives), so the CPU tests reach it. wgrad writes per-block
-partial sums and adds them in a second pass in a fixed order (no float
-atomics), so two runs give the same bits.
+are not 16-byte multiples; synchronous 2-byte element loads where no
+4-byte copy fits), keeps its taps in registers, and moves four channels
+per thread per access (16 bytes of float32, 8 of bfloat16). The dgrad
+reads dy and the forward's w as they are: its K-1 halo is the loads'
+zero fill and its reversed taps a read order, so it is one launch.
+wgrad is one launch too: blocks stage long spans of x and dy by the
+same routes, sum in registers, and the last block of each channel tile
+adds the blocks' partials in a fixed order (an integer ticket, no float
+atomics), so two runs give the same bits. :func:`launch_plan` and
+:func:`wgrad_plan` are the launch decisions in Python (the route passed,
+the tiles the kernel's launcher derives), so the CPU tests reach them.
 
 :func:`depthwise_conv1d` is a ``torch.autograd.Function`` on both
 devices: a CUDA tensor runs the kernels forward and backward, a CPU
@@ -119,12 +121,12 @@ class LaunchPlan:
     tile of T_TILE output rows) ``grid[1]`` apart. Each item reads input
     rows [t0 - pad_left, t0 - pad_left + rows) of [B, t_in, C], zero
     outside [0, t_in), through the TMA box ``tma_box`` (channels, rows,
-    batch) or, where ``route`` is ``"cp.async"``, copies of
-    ``copy_bytes``."""
+    batch) or, where ``route`` is ``"cp.async"`` or ``"element"``, copies
+    of ``copy_bytes``."""
 
     dgrad: bool           # the dgrad entry, else the forward's
-    route: str            # "tma" or "cp.async"
-    copy_bytes: int       # 0 on the TMA route, else 4, 8 or 16
+    route: str            # "tma", "cp.async" or "element"
+    copy_bytes: int       # 0 on the TMA route, else 2, 4 or 8
     c_tile: int
     rows: int             # input window per item: T_TILE + K - 1
     pad_left: int
@@ -138,6 +140,35 @@ class LaunchPlan:
     taps_in_registers: bool
 
 
+def pick_route(row_bytes: int, itemsize: int, *ptrs: int) -> tuple[str, int]:
+    """(route, copy_bytes) for rows of `row_bytes` at the addresses
+    `ptrs` (mod 16 is enough): TMA (0) where the row and every address
+    are multiples of 16 bytes, else cp.async copies of the larger of 8
+    and 4 bytes that divides them all, else, for 2-byte elements,
+    synchronous element loads ("element", 2). Raises ValueError where
+    none fits (a float32 tensor off a 4-byte boundary)."""
+    def fits(g):
+        return row_bytes % g == 0 and all(p % g == 0 for p in ptrs)
+
+    if fits(16):
+        return "tma", 0
+    for g in (8, 4):
+        if fits(g):
+            return "cp.async", g
+    if itemsize == 2:
+        return "element", 2
+    raise ValueError(f"K3 kernel needs float32 rows and addresses on 4-byte "
+                     f"boundaries; got rows of {row_bytes} bytes at address "
+                     f"offsets {[p % 16 for p in ptrs]} mod 16")
+
+
+def channel_tile(c: int, itemsize: int, cap: int = C_TILE) -> int:
+    """A channel tile of whole vectors and whole 16-byte rows (TMA
+    boxes), at most `cap` channels and no wider than C needs."""
+    step = max(VEC, 16 // itemsize)
+    return min(cap, -(-c // step) * step)
+
+
 @functools.lru_cache(maxsize=1024)
 def launch_plan(batch: int, t_in: int, c: int, k: int, itemsize: int, *,
                 dgrad: bool, x_ptr: int = 0,
@@ -146,11 +177,10 @@ def launch_plan(batch: int, t_in: int, c: int, k: int, itemsize: int, *,
     [batch, t_in, C] is the caller-padded x, t_out = t_in - K + 1) or
     openeat_dwconv1d_dgrad (input is dy, t_out = t_in + K - 1, the K - 1
     halo read as zeros). ``x_ptr`` is the input's address (mod 16 is
-    enough), whose alignment picks the route with the row's bytes: TMA
-    where both are multiples of 16, else cp.async copies of the largest
-    of 16, 8, 4 bytes that divides both. The route is what the kernel is
-    told; the rest is what its launcher derives from the same constants.
-    Raises ValueError for what no route takes."""
+    enough), whose alignment picks the route with the row's bytes
+    (:func:`pick_route`). The route is what the kernel is told; the rest
+    is what its launcher derives from the same constants. Raises
+    ValueError for what no route takes."""
     if itemsize not in (2, 4):
         raise ValueError(f"K3 kernel takes 2- or 4-byte elements, not "
                          f"{itemsize}")
@@ -161,22 +191,8 @@ def launch_plan(batch: int, t_in: int, c: int, k: int, itemsize: int, *,
     if batch < 1 or c < 1 or t_in < 1 or t_out < 1:
         raise ValueError(f"empty K3 problem: B={batch}, T_in={t_in}, C={c}, "
                          f"K={k}")
-    c_bytes = c * itemsize
-    if c_bytes % 16 == 0 and x_ptr % 16 == 0:
-        route, copy_bytes = "tma", 0
-    else:
-        sizes = [g for g in (16, 8, 4) if c_bytes % g == 0
-                 and x_ptr % g == 0]
-        if not sizes:
-            raise ValueError(
-                f"K3 kernel needs rows of channels and the input's address "
-                f"to be multiples of 4 bytes; got C={c} x {itemsize} bytes "
-                f"at address offset {x_ptr % 16} mod 16")
-        route, copy_bytes = "cp.async", sizes[0]
-    # a channel tile of whole vectors and whole 16-byte rows (TMA boxes,
-    # 16-byte copies), no wider than C needs
-    step = max(VEC, 16 // itemsize)
-    c_tile = min(C_TILE, -(-c // step) * step)
+    route, copy_bytes = pick_route(c * itemsize, itemsize, x_ptr)
+    c_tile = channel_tile(c, itemsize)
     taps_in_registers = k == K_FIXED
     rows = T_TILE + k - 1
     t_tiles = -(-t_out // T_TILE)
@@ -272,11 +288,130 @@ def depthwise_conv1d_dgrad(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return launch(dy, w, plan)
 
 
+# The wgrad kernel's constants (openeat_torch/csrc/depthwise_conv.cu):
+# at most W_C_TILE channels a block, items of at most W_ROWS output rows,
+# W_GROUPS row groups a block, W_KC taps a pass for a K other than
+# K_FIXED, a ring of W_STAGES items, about W_BLOCKS_PER_SM blocks per SM,
+# W_MAX_CTILES tickets at the workspace's head.
+W_C_TILE = 32
+W_ROWS = 128
+W_GROUPS = 16
+W_KC = 8
+W_STAGES = 3
+W_BLOCKS_PER_SM = 1
+W_MAX_CTILES = 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class WgradPlan:
+    """How one call of the wgrad kernel is cut. Each batch row's t_out
+    output rows are ``q`` items of ``rows`` rows (the last one shorter);
+    item i is (batch i // q, rows from (i % q) * rows). Block (ctile,
+    split) owns channels [ctile * c_tile, + c_tile) and items [split *
+    per, + per); row group g of its threads takes rows [g * n // W_GROUPS,
+    (g + 1) * n // W_GROUPS) of an item of n rows, in order, ``kc`` taps
+    a pass (with K_FIXED one pass, summed over all of the block's items;
+    other K add each item's passes into the thread's slots). The block adds
+    its row groups in order 0..W_GROUPS-1 into its partial; the tile's
+    last block adds the ``splits`` partials in split order and rounds
+    once. ``ws_floats`` is the workspace: W_MAX_CTILES tickets, then
+    n_ctiles x splits x K x c_tile partials."""
+
+    route: str            # "tma", "cp.async" or "element"
+    copy_bytes: int       # 0 on the TMA route, else 2, 4 or 8
+    c_tile: int
+    n_ctiles: int
+    t_out: int
+    q: int                # items per batch row
+    rows: int             # output rows per item, at most W_ROWS
+    x_rows: int           # x window per item: rows + K - 1
+    n_items: int
+    per: int              # items per block
+    splits: int           # blocks per channel tile
+    kc: int               # taps per pass
+    grid: tuple[int, int]
+    block: tuple[int, int]  # (channel vectors, row groups)
+    smem_bytes: int
+    ws_floats: int
+
+
+@functools.lru_cache(maxsize=1024)
+def wgrad_plan(batch: int, t_in: int, c: int, k: int, itemsize: int, *,
+               x_ptr: int = 0, dy_ptr: int = 0,
+               num_sms: int = H100_SMS) -> WgradPlan:
+    """The launch of openeat_dwconv1d_wgrad for x [batch, t_in, C] and dy
+    [batch, t_in - K + 1, C] at the addresses x_ptr and dy_ptr (mod 16 is
+    enough): the route (:func:`pick_route`, fitting both) and what the C
+    launcher derives from the same constants. Raises ValueError for what
+    the kernel does not take."""
+    if itemsize not in (2, 4):
+        raise ValueError(f"wgrad kernel takes 2- or 4-byte elements, not "
+                         f"{itemsize}")
+    t_out = t_in - k + 1
+    if batch < 1 or c < 1 or k < 1 or t_out < 1:
+        raise ValueError(f"empty wgrad problem: B={batch}, T_in={t_in}, "
+                         f"C={c}, K={k}")
+    route, copy_bytes = pick_route(c * itemsize, itemsize, x_ptr, dy_ptr)
+    c_tile = channel_tile(c, itemsize, W_C_TILE)
+    n_ctiles = -(-c // c_tile)
+    # items of at most W_ROWS rows, shorter where a large K leaves less
+    # shared memory for the ring
+    q = -(-t_out // W_ROWS)
+    while True:
+        rows = -(-t_out // q)
+        x_rows = rows + k - 1
+        x_bytes = -(-x_rows * c_tile * itemsize // 128) * 128
+        stage_bytes = x_bytes + -(-rows * c_tile * itemsize // 128) * 128
+        smem = 128 + W_STAGES * stage_bytes + W_GROUPS * k * c_tile * 4 \
+            + W_STAGES * 8 + 8
+        if smem <= SMEM_MAX or rows == 1:
+            break
+        q += 1
+    n_items = batch * q
+    target = -(-W_BLOCKS_PER_SM * num_sms // n_ctiles)
+    per = max(-(-n_items // target), -(-n_items // 65535))
+    if n_items >= 2 ** 31 or x_rows > MAX_BOX or smem > SMEM_MAX \
+            or n_ctiles > W_MAX_CTILES:
+        raise ValueError(f"wgrad kernel does not take B={batch}, "
+                         f"T_in={t_in}, C={c}, K={k}: {n_items} items, "
+                         f"{x_rows} window rows, {smem} bytes of shared "
+                         f"memory, {n_ctiles} channel tiles")
+    splits = -(-n_items // per)
+    return WgradPlan(
+        route=route, copy_bytes=copy_bytes, c_tile=c_tile, n_ctiles=n_ctiles,
+        t_out=t_out, q=q, rows=rows, x_rows=x_rows, n_items=n_items, per=per,
+        splits=splits, kc=K_FIXED if k == K_FIXED else W_KC,
+        grid=(n_ctiles, splits), block=(c_tile // VEC, W_GROUPS),
+        smem_bytes=smem,
+        ws_floats=W_MAX_CTILES + n_ctiles * splits * k * c_tile)
+
+
+# One wgrad workspace per device, grown on demand and reused by every call
+# on it (the calls of one device run in stream order). Allocated zeroed:
+# the tickets at its head are 0 between launches. A grown-out workspace
+# is kept, since a CUDA graph may hold its address.
+_WORKSPACE: dict[int, list[torch.Tensor]] = {}
+
+
+def _workspace(device: torch.device, n_floats: int) -> torch.Tensor:
+    held = _WORKSPACE.setdefault(device.index, [])
+    if not held or held[-1].numel() < n_floats:
+        size = max(n_floats, 2 * held[-1].numel()) if held else n_floats
+        held.append(torch.zeros((size,), dtype=torch.float32, device=device))
+    return held[-1]
+
+
+_WGRAD_ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_longlong, ctypes.c_void_p) \
+    + (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
+
+
 def depthwise_conv1d_wgrad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     """dw [K, C] in x's dtype from x [B, T+K-1, C] and dy [B, T, C] of the
-    same dtype. A CUDA tensor runs the wgrad kernel (each launch adds one
-    to ``depthwise_conv1d_wgrad.launches``); a CPU tensor takes
-    :func:`depthwise_conv1d_wgrad_plain`."""
+    same dtype. A CUDA tensor runs the wgrad kernel, one launch by
+    :func:`wgrad_plan` (each adds one to
+    ``depthwise_conv1d_wgrad.launches``), with the device's shared
+    workspace: calls on one device must share a stream. A CPU tensor
+    takes :func:`depthwise_conv1d_wgrad_plain`."""
     b, tp, c = x.shape
     if dy.dim() != 3 or dy.shape[0] != b or dy.shape[2] != c \
             or dy.shape[1] > tp:
@@ -289,20 +424,20 @@ def depthwise_conv1d_wgrad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return depthwise_conv1d_wgrad_plain(x, dy)
     k = tp - dy.shape[1] + 1
-    scratch = _entry("openeat_dwconv1d_wgrad_scratch", (ctypes.c_int,) * 4,
-                     ctypes.c_longlong)
-    fn = _entry("openeat_dwconv1d_wgrad", (ctypes.c_void_p,) * 4
-                + (ctypes.c_int,) * 5 + (ctypes.c_void_p,))
-    partial = torch.empty((scratch(b, tp, c, k),), dtype=torch.float32,
-                          device=x.device)
+    plan = wgrad_plan(b, tp, c, k, x.element_size(),
+                      x_ptr=x.data_ptr() % 16, dy_ptr=dy.data_ptr() % 16,
+                      num_sms=_num_sms(x.device.index))
+    ws = _workspace(x.device, plan.ws_floats)
     dw = torch.empty((k, c), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         depthwise_conv1d_wgrad.launches += 1
-        rc = fn(x.data_ptr(), dy.data_ptr(), partial.data_ptr(),
-                dw.data_ptr(), b, tp, c, k, _DTYPE_CODE[x.dtype], _stream(x))
+        rc = _entry("openeat_dwconv1d_wgrad", _WGRAD_ARGS)(
+            x.data_ptr(), dy.data_ptr(), ws.data_ptr(), ws.numel(),
+            dw.data_ptr(), b, tp, c, k, _DTYPE_CODE[x.dtype],
+            plan.copy_bytes, _stream(x))
     if rc != 0:
-        raise RuntimeError(f"depthwise_conv1d wgrad launch failed: "
-                           f"cudaError {rc}")
+        raise RuntimeError(f"depthwise_conv1d wgrad launch failed with code "
+                           f"{rc} ({plan})")
     return dw
 
 

@@ -169,9 +169,12 @@ def test_dispatch_variant_at_the_flagship_shapes():
     assert P.dispatch_variant(2, 486, 241) == "global"
     # the JAX package's "large" shape
     assert P.dispatch_variant(8, 1024, 241) == "global"
-    # the border: (T*S + 2*S) * 4 bytes against 227 KB less 1 KB
-    assert P.dispatch_variant(1, 238, 241) == "shared"
-    assert P.dispatch_variant(1, 239, 241) == "global"
+    # the border: both [T, S] histories, 2 * T * S * 4 bytes, against
+    # 227 KB less 1 KB; and K1 takes S <= 128 (4 positions a lane)
+    assert P.dispatch_variant(1, 590, 49) == "shared"
+    assert P.dispatch_variant(1, 591, 49) == "global"
+    assert P.dispatch_variant(1, 10, 128) == "shared"
+    assert P.dispatch_variant(1, 10, 129) == "global"
     with pytest.raises(ValueError):
         P.dispatch_variant(1, 10, 1025)
 
@@ -188,3 +191,137 @@ def test_cpu_tensor_never_reaches_a_kernel(monkeypatch):
     with pytest.raises(ValueError, match="CUDA"):
         P.ctc_dp_shared(torch.zeros(1, 4, 3), torch.ones(1), torch.ones(1),
                         torch.zeros(1, 3, dtype=torch.bool))
+
+
+def test_kernel_source_and_python_share_their_constants():
+    src = (nvcc.CSRC_DIR / P.SOURCE).read_text()
+    for name in ("MAX_S", "K1_MAX_P"):
+        assert f"constexpr int {name} = {getattr(P, name)};" in src, name
+    assert "constexpr int PAIR_MAX_S = 32 * K1_MAX_P;" in src
+    assert P.PAIR_MAX_S == 32 * P.K1_MAX_P
+    assert "constexpr float NEG_INF = -1.0e30f;" in src
+    # openeat_ctc_dp_smem_bytes's two formulas, as smem_bytes mirrors them
+    assert "long long pair_smem(int t_len, int s_n) " \
+        "{ return 2LL * t_len * s_n * 4; }" in src
+    assert "long long global_smem(int s_n) { return 2LL * s_n * 4; }" in src
+
+
+@pytest.mark.parametrize("s", [3, 33, 49, 121, 128])
+def test_dispatch_variant_and_smem_budget_agree_at_the_border(s):
+    """K1 is picked exactly up to the largest T whose shared memory fits
+    the budget, whatever the batch."""
+    t_max = P.SMEM_BUDGET // (2 * s * 4)
+    assert P.smem_bytes(t_max, s, "shared") <= P.SMEM_BUDGET \
+        < P.smem_bytes(t_max + 1, s, "shared")
+    for b in (1, 256):
+        assert P.dispatch_variant(b, t_max, s) == "shared"
+        assert P.dispatch_variant(b, t_max + 1, s) == "global"
+    assert P.smem_bytes(10_000, s, "global") == 2 * s * 4
+
+
+def _shfl(v, d):
+    """__shfl_up_sync (d > 0) or __shfl_down_sync (d < 0) across 32
+    lanes: lane l gets lane l - d's value, or its own where that lane
+    does not exist."""
+    src = torch.arange(32) - d
+    src = torch.where((src >= 0) & (src < 32), src, torch.arange(32))
+    return v[src]
+
+
+def _k1_walk(label_logp, input_lens, s_lens, allow2, per):
+    """The K1 kernel's lane layout in torch: lane l owns positions
+    l * per + q, alpha takes s-1 and s-2 it does not own from lane l-1,
+    beta takes s+1 and s+2 from lane l+1, by shuffles; the same lae3 as
+    the plain recursions. Returns (loss, gamma) as the kernel writes
+    them."""
+    b_, t_, s_ = label_logp.shape
+    neg = P.NEG_INF
+    pos = torch.arange(32)[:, None] * per + torch.arange(per)[None, :]
+    on = pos < s_
+    pc = pos.clamp(max=s_ - 1)
+    loss = torch.empty(b_)
+    gamma = torch.full((b_, t_, s_), neg)
+    full = torch.full((32, per), neg)
+
+    def own(v, q):
+        return v[:, q] if 0 <= q < per else None
+
+    for b in range(b_):
+        lp = label_logp[b]
+        n = max(0, min(int(input_lens[b]), t_))
+        slen = int(s_lens[b])
+        end1, end2 = slen - 1, max(slen - 2, 0)
+        a2 = allow2[b]
+        skip_in = on & (pos >= 2) & a2[pc]
+        skip_out = on & (pos + 2 < s_) & a2[(pos + 2).clamp(max=s_ - 1)]
+        ends = [torch.tensor(neg), torch.tensor(neg)]
+        ahist = torch.full((t_, s_), neg)
+        bhist = torch.full((t_, s_), neg)
+        if n >= 1:
+            alpha = torch.where(on & (pos < 2) & (pos < slen), lp[0][pc],
+                                full)
+            ahist[0] = alpha.flatten()[:s_]
+            for t in range(1, n):
+                up1 = _shfl(alpha[:, per - 1], 1)
+                up2 = _shfl(alpha[:, per - 2], 1) if per > 1 \
+                    else _shfl(alpha[:, 0], 2)
+                a1 = torch.stack([own(alpha, q - 1) if q >= 1 else up1
+                                  for q in range(per)], 1)
+                a1 = torch.where(pos < 1, full, a1)
+                a2v = torch.stack([own(alpha, q - 2) if q >= 2 else
+                                   (up1 if q == 1 else up2)
+                                   for q in range(per)], 1)
+                a2v = torch.where(skip_in, a2v, full)
+                alpha = torch.where(on, P._lae3(alpha, a1, a2v) + lp[t][pc],
+                                    full)
+                ahist[t] = alpha.flatten()[:s_]
+            flat = alpha.flatten()
+            ends[0] = flat[end1]
+            if end2 != end1:
+                ends[1] = flat[end2]
+            beta = torch.where(on & ((pos == end1) | (pos == end2)), 0.0,
+                               full)
+            bhist[n - 1] = beta.flatten()[:s_]
+            for i in range(n - 2, -1, -1):
+                bn0 = torch.where(on, beta + lp[i + 1][pc], full)
+                dn1 = _shfl(bn0[:, 0], -1)
+                dn2 = _shfl(bn0[:, 1], -1) if per > 1 else _shfl(bn0[:, 0], -2)
+                b1 = torch.stack([own(bn0, q + 1) if q + 1 < per else dn1
+                                  for q in range(per)], 1)
+                b1 = torch.where(pos + 1 >= s_, full, b1)
+                b2 = torch.stack([own(bn0, q + 2) if q + 2 < per else
+                                  (dn1 if q + 2 == per else dn2)
+                                  for q in range(per)], 1)
+                b2 = torch.where(skip_out, b2, full)
+                beta = torch.where(on, P._lae3(bn0, b1, b2), full)
+                bhist[i] = beta.flatten()[:s_]
+        logz = P._lae3(ends[0], ends[1], torch.tensor(neg))
+        loss[b] = -logz
+        gamma[b, :n] = ahist[:n] + bhist[:n] - logz
+    return loss, gamma
+
+
+@pytest.mark.parametrize("b,t,v,l,lo,lab", [
+    (4, 12, 5, 3, {1: 1, 2: 2}, {1: 1, 2: 3}),   # S = 7: one position a lane
+    (3, 20, 9, 15, {1: 1}, {2: 15}),             # S = 31
+    (3, 25, 12, 16, {2: 7}, {1: 2}),             # S = 33: two a lane
+    (2, 30, 40, 24, {}, {1: 20}),                # S = 49
+    (2, 40, 80, 60, {1: 33}, {1: 60}),           # S = 121: four a lane
+])
+def test_k1_lane_layout_walk_is_the_plain_recursion(b, t, v, l, lo, lab):
+    lp, labels, il, ll = _problem(b * 1000 + t, b, t, v, l, lo, lab)
+    z, s_lens = P.extended_labels(torch.from_numpy(labels),
+                                  torch.from_numpy(ll))
+    allow2 = P.transition_masks(z)
+    llp = P.gather_label_logp(torch.from_numpy(lp), z)
+    s = llp.shape[2]
+    per = -(-s // 32)
+    assert per <= P.K1_MAX_P and P.dispatch_variant(b, t, s) == "shared"
+    loss, gamma = _k1_walk(llp, torch.from_numpy(il), s_lens, allow2, per)
+    ref_loss, ref_gamma = P.ctc_dp_plain(llp, torch.from_numpy(il), s_lens,
+                                         allow2)
+    torch.testing.assert_close(loss, ref_loss, rtol=1e-6, atol=1e-5)
+    dead = ref_gamma <= -1e29
+    assert torch.equal(gamma <= -1e29, dead)
+    torch.testing.assert_close(gamma[~dead], ref_gamma[~dead], rtol=1e-6,
+                               atol=1e-4)

@@ -132,15 +132,18 @@ def _within_kernel_limits(p, itemsize, blocks=2 * 132):
         assert p.copy_bytes == 0
         assert p.tma_box == (p.c_tile, p.rows, 1)
         assert (p.tma_box[0] * itemsize) % 16 == 0
+    elif p.route == "cp.async":
+        assert p.copy_bytes in (4, 8) and p.tma_box is None
     else:
-        assert p.copy_bytes in (4, 8, 16) and p.tma_box is None
+        assert p.route == "element" and itemsize == 2
+        assert p.copy_bytes == 2 and p.tma_box is None
 
 
 @pytest.mark.parametrize("k", [1, 7, 15, 31, 64])
 @pytest.mark.parametrize("c,itemsize,route,copy_bytes", [
     (256, 4, "tma", 0), (256, 2, "tma", 0), (100, 2, "cp.async", 8),
     (4, 4, "tma", 0), (4, 2, "cp.async", 8), (70, 4, "cp.async", 8),
-    (6, 2, "cp.async", 4)])
+    (6, 2, "cp.async", 4), (99, 2, "element", 2), (5, 2, "element", 2)])
 @pytest.mark.parametrize("dgrad", [False, True])
 def test_launch_plan_routes_and_limits(k, c, itemsize, route, copy_bytes,
                                        dgrad):
@@ -186,12 +189,27 @@ def test_launch_plan_route_follows_the_input_address():
     assert _plan(2, 40, 256, 15, 2, x_ptr=32).route == "tma"
 
 
+@pytest.mark.parametrize("args,route", [
+    ((2, 40, 5, 7, 2), "element"),                  # odd C in bf16
+    ((2, 40, 256, 7, 2, False, 2), "element"),      # 2-byte offset
+    ((2, 40, 256, 7, 2, True, 6), "element"),
+    ((2, 40, 258, 7, 2, False, 4), "cp.async"),     # 4 bytes fit: never
+    ((2, 40, 256, 7, 2, True, 12), "cp.async"),     # the element route
+])
+def test_element_route_only_where_no_copy_fits(args, route):
+    """The 2-byte element loads serve bfloat16 rows of odd C and inputs
+    at a 2-byte offset, which no 4-byte copy fits, and nothing else."""
+    p = _plan(*args)
+    assert p.route == route
+    assert (p.copy_bytes == 2) == (route == "element")
+    _within_kernel_limits(p, 2)
+
+
 @pytest.mark.parametrize("args,match", [
-    ((2, 40, 5, 7, 2), "multiples of 4 bytes"),       # odd C in bf16
-    ((2, 40, 256, 7, 2, False, 2), "multiples of 4"),  # 2-byte offset
     ((2, 40, 8, 65, 4), "K <= 64"),
     ((2, 10, 8, 15, 4), "empty"),                     # forward T_out < 1
     ((2, 40, 8, 7, 8), "2- or 4-byte"),
+    ((2, 40, 8, 7, 4, False, 2), "4-byte boundaries"),  # float32 off 4 B
 ])
 def test_launch_plan_refuses_what_no_route_takes(args, match):
     with pytest.raises(ValueError, match=match):
@@ -281,6 +299,11 @@ def _walk(plan, xin, w, dgrad, itemsize):
     (2, 40, 6, 5, torch.bfloat16, True, {}),
     (2, 40, 20, 7, torch.float32, False, {"x_ptr": 4}),
     (2, 20, 16, 64, torch.float32, True, {}),
+    # element loads: odd C in bf16, a bf16 input at a 2-byte offset
+    (3, 40, 99, 7, torch.bfloat16, False, {}),
+    (3, 34, 99, 7, torch.bfloat16, True, {}),
+    (2, 40, 256, 15, torch.bfloat16, False, {"x_ptr": 2}),
+    (2, 30, 72, 15, torch.bfloat16, True, {"x_ptr": 6, "num_sms": 2}),
 ])
 def test_plan_walk_is_the_plain_version_bit_for_bit(b, t_in, c, k, dtype,
                                                     dgrad, device):

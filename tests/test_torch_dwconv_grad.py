@@ -119,3 +119,122 @@ def test_wgrad_rejects_mismatched_shapes():
     with pytest.raises(TypeError):
         dw.depthwise_conv1d_wgrad(torch.zeros(2, 20, 8),
                                   torch.zeros(2, 6, 8, dtype=torch.float64))
+
+
+# ------------------------------------------------------------ wgrad plan
+#
+# The wgrad kernel runs only on the card; these hold its launch decision
+# (dw.wgrad_plan) to the kernel's limits and walk the plan in numpy: every
+# block, item, row group and pass, summed in the planned order.
+
+def test_wgrad_kernel_source_and_plan_share_their_constants():
+    src = (nvcc.CSRC_DIR / dw.SOURCE).read_text()
+    for name in ("W_C_TILE", "W_ROWS", "W_GROUPS", "W_KC", "W_STAGES",
+                 "W_BLOCKS_PER_SM", "W_MAX_CTILES", "K_FIXED", "SMEM_MAX",
+                 "MAX_BOX", "VEC"):
+        assert f"constexpr int {name} = {getattr(dw, name)};" in src, name
+
+
+def _wgrad_walk(plan, x, dy):
+    """numpy run of the wgrad kernel as planned, in float32 and in its
+    order of sums: each thread's rows in order (K_FIXED: over all of its
+    block's items in one pass; other K: each item's passes added into its
+    slots), the row groups in order, the splits in order. Returns dw and
+    how many times each product x[b, t+j, c] * dy[b, t, c] was added."""
+    b_, t_in, c = x.shape
+    k = t_in - plan.t_out + 1
+    counts = np.zeros((b_, plan.t_out, k, c), np.int64)
+    dw_ = np.full((k, c), np.nan, np.float32)
+    one_pass = plan.kc == dw.K_FIXED
+    for ct in range(plan.n_ctiles):
+        c0 = ct * plan.c_tile
+        ch = np.arange(c0, min(c0 + plan.c_tile, c))
+        total = None
+        for split in range(plan.splits):
+            red = np.zeros((dw.W_GROUPS, k, ch.size), np.float32)
+            keep = np.zeros((dw.W_GROUPS, k, ch.size), np.float32)
+            items = range(split * plan.per,
+                          min((split + 1) * plan.per, plan.n_items))
+            assert len(items) >= 1
+            for item in items:
+                b, qi = divmod(item, plan.q)
+                t0 = qi * plan.rows
+                n_rows = min(plan.rows, plan.t_out - t0)
+                for g in range(dw.W_GROUPS):
+                    lo = g * n_rows // dw.W_GROUPS
+                    hi = (g + 1) * n_rows // dw.W_GROUPS
+                    for j0 in range(0, k, plan.kc):
+                        js = np.arange(j0, min(j0 + plan.kc, k))
+                        acc = keep[g, js] if one_pass else \
+                            np.zeros((js.size, ch.size), np.float32)
+                        for r in range(lo, hi):
+                            t = t0 + r
+                            # window row r + j, inside the staged window
+                            assert r + js[-1] < plan.x_rows
+                            acc = acc + x[b, t + js][:, ch] * dy[b, t, ch]
+                            counts[b, t, js[:, None], ch[None, :]] += 1
+                        if one_pass:
+                            keep[g, js] = acc
+                        else:
+                            red[g, js] = red[g, js] + acc
+            if one_pass:
+                red = keep
+            part = red[0]
+            for g in range(1, dw.W_GROUPS):
+                part = part + red[g]
+            total = part if total is None else total + part
+        dw_[:, ch] = total
+    return dw_, counts
+
+
+@pytest.mark.parametrize("b,t_in,c,k,itemsize,device", [
+    (2, 40, 100, 7, 4, {}),                  # C not a multiple of the tile
+    (3, 30, 70, 15, 4, {"num_sms": 3}),      # K_FIXED, several items a block
+    (1, 60, 40, 31, 2, {"num_sms": 2}),      # two passes of W_KC taps
+    (2, 16, 8, 15, 4, {}),                   # small B*T: one row a block
+    (4, 150, 36, 7, 2, {"num_sms": 5}),      # chunks of W_ROWS, ragged
+    (1, 300, 8, 64, 4, {}),                  # K = 64: shorter items
+    (1, 20, 12, 15, 2, {"x_ptr": 2}),        # the element route
+])
+def test_wgrad_plan_walk_counts_each_product_once(b, t_in, c, k, itemsize,
+                                                  device):
+    plan = dw.wgrad_plan(b, t_in, c, k, itemsize, **device)
+    t_out = t_in - k + 1
+    assert plan.t_out == t_out and plan.rows <= dw.W_ROWS
+    # no shorter items than shared memory needs
+    assert plan.rows == -(-t_out // plan.q)
+    assert plan.q * plan.rows >= t_out > (plan.q - 1) * plan.rows
+    assert plan.n_items == b * plan.q
+    assert plan.per * plan.splits >= plan.n_items \
+        > plan.per * (plan.splits - 1)
+    assert plan.grid == (plan.n_ctiles, plan.splits)
+    assert plan.block == (plan.c_tile // dw.VEC, dw.W_GROUPS)
+    assert plan.x_rows == plan.rows + k - 1 <= dw.MAX_BOX
+    assert plan.smem_bytes <= dw.SMEM_MAX
+    assert plan.ws_floats == dw.W_MAX_CTILES \
+        + plan.n_ctiles * plan.splits * k * plan.c_tile
+    rng = np.random.default_rng(t_in * 100 + c + k)
+    x = rng.standard_normal((b, t_in, c)).astype(np.float32)
+    dy = rng.standard_normal((b, t_out, c)).astype(np.float32)
+    got, counts = _wgrad_walk(plan, x, dy)
+    assert (counts == 1).all()
+    ref = dw.depthwise_conv1d_wgrad_plain(torch.from_numpy(x),
+                                          torch.from_numpy(dy)).numpy()
+    assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+def test_wgrad_plan_at_the_main_path_shape():
+    """[22, 162, 256] K=15: 8 tiles of 32 channels x 15 blocks of 3
+    items (74 rows each) by TMA; a bfloat16 dy at an 8-byte offset takes
+    cp.async, a float32 x off a 4-byte boundary is refused; K = 64 over
+    a long T takes shorter items to fit shared memory."""
+    p = dw.wgrad_plan(22, 162, 256, 15, 4)
+    assert (p.route, p.c_tile, p.grid, p.per, p.rows, p.q) == (
+        "tma", 32, (8, 15), 3, 74, 2)
+    assert p.block == (8, 16) and p.kc == 15
+    p2 = dw.wgrad_plan(22, 162, 256, 15, 2, x_ptr=0, dy_ptr=8)
+    assert (p2.route, p2.copy_bytes) == ("cp.async", 8)
+    with pytest.raises(ValueError):
+        dw.wgrad_plan(2, 40, 8, 7, 4, x_ptr=2)
+    p = dw.wgrad_plan(2, 400, 256, 64, 4)
+    assert p.rows < dw.W_ROWS and p.smem_bytes <= dw.SMEM_MAX
