@@ -1,5 +1,5 @@
-"""Times the hand-written kernels K3 and K1 on one NVIDIA GPU, in one
-checkout.
+"""Times the hand-written kernels K3, K1 and K2 on one NVIDIA GPU, in
+one checkout.
 
     python3 chip_kernel_bench.py [TREE]
 
@@ -8,9 +8,11 @@ that holds this script). At the main path's shapes, in float32 and
 bfloat16, chip_smoke's kernel_case (K3's forward) and dwconv_grad_case
 (K3's dgrad and wgrad) check each kernel against its plain version and
 time the kernel, the plain version and the library call from CUDA-graph
-replays; ctc_row checks the CTC kernel bit for bit and times it alone
-at the training batches' [B, T, S] (K1 at [22, 148, 33], [14, 198, 49]
-and the TPU batch [256, 77, 49]). Beside them it times a ``Tensor.copy_`` of the kernel's
+replays; ctc_row checks the CTC kernel that dispatch_variant picks bit
+for bit and times it alone at the training batches' [B, T, S] (K1 at
+[22, 148, 33], [14, 198, 49] and the TPU batch [256, 77, 49]; K2 at the
+flagship's long batch [6, 498, 241] and the JAX package's large shape
+[8, 1024, 241]). Beside them it times a ``Tensor.copy_`` of the kernel's
 input (for the wgrad, of x and of dy: what moving those bytes costs at
 this size) and the host's microseconds per call of ``depthwise_conv1d``
 and ``depthwise_conv1d_dgrad``: the wrapper's whole host path, launch
@@ -37,8 +39,10 @@ FORWARD_SHAPES = [(8, 162, 256, 15), (8, 212, 256, 15), (22, 162, 256, 15),
                   (14, 212, 256, 15), (6, 512, 256, 15)]
 BACKWARD_SHAPES = [(22, 162, 256, 15), (14, 212, 256, 15), (6, 512, 256, 15),
                    (12, 212, 256, 15)]
-# (B, T, L): K1 at the flagship's training batches and the TPU batch
-CTC_SHAPES = [(22, 148, 16), (14, 198, 24), (256, 77, 24)]
+# (B, T, L): K1 at the flagship's training batches and the TPU batch, K2
+# at the flagship's long batch and the JAX package's large shape
+CTC_SHAPES = [(22, 148, 16), (14, 198, 24), (256, 77, 24), (6, 498, 120),
+              (8, 1024, 120)]
 VOCAB = 4233
 
 

@@ -26,16 +26,18 @@
    max|dw| of the plain sum; bfloat16 within 1 bf16 ulp of the kernel's
    own float32 sums), with aten.convolution_backward as their
    yardstick. torch.profiler shows that one call of depthwise_conv1d,
-   depthwise_conv1d_dgrad, depthwise_conv1d_wgrad and ctc_dp_shared
-   each runs exactly one device kernel. Then the CTC forward-backward
-   K1/K2 counterparts (openeat_torch/csrc/ctc_loss.cu) against the plain
-   recursions, bit for bit in loss and gamma (NEG_INF entries equal),
-   with repeats, an infeasible row and len == 1 in every case, each
-   beside its bytes bound and its chain bound (T x one dependent step,
-   timed by ctc.chain_step_ms). The port's whole CTC op (gather, kernel,
-   scatter; forward and backward) is timed beside F.ctc_loss forward and
-   backward at the same (B, T, V, L), the yardstick the port never
-   calls.
+   depthwise_conv1d_dgrad, depthwise_conv1d_wgrad, ctc_dp_shared and
+   ctc_dp_global each runs exactly one device kernel. K2's launch plan
+   (openeat_ctc_global_plan) must equal ctc.global_plan. Then the CTC
+   forward-backward K1/K2 counterparts (openeat_torch/csrc/ctc_loss.cu)
+   against the plain recursions, bit for bit in loss and gamma (NEG_INF
+   entries equal), with repeats, an infeasible row, len == 1 and an
+   input length of T + 5 in every case (K2 also at a tall S = 49 and at
+   S = 1001), each beside its bytes bound and its chain bound (T x one
+   dependent step, timed by ctc.chain_step_ms). The port's whole CTC op
+   (gather, kernel, scatter; forward and backward) is timed beside
+   F.ctc_loss forward and backward at the same (B, T, V, L), the
+   yardstick the port never calls.
 3. Slice phase: writes 16 synthetic 3-8 s wavs, a 4233-entry dict, the
    flagship AIShell Conformer config (examples/aishell/conf/
    train_conformer.yaml model_conf: d=256, 12 blocks, 3+3 decoders) as
@@ -69,13 +71,17 @@
    work), the device's idle share over 5 steps (torch.profiler), peak
    memory and audio seconds trained per second.
 
-Any failed check raises. The last stdout line is the JSON result;
-details go to chiprun_out/chip_smoke.json.
+Any failed check raises. Before the last two stdout lines it prints the
+card's name and power limit again; then the kernels line (each kernel's
+launches on the main path, error, times and bounds; the CTC rows with
+their chain bound) and the JSON result. Details go to
+chiprun_out/chip_smoke.json.
 """
 
 from __future__ import annotations
 
 import copy
+import ctypes
 import json
 import math
 import os
@@ -599,26 +605,34 @@ def dwconv_grad_case(b: int, tp: int, c: int, k: int, dtype, gen,
     return row
 
 
-def _device_kernels(call) -> list[str]:
+def _device_kernels(call, attempts: int = 3) -> list[str]:
     """Names of the device kernels one call runs (torch.profiler), after a
-    warm-up call."""
+    warm-up call. A trace with no device event at all is the profiler
+    missing the call (seen on the card now and then), so it is taken
+    again, up to `attempts` times."""
     from torch.profiler import ProfilerActivity, profile
     call()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        call()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    names: list[str] = []
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    return names
 
 
-def k3_kernels_per_call(shapes: list[tuple], ctc_shape: tuple,
+def k3_kernels_per_call(shapes: list[tuple], ctc_shapes: list[tuple],
                         gen) -> list[dict]:
     """torch.profiler over one call each of depthwise_conv1d,
     depthwise_conv1d_dgrad and depthwise_conv1d_wgrad at `shapes`, and of
-    ctc_dp_shared at `ctc_shape` (B, T, L) with its inputs already in the
-    kernel's dtypes: each must run exactly one device kernel."""
+    the CTC kernel dispatch_variant picks (ctc_dp_shared or ctc_dp_global)
+    at each of `ctc_shapes` (B, T, L), its inputs already in the kernel's
+    dtypes: each must run exactly one device kernel."""
     dev = torch.device("cuda")
     rows = []
     for b, tp, c, k, dtype in shapes:
@@ -635,14 +649,18 @@ def k3_kernels_per_call(shapes: list[tuple], ctc_shape: tuple,
             rows.append({"call": name, "shape": [b, tp, c], "k": k,
                          "dtype": str(dtype).split(".")[-1],
                          "kernels": _device_kernels(call)})
-    p = ctc_problem(*ctc_shape, VOCAB, gen)
-    z, s_lens = ctc.extended_labels(p["labels"], p["ll"])
-    llp = ctc.gather_label_logp(p["log_probs"], z)
-    il, sl = p["il"].int(), s_lens.int()
-    a2 = ctc.transition_masks(z).to(torch.uint8)
-    rows.append({"call": "ctc_dp_shared", "shape": list(llp.shape),
-                 "kernels": _device_kernels(
-                     lambda: ctc.ctc_dp_shared(llp, il, sl, a2))})
+    for ctc_shape in ctc_shapes:
+        p = ctc_problem(*ctc_shape, VOCAB, gen)
+        z, s_lens = ctc.extended_labels(p["labels"], p["ll"])
+        llp = ctc.gather_label_logp(p["log_probs"], z)
+        il, sl = p["il"].int(), s_lens.int()
+        a2 = ctc.transition_masks(z).to(torch.uint8)
+        kernel = ctc.ctc_dp_shared \
+            if ctc.dispatch_variant(*llp.shape) == "shared" \
+            else ctc.ctc_dp_global
+        rows.append({"call": kernel.__name__, "shape": list(llp.shape),
+                     "kernels": _device_kernels(
+                         lambda: kernel(llp, il, sl, a2))})
     for row in rows:
         if len(row["kernels"]) != 1:
             raise AssertionError(f"one call ran {len(row['kernels'])} "
@@ -652,9 +670,28 @@ def k3_kernels_per_call(shapes: list[tuple], ctc_shape: tuple,
 
 # ---------------------------------------------------------------- CTC
 
+def check_global_plan() -> list:
+    """K2's plan as the C launcher makes it (openeat_ctc_global_plan)
+    against ctc.global_plan, at widths from 1 to MAX_S."""
+    fn = ctc._entry("openeat_ctc_global_plan",
+                    (ctypes.c_int, ctypes.c_void_p))
+    out = (ctypes.c_int * 4)()
+    plans = []
+    for s in (1, 32, 33, 49, 64, 65, 128, 129, 241, 256, 257, 512, 513,
+              1001, ctc.MAX_S):
+        fn(s, ctypes.addressof(out))
+        if tuple(out) != ctc.global_plan(s):
+            raise AssertionError(f"K2 plan at S = {s}: C {tuple(out)}, "
+                                 f"Python {ctc.global_plan(s)}")
+        plans.append([s, *out])
+    return plans
+
+
 def ctc_problem(b: int, t: int, l_pad: int, v: int, gen) -> dict:
     """Log-probs [B, T, V] and labels [B, L] on the card with a repeated
-    label, an infeasible row (more labels than frames) and len == 1."""
+    label, an infeasible row (more labels than frames), len == 1 and an
+    input length of T + 5 (row 3, or row 0 where B <= 3), which the
+    kernels and the plain version walk as T."""
     dev = torch.device("cuda")
     lp = torch.randn((b, t, v), generator=gen, device=dev).log_softmax(-1)
     labels = torch.randint(1, v, (b, l_pad), generator=gen, device=dev)
@@ -668,6 +705,7 @@ def ctc_problem(b: int, t: int, l_pad: int, v: int, gen) -> dict:
         il[1], ll[1] = 1, 1
     if b > 2:
         il[2], ll[2] = max(l_pad // 2 - 1, 1), l_pad
+    il[3 if b > 3 else 0] = t + 5
     return {"log_probs": lp, "labels": labels, "il": il, "ll": ll}
 
 
@@ -720,8 +758,10 @@ def ctc_case(b: int, t: int, l_pad: int, v: int, gen,
         per = ctc.ctc_loss(lp, p["il"], p["labels"], p["ll"])
         torch.autograd.grad(per.sum(), lp)
 
+    il_t = p["il"].clamp(max=t)  # F.ctc_loss refuses lengths above T
+
     def library_op():
-        loss = F.ctc_loss(lp_tbv, p["labels"], p["il"], p["ll"], blank=0,
+        loss = F.ctc_loss(lp_tbv, p["labels"], il_t, p["ll"], blank=0,
                           reduction="sum", zero_infinity=True)
         torch.autograd.grad(loss, lp_tbv)
 
@@ -1135,16 +1175,23 @@ def main() -> None:
         report["k3_kernels_per_call"] = k3_kernels_per_call(
             [(8, 212, 256, 15, torch.float32),
              (8, 212, 256, 15, torch.bfloat16),
-             (3, 40, 100, 7, torch.bfloat16)], (14, 198, 24), gen)
+             (3, 40, 100, 7, torch.bfloat16)], [(14, 198, 24), (2, 1200, 24)],
+            gen)
+        if [r["call"] for r in report["k3_kernels_per_call"][-2:]] \
+                != ["ctc_dp_shared", "ctc_dp_global"]:
+            raise AssertionError("the profiler check missed a CTC kernel")
         print("kernels per call "
               + json.dumps(report["k3_kernels_per_call"]), flush=True)
+        report["ctc_global_plans"] = check_global_plan()
         report["ctc_chain_step_ms"] = step_ms = ctc.chain_step_ms()
         print(f"CTC chain step {step_ms * 1e6:.1f} ns", flush=True)
         ctc_rows = []
         train_ctc_shapes = sorted(set(tshapes))
-        # then the TPU batch, a tall K2 case, and K1 at 1 and 4 label
-        # positions a lane
+        # then the TPU batch, K2 at the JAX package's large shape, K2 at a
+        # tall S = 49 and at S = 1001 (8 warps of 4 positions), and K1 at 1
+        # and 4 label positions a lane; every case has a row of T + 5
         for b, t, l_pad in train_ctc_shapes + [(256, 77, 24), (8, 1024, 120),
+                                               (2, 1200, 24), (2, 1100, 500),
                                                (5, 30, 15), (4, 70, 60)]:
             row = ctc_case(b, t, l_pad, VOCAB, gen, step_ms)
             ctc_rows.append(row)
@@ -1244,10 +1291,14 @@ def main() -> None:
                     "openeat_tpu/ops/ctc_loss.py:139",
                     n["ctc_dp_global"], train_ctc("global")),
     ]
+    for row, case in ((kernels[3], train_ctc("shared")),
+                      (kernels[4], train_ctc("global"))):
+        row["chain_bound_ms"] = case["chain_bound_ms"]
     report["kernels"] = kernels
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
     print(f"wall {report['wall_s']:.1f} s", flush=True)
+    print(card, flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

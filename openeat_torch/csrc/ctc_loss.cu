@@ -20,58 +20,104 @@
 // memory traffic, so a run can state the chain's bound: steps x that
 // time.
 //
-// One block per utterance.
+// K1 is one block an utterance, K2 a cluster of two. Both run alpha and
+// beta at once: the two recursions are independent (only gamma needs
+// both, and logZ), so the chain is len steps rather than 2 x len. A
+// recursion is W warps; lane l of warp k owns the P consecutive label
+// positions s = (32 k + l) P + p, p < P, and takes the neighbours it does
+// not own from the next lane down (alpha: s-1, s-2) or up (beta: s+1,
+// s+2) by shuffles. The P lae3 of a
+// lane are written phase by phase (lae3_p), though ptxas still orders
+// them one after the other (their SASS). alpha_step and beta_step are
+// that step, shared by both kernels. Neither recursion walks past len:
+// alpha is frozen and beta held there, and gamma is NEG_INF.
 //
-// K1's counterpart (ctc_dp_pair_kernel, both histories in shared memory)
-// runs alpha and beta at once: the two recursions are independent (only
-// gamma needs both, and logZ), so warp 0 walks alpha and warp 1 beta,
-// and the chain is len steps rather than 2 x len. A lane owns P = S / 32
-// rounded up label positions (P <= K1_MAX_P, so S <= 128) and takes the
-// neighbours it does not own from the next lane down (alpha) or up
-// (beta) by shuffles: a step waits on no barrier and on no other thread's
-// memory, and the P lae3 of a lane are evaluated phase by phase
-// (lae3_p) so that their dependent chains interleave. First all
-// K1_WARPS warps copy the utterance's label_logp rows with cp.async into
-// both [T, S] histories, which alpha and beta then overwrite in place,
-// reading each frame's row a step before they replace it, so no step
-// waits on device memory and nothing but the chain runs on the two
-// recursing warps. When both are done and logZ is known, all warps write
-// gamma = alpha + beta - logZ, NEG_INF at t >= len, as
-// openeat_tpu/ops/ctc_loss.py:324-329 does. Neither recursion walks past
-// len: alpha is frozen and beta held there, and gamma is NEG_INF.
-// Designs measured slower on the H100 (PERF.md, PR 4): groups of S
-// threads stepping on named barriers with their neighbours in shared
-// memory; label_logp staged through rings of frame chunks by the
-// recursing warps themselves; beta's history kept in the gamma output
-// and read back for the gamma pass; more than 4 positions a lane, where
-// a step costs more than K2's two.
+// K1's counterpart (ctc_dp_pair_kernel, W = 1, S <= 128) keeps both [T, S]
+// histories in shared memory. First all K1_WARPS warps copy the
+// utterance's label_logp rows with cp.async into both histories, which
+// alpha (warp 0) and beta (warp 1) then overwrite in place, reading each
+// frame's row a step before they replace it, so no step waits on device
+// memory. When both are done and logZ is known, all warps write gamma =
+// alpha + beta - logZ, NEG_INF at t >= len, as
+// openeat_tpu/ops/ctc_loss.py:324-329 does. Designs measured slower on the
+// H100 (PERF.md): groups of S threads stepping on named barriers
+// with their neighbours in shared memory; label_logp staged through rings
+// of frame chunks by the recursing warps themselves; beta's history read
+// back from device memory for the gamma pass; more than 4 positions a
+// lane.
 //
-// K2's counterpart (ctc_dp_global_kernel, for T x S too tall for shared
-// memory) walks alpha, then beta, in one group of threads with one
-// __syncthreads per step; alpha's history lives in the gamma output in
-// device memory (each thread rereads only what it wrote), with the
-// current row double-buffered in shared memory, and gamma is written on
-// the fly during the beta pass.
+// K2's counterpart (ctc_dp_global_kernel, the T x S whose histories do
+// not fit shared memory, S <= 1024) is a cluster of two blocks an
+// utterance, each on its own SM: alpha in one, beta in the other, each on
+// warps 0..W-1 (so that warps 0..3, and 4..7, sit on SM sub-partitions
+// 0..3), W = ceil(S / 32P) <= K2_MAX_W, with P the fewest positions a lane
+// from K2_P = 1 up that allow it (S = 241: W = 8 of P = 1; S = 1001: 8 of
+// 4). A step is issue-bound at these widths (the exact expf/logf are
+// about 75 instructions a position), so few positions a lane, more warps,
+// and each recursion an SM of its own interleave best (PERF.md: P =
+// 1, 2, 4, 8, and both recursions in one block, measured). Warp k hands
+// the two values at its edge to warp k+1 (alpha) or k-1 (beta) through a
+// step-parity slot in shared memory, under a named barrier of the
+// recursion's 32 W threads: no step syncs the whole block. Warp W, the
+// producer, streams the utterance's label_logp into the block's
+// shared-memory ring of K2_CHUNK-frame chunks, many frames ahead: forward
+// order for alpha, backward for beta. It copies with cp.async of 4 bytes
+// (rows of S x 4 bytes and utterance offsets are not 16-byte multiples,
+// so TMA does not take them), whose completion
+// cp.async.mbarrier.arrive.noinc reports to a full mbarrier per slot; the
+// consumers free a slot on its empty mbarrier. A recursing warp waits at
+// most once per chunk, a frame ahead, on a barrier only, and fetches the
+// next frame and stores its history row after handing on its edge, while
+// its recursion's warps meet at the barrier. Alpha stores its rows into
+// gamma and beta into a workspace of the same shape; neither reads them
+// back. Alpha's block writes the loss; after the cluster's barrier each
+// block writes gamma = (alpha + beta) - logZ over half of the utterance
+// (16-byte accesses where they line up).
+//
+// Development builds: -DOPENEAT_CTC_K2_P=2|4|8 sets K2_P (the layouts
+// compared in PERF.md); -DOPENEAT_CTC_STAMPS records clock64 stamps per
+// block (openeat_ctc_k2_stamps); -DOPENEAT_CTC_ABLATE_HIST and
+// -DOPENEAT_CTC_ABLATE_SYNC drop K2's history stores or its named
+// barriers to time what they cost (their results are wrong).
+// chip_ctc_probe.py builds and times them all.
 //
 // Arithmetic follows the JAX kernels term for term, the same in both:
 // NEG_INF = -1e30 as the log of zero (never -inf, since -inf - -inf is
 // NaN), the lae3 guard (ms = 0 where m <= NEG_INF), alpha frozen past
-// the input length, the final alpha row captured at t = len-1, logZ over
-// the ends s_len-1 and max(s_len-2, 0) counted once each, beta reset at
-// len-1 and held past it. expf/logf, no fast math: both kernels agree
-// with openeat_torch/ops/ctc_loss.py:ctc_dp_plain bit for bit.
+// the input length (an input length above T walks all T frames), the
+// final alpha row taken at t = len-1, logZ over the ends s_len-1 and
+// max(s_len-2, 0) counted once each, beta reset at len-1 and held past
+// it. expf/logf, no fast math: both kernels agree with
+// openeat_torch/ops/ctc_loss.py:ctc_dp_plain bit for bit.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+// K2's fewest positions a lane (at S = 241: 8 warps a recursion of 1,
+// or 4, 2, 1 warps of 2, 4, 8)
+#ifndef OPENEAT_CTC_K2_P
+#define OPENEAT_CTC_K2_P 1
+#endif
+
 namespace {
 
 constexpr float NEG_INF = -1.0e30f;
+constexpr unsigned ALL = 0xffffffffu;
 constexpr int K1_MAX_P = 4;      // K1: label positions per lane
 constexpr int PAIR_MAX_S = 32 * K1_MAX_P;
 constexpr int K1_WARPS = 8;      // K1's block; warps 0 and 1 recur
-constexpr int MAX_S = 1024;      // K2: one thread per label position
+constexpr int MAX_S = 1024;      // K2: S <= MAX_S
+constexpr int K2_P = OPENEAT_CTC_K2_P;
+constexpr int K2_MAX_W = 8;                 // warps a recursion
+constexpr int K2_WARPS = K2_MAX_W + 1;      // + the ring's producer
+constexpr int K2_CHUNK = 8;                 // frames a ring slot
+constexpr int K2_MAX_SLOTS = 8;
+constexpr int K2_RING_BYTES = 96 * 1024;
+
+static_assert(K2_P == 1 || K2_P == 2 || K2_P == 4 || K2_P == 8,
+              "K2_P: 1, 2, 4 or 8");
+static_assert(MAX_S <= 32 * 8 * K2_MAX_W, "P = 8 must cover MAX_S");
 
 __device__ __forceinline__ float lae3(float a, float b, float c) {
   const float m = fmaxf(a, fmaxf(b, c));
@@ -106,15 +152,118 @@ __device__ __forceinline__ void lae3_p(const float (&a)[P], const float (&b)[P],
   }
 }
 
+// alpha's neighbours from lane l-1: its positions s0 - 1 and s0 - 2
+template <int P>
+__device__ __forceinline__ void alpha_from_below(const float (&alpha)[P],
+                                                 float& up1, float& up2) {
+  up1 = __shfl_up_sync(ALL, alpha[P - 1], 1);
+  up2 = __shfl_up_sync(ALL, alpha[P > 1 ? P - 2 : 0], P > 1 ? 1 : 2);
+}
+
+// one alpha step: alpha <- lae3(alpha[s], alpha[s-1], alpha[s-2] where
+// the skip is legal) + label_logp; up1, up2 are alpha[s0-1], alpha[s0-2]
+template <int P>
+__device__ __forceinline__ void alpha_step(float (&alpha)[P],
+                                           const float (&lp_t)[P],
+                                           const bool (&on)[P],
+                                           const bool (&skip_in)[P], int s0,
+                                           float up1, float up2) {
+  float a1[P], a2[P], l3[P];
+#pragma unroll
+  for (int q = 0; q < P; ++q) {
+    const int s = s0 + q;
+    a1[q] = s < 1 ? NEG_INF : q >= 1 ? alpha[q - 1] : up1;
+    a2[q] = !skip_in[q] ? NEG_INF
+            : q >= 2    ? alpha[q - 2]
+            : q == 1    ? up1
+                        : up2;
+  }
+  lae3_p<P>(alpha, a1, a2, l3);
+#pragma unroll
+  for (int q = 0; q < P; ++q) alpha[q] = on[q] ? l3[q] + lp_t[q] : NEG_INF;
+}
+
+// beta's neighbours from lane l+1: its bn0 at s0 + P and s0 + P + 1
+template <int P>
+__device__ __forceinline__ void beta_from_above(const float (&bn0)[P],
+                                                float& dn1, float& dn2) {
+  dn1 = __shfl_down_sync(ALL, bn0[0], 1);
+  dn2 = __shfl_down_sync(ALL, bn0[P > 1 ? 1 : 0], P > 1 ? 1 : 2);
+}
+
+// one beta step: beta <- lae3(bn0[s], bn0[s+1], bn0[s+2] where the skip
+// is legal), bn0 = beta + label_logp of the frame after
+template <int P>
+__device__ __forceinline__ void beta_step(float (&beta)[P],
+                                          const float (&bn0)[P],
+                                          const bool (&on)[P],
+                                          const bool (&skip_out)[P], int s0,
+                                          int s_n, float dn1, float dn2) {
+  float b1[P], b2[P], l3[P];
+#pragma unroll
+  for (int q = 0; q < P; ++q) {
+    const int s = s0 + q;
+    b1[q] = s + 1 >= s_n ? NEG_INF : q + 1 < P ? bn0[q + 1] : dn1;
+    b2[q] = !skip_out[q] ? NEG_INF
+            : q + 2 < P  ? bn0[q + 2]
+            : q + 2 == P ? dn1
+                         : dn2;
+  }
+  lae3_p<P>(bn0, b1, b2, l3);
+#pragma unroll
+  for (int q = 0; q < P; ++q) beta[q] = on[q] ? l3[q] : NEG_INF;
+}
+
+// Between the W warps of a K2 recursion: warp k of alpha hands its top
+// two positions (32P - 1 and 32P - 2 of the warp: lane 31's last two, or
+// lanes 31 and 30 at P = 1) to lane 0 (and lane 1 at P = 1) of warp k+1;
+// warp k of beta hands its bottom two bn0 (lane 0's first two, or lanes
+// 0 and 1) to lane 31 (and 30) of warp k-1. A warp's first position, 32Pk,
+// is even, a blank, which takes no skip: alpha's second value (and beta's
+// for lane 30) is never read, and is handed on only to keep one rule.
+template <int P>
+__device__ __forceinline__ void alpha_hand_on(float (&e)[2],
+                                              const float (&alpha)[P],
+                                              int lane) {
+  if (lane == 31) {
+    e[0] = alpha[P - 1];
+    if (P > 1) e[1] = alpha[P > 1 ? P - 2 : 0];
+  }
+  if (P == 1 && lane == 30) e[1] = alpha[0];
+}
+template <int P>
+__device__ __forceinline__ void beta_hand_on(float (&e)[2],
+                                             const float (&bn0)[P],
+                                             int lane) {
+  if (lane == 0) {
+    e[0] = bn0[0];
+    if (P > 1) e[1] = bn0[P > 1 ? 1 : 0];
+  }
+  if (P == 1 && lane == 1) e[1] = bn0[0];
+}
+// the pair a warp is handed: lane `both` takes x <- e[0], y <- e[1], and
+// (at P = 1) lane `second` y <- e[0]; all lanes read it, a broadcast, so
+// that no branch is taken
+__device__ __forceinline__ void take_edge(const float (&e)[2], bool both,
+                                          bool second, float& x, float& y) {
+  const float2 v = *reinterpret_cast<const float2*>(e);
+  x = both ? v.x : x;
+  y = both ? v.y : second ? v.x : y;
+}
+
 // all `count` threads of barrier `id` (a multiple of 32: whole warps)
 __device__ __forceinline__ void group_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
 }
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
 // 4 bytes from src to dst in shared memory, asynchronously
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
-                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+                   smem_addr(dst)),
                "l"(src)
                : "memory");
 }
@@ -124,14 +273,78 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;" ::: "memory");
 }
 
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n\t.reg .b64 st;\n\t"
+      "mbarrier.arrive.shared::cta.b64 st, [%0];\n\t}" ::"r"(smem_addr(bar))
+      : "memory");
+}
+
+// the barrier arrives once every earlier cp.async of this thread has
+// landed; it counts as one of the arrivals the barrier was set up for
+__device__ __forceinline__ void mbar_arrive_on_copies(uint64_t* bar) {
+  asm volatile(
+      "cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+          smem_addr(bar))
+      : "memory");
+}
+
+// returns once the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// every thread of the thread-block cluster; what each wrote before, in
+// any memory, is seen by all after
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n\t"
+      "barrier.cluster.wait.acquire.aligned;" ::
+          : "memory");
+}
+
+#ifdef OPENEAT_CTC_STAMPS
+// development build only: per block (2b alpha, 2b+1 beta), clock64 at
+// entry (0), after the block's recursion (1), after the gamma pass (2)
+// and after the cluster's barrier (7), and when its first recursing warp
+// finished (5); the cycles that warp spent waiting for a ring slot to fill
+// (3) and freeing the one before (4), and the cycles the producer spent
+// waiting for a free slot (6)
+constexpr int K2_STAMP_BLOCKS = 64;
+constexpr int K2_STAMPS = 8;
+__device__ long long ctc_k2_stamps[K2_STAMP_BLOCKS][K2_STAMPS];
+#define K2_CLOCK() clock64()
+#define K2_STAMP(i, v)                                                    \
+  do {                                                                    \
+    if (blockIdx.x < K2_STAMP_BLOCKS) ctc_k2_stamps[blockIdx.x][i] = (v); \
+  } while (0)
+#else
+#define K2_CLOCK() 0LL
+#define K2_STAMP(i, v) \
+  do {                 \
+  } while (0)
+#endif
+
 // K1's counterpart. All K1_WARPS warps first copy the utterance's
 // label_logp rows into both histories; then warp 0 runs alpha and warp 1
 // beta, each overwriting its history in place (a lane reads frame t of
 // its own columns before it writes step t there); then all warps write
-// gamma. Lane l owns the P label positions s = l x P + p, p < P, of its
-// recursion (S <= 32 x P) and takes the neighbours it does not own from
-// lane l - 1 (alpha: s-1, s-2) or l + 1 (beta: s+1, s+2) by shuffles, so
-// a step waits on no barrier and no memory but its own shared memory.
+// gamma. S <= 32 x P: one warp a recursion.
 template <int P>
 __global__ void __launch_bounds__(K1_WARPS * 32)
     ctc_dp_pair_kernel(const float* __restrict__ label_logp,
@@ -140,7 +353,6 @@ __global__ void __launch_bounds__(K1_WARPS * 32)
                        const unsigned char* __restrict__ allow2, int t_len,
                        int s_n, float* __restrict__ loss,
                        float* __restrict__ gamma) {
-  constexpr unsigned ALL = 0xffffffffu;
   extern __shared__ float smem[];
   __shared__ float ends[2];
   float* ahist = smem;                         // label_logp, then alpha
@@ -194,29 +406,12 @@ __global__ void __launch_bounds__(K1_WARPS * 32)
       for (int q = 0; q < P; ++q) {
         lp_ahead[q] = (on[q] && t + 1 < n) ? row[s_n + q] : 0.0f;
       }
-      // lane l-1's last two positions: s0 - 1 and s0 - 2
-      const float up1 = __shfl_up_sync(ALL, alpha[P - 1], 1);
-      const float up2 = __shfl_up_sync(ALL, alpha[P > 1 ? P - 2 : 0],
-                                       P > 1 ? 1 : 2);
-      float nw[P], a1[P], a2[P], l3[P];
+      float up1, up2;
+      alpha_from_below<P>(alpha, up1, up2);
+      alpha_step<P>(alpha, lp_t, on, skip_in, s0, up1, up2);
 #pragma unroll
       for (int q = 0; q < P; ++q) {
-        const int s = s0 + q;
-        a1[q] = s < 1 ? NEG_INF : q >= 1 ? alpha[q - 1] : up1;
-        a2[q] = !skip_in[q] ? NEG_INF
-                : q >= 2    ? alpha[q - 2]
-                : q == 1    ? up1
-                            : up2;
-      }
-      lae3_p<P>(alpha, a1, a2, l3);
-#pragma unroll
-      for (int q = 0; q < P; ++q) {
-        nw[q] = on[q] ? l3[q] + lp_t[q] : NEG_INF;
-      }
-#pragma unroll
-      for (int q = 0; q < P; ++q) {
-        alpha[q] = nw[q];
-        if (on[q]) row[q] = nw[q];
+        if (on[q]) row[q] = alpha[q];
         lp_t[q] = lp_ahead[q];
       }
     }
@@ -249,24 +444,11 @@ __global__ void __launch_bounds__(K1_WARPS * 32)
         bn0[q] = on[q] ? beta[q] + lp_next[q] : NEG_INF;
         lp_next[q] = on[q] ? row[q] : 0.0f;  // frame i, read before step i
       }
-      // lane l+1's first two positions: s0 + P and s0 + P + 1
-      const float dn1 = __shfl_down_sync(ALL, bn0[0], 1);
-      const float dn2 = __shfl_down_sync(ALL, bn0[P > 1 ? 1 : 0],
-                                         P > 1 ? 1 : 2);
-      float b1[P], b2[P], l3[P];
+      float dn1, dn2;
+      beta_from_above<P>(bn0, dn1, dn2);
+      beta_step<P>(beta, bn0, on, skip_out, s0, s_n, dn1, dn2);
 #pragma unroll
       for (int q = 0; q < P; ++q) {
-        const int s = s0 + q;
-        b1[q] = s + 1 >= s_n ? NEG_INF : q + 1 < P ? bn0[q + 1] : dn1;
-        b2[q] = !skip_out[q] ? NEG_INF
-                : q + 2 < P  ? bn0[q + 2]
-                : q + 2 == P ? dn1
-                             : dn2;
-      }
-      lae3_p<P>(bn0, b1, b2, l3);
-#pragma unroll
-      for (int q = 0; q < P; ++q) {
-        beta[q] = on[q] ? l3[q] : NEG_INF;
         if (on[q]) row[q] = beta[q];
       }
     }
@@ -281,100 +463,348 @@ __global__ void __launch_bounds__(K1_WARPS * 32)
   }
 }
 
-// K2's counterpart: alpha, then beta, one thread per label position
-// (blockDim = S rounded up to a warp).
-__global__ void ctc_dp_global_kernel(const float* __restrict__ label_logp,
-                                     const int* __restrict__ in_lens,
-                                     const int* __restrict__ s_lens,
-                                     const unsigned char* __restrict__ allow2,
-                                     int t_len, int s_n,
-                                     float* __restrict__ loss,
-                                     float* __restrict__ gamma) {
-  extern __shared__ float smem[];
+// K2's ring: alpha's (dir 0) carries frames 0, 1, .., n-1 and beta's (dir
+// 1) frames n-1, n-2, .., 1, in that order. Item j of a ring is in
+// chunk c = j / K2_CHUNK, held in slot c % slots; a chunk is its frames'
+// rows as they lie in label_logp, lowest frame first.
+struct Ring {
+  float* base;  // [slots][K2_CHUNK * s_n]
+  uint64_t* full;
+  uint64_t* empty;
+  int slots, s_n, n, dir;  // dir 0: forward (alpha), 1: backward (beta)
+
+  __device__ __forceinline__ int items() const {
+    return dir ? max(n - 1, 0) : n;
+  }
+  // the lowest frame of chunk c, and how many frames it holds
+  __device__ __forceinline__ int chunk_lo(int c) const {
+    return dir ? max(1, n - (c + 1) * K2_CHUNK) : c * K2_CHUNK;
+  }
+  __device__ __forceinline__ int chunk_frames(int c) const {
+    return dir ? n - c * K2_CHUNK - chunk_lo(c)
+               : min(K2_CHUNK, n - c * K2_CHUNK);
+  }
+  __device__ __forceinline__ float* slot(int c) const {
+    return base + (size_t)(c % slots) * K2_CHUNK * s_n;
+  }
+  // a consumer's place: its item's row, the item's chunk, the items left
+  // in that chunk after it, the chunk's slot and the parity of its turn
+  // in that slot
+  struct Cursor {
+    const float* row;
+    int c, left, slot, parity;
+    long long waited, freeing;  // cycles, in a stamps build
+  };
+  __device__ __forceinline__ Cursor start() const {
+    return {nullptr, -1, 0, slots - 1, 1, 0, 0};
+  }
+  // the next item's row; opening a chunk waits for it and frees the one
+  // before, so a consumer waits at most once per chunk
+  __device__ __forceinline__ const float* next(Cursor& cur) const {
+    if (cur.left == 0) {
+      const int c = ++cur.c;
+      const int prev = cur.slot;
+      if (++cur.slot == slots) {
+        cur.slot = 0;
+        cur.parity ^= 1;
+      }
+      const long long t0 = K2_CLOCK();
+      mbar_wait(full + cur.slot, cur.parity);
+      const long long t1 = K2_CLOCK();
+      if (c > 0) mbar_arrive(empty + prev);
+      cur.waited += t1 - t0;
+      cur.freeing += K2_CLOCK() - t1;
+      cur.left = chunk_frames(c) - 1;
+      cur.row = base + (size_t)(cur.slot * K2_CHUNK + (dir ? cur.left : 0)) *
+                           s_n;
+    } else {
+      --cur.left;
+      cur.row += dir ? -s_n : s_n;
+    }
+    return cur.row;
+  }
+  // producer: chunk c from the utterance's label_logp into its slot
+  __device__ __forceinline__ void fill(int c, const float* lp, int lane,
+                                       long long& waited) const {
+    const long long t0 = K2_CLOCK();
+    if (c >= slots) mbar_wait(empty + c % slots, ((c / slots) + 1) & 1);
+    waited += K2_CLOCK() - t0;
+    const float* src = lp + (size_t)chunk_lo(c) * s_n;
+    float* dst = slot(c);
+    const int count = chunk_frames(c) * s_n;
+    for (int i = lane; i < count; i += 32) cp_async4(dst + i, src + i);
+    mbar_arrive_on_copies(full + c % slots);
+  }
+};
+
+// K2's gamma pass over elements [lo, hi) of an utterance: (alpha + beta)
+// - logZ below `valid`, NEG_INF from it. ga and gb lie at the same offset
+// in two buffers of one shape, so 16-byte accesses line up in both where
+// their bases do; U float4 pairs in flight a thread (8 spills).
+__device__ __forceinline__ void gamma_range(float* ga, const float* gb,
+                                            size_t lo, size_t hi,
+                                            size_t valid, float logz) {
+  const size_t vend = min(hi, valid);
+  size_t head = vend;
+  if ((((uintptr_t)gb - (uintptr_t)ga) & 15) == 0 && lo < vend) {
+    head = min(vend, lo + ((16 - ((uintptr_t)(ga + lo) & 15)) & 15) / 4);
+  }
+  const size_t nvec = (vend - head) / 4;
+  for (size_t i = lo + threadIdx.x; i < head; i += blockDim.x) {
+    ga[i] = (__ldcg(ga + i) + __ldcg(gb + i)) - logz;
+  }
+  float4* va = reinterpret_cast<float4*>(ga + head);
+  const float4* vb = reinterpret_cast<const float4*>(gb + head);
+  constexpr int U = 4;
+  for (size_t v0 = threadIdx.x; v0 < nvec; v0 += U * blockDim.x) {
+    float4 x[U], y[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const size_t v = v0 + (size_t)u * blockDim.x;
+      if (v < nvec) {
+        x[u] = __ldcg(va + v);
+        y[u] = __ldcg(vb + v);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const size_t v = v0 + (size_t)u * blockDim.x;
+      if (v < nvec) {
+        va[v] = make_float4((x[u].x + y[u].x) - logz, (x[u].y + y[u].y) - logz,
+                            (x[u].z + y[u].z) - logz,
+                            (x[u].w + y[u].w) - logz);
+      }
+    }
+  }
+  for (size_t i = head + 4 * nvec + threadIdx.x; i < vend; i += blockDim.x) {
+    ga[i] = (__ldcg(ga + i) + __ldcg(gb + i)) - logz;
+  }
+  for (size_t i = max(lo, valid) + threadIdx.x; i < hi; i += blockDim.x) {
+    ga[i] = NEG_INF;
+  }
+}
+
+// K2's counterpart: see the header. A cluster of two blocks an utterance:
+// block 2b runs alpha, block 2b+1 beta, each on warps 0..W-1, with warp W
+// filling the block's ring of `slots` slots of K2_CHUNK frames
+// (global_slots). Alpha's history goes into gamma and beta's into bws [B,
+// T, S]; both are read back only after the cluster's barrier, by either
+// block, so neither pointer is read-only or restrict.
+template <int P>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(K2_WARPS * 32)
+    ctc_dp_global_kernel(const float* __restrict__ label_logp,
+                         const int* __restrict__ in_lens,
+                         const int* __restrict__ s_lens,
+                         const unsigned char* __restrict__ allow2, int t_len,
+                         int s_n, int slots, float* loss, float* gamma,
+                         float* bws) {
+  extern __shared__ float smem[];  // the ring [slots][K2_CHUNK * S]
+  __shared__ uint64_t full[K2_MAX_SLOTS], empty[K2_MAX_SLOTS];
+  // [step parity][warp]: the two values a warp hands on
+  __shared__ __align__(8) float edge[2][K2_MAX_W][2];
   __shared__ float ends[2];
-  float* rows = smem;  // [2][S]
 
-  const int b = blockIdx.x;
-  const int s = threadIdx.x;
-  const bool on = s < s_n;
-  const int len = in_lens[b];
+  const long long t_entry = K2_CLOCK();
+  const int nw = (s_n + 32 * P - 1) / (32 * P);  // W, warps a recursion
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const bool is_alpha = (blockIdx.x & 1) == 0;  // the block's cluster rank
+  const int b = blockIdx.x >> 1;
+  const int n = max(0, min(in_lens[b], t_len));  // frames to walk
   const int slen = s_lens[b];
-  const float* lp = label_logp + (size_t)b * t_len * s_n;
-  float* gb = gamma + (size_t)b * t_len * s_n;
+  const int end1 = slen - 1;
+  const int end2 = max(slen - 2, 0);
+  const size_t plane = (size_t)t_len * s_n;
+  const float* lp = label_logp + b * plane;
+  float* ga = gamma + b * plane;  // alpha's rows, then gamma
+  float* gb = bws + b * plane;    // beta's rows
   const unsigned char* a2row = allow2 + (size_t)b * s_n;
-  const bool skip_in = on && s >= 2 && a2row[s] != 0;            // s-2 -> s
-  const bool skip_out = on && s + 2 < s_n && a2row[s + 2] != 0;  // s -> s+2
+  const Ring rg = {smem, full, empty, slots, s_n, n, is_alpha ? 0 : 1};
 
-  if (s == 0) {
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < slots; ++i) {
+      mbar_init(&full[i], 32);        // the producer's lanes
+      mbar_init(&empty[i], 32 * nw);  // the recursion's threads
+    }
     ends[0] = NEG_INF;
     ends[1] = NEG_INF;
   }
-
-  // ---- alpha
-  float alpha = (on && s < 2 && s < slen) ? lp[s] : NEG_INF;
-  float final_row = (len == 1) ? alpha : NEG_INF;
-  if (on) {
-    rows[s] = alpha;
-    gb[s] = alpha;
-  }
-  float lp_next = (on && t_len > 1) ? lp[s_n + s] : 0.0f;
   __syncthreads();
-  for (int t = 1; t < t_len; ++t) {
-    const float lp_t = lp_next;
-    if (on && t + 1 < t_len) lp_next = lp[(size_t)(t + 1) * s_n + s];
-    const float* prev = rows + ((t - 1) & 1) * s_n;
-    if (on) {
-      const float a1 = (s >= 1) ? prev[s - 1] : NEG_INF;
-      const float a2 = skip_in ? prev[s - 2] : NEG_INF;
-      float nw = lae3(alpha, a1, a2) + lp_t;
-      nw = (t < len) ? nw : alpha;
-      alpha = nw;
-      if (t == len - 1) final_row = nw;
-      rows[(t & 1) * s_n + s] = nw;
-      gb[(size_t)t * s_n + s] = nw;
-    }
-    __syncthreads();
-  }
 
-  // ---- logZ over the ends s_len-1 and max(s_len-2, 0), each once
-  const int end1 = slen - 1;
-  const int end2 = max(slen - 2, 0);
-  if (on && s == end1) ends[0] = final_row;
-  if (on && s == end2 && end2 != end1) ends[1] = final_row;
+  if (warp == nw) {
+    // ---- the producer: the ring, chunk by chunk
+    const int chunks = (rg.items() + K2_CHUNK - 1) / K2_CHUNK;
+    long long waited = 0;
+    for (int c = 0; c < chunks; ++c) rg.fill(c, lp, lane, waited);
+    if (lane == 0) K2_STAMP(6, waited);
+  } else if (warp < nw && n >= 1) {
+    const int k = warp;  // this warp's place in its recursion
+    const int s0 = (k * 32 + lane) * P;
+    const bool chained = nw > 1;
+    const int bar_count = 32 * nw;
+    // a step: the neighbours (shuffles; the edge pair from the next warp,
+    // a broadcast read that lanes other than `both` and `second` ignore),
+    // the lae3, the edge pair handed on; then, off the chain while the
+    // recursion's warps meet at the barrier, the history row and the next
+    // frame's label_logp
+    const int from = !chained ? k : is_alpha ? max(k - 1, 0) : min(k + 1, nw - 1);
+    const bool taking = chained && from != k;
+    const bool both = taking && lane == (is_alpha ? 0 : 31);
+    const bool second = taking && P == 1 && lane == (is_alpha ? 1 : 30);
+    if (is_alpha) {
+      // ---- alpha over frames 0..n-1
+      Ring::Cursor cur = rg.start();
+      bool on[P], skip_in[P];
+      float alpha[P], lp_t[P] = {};  // lp_t: frame t, fetched at step t-1
+      const float* row0 = rg.next(cur);
+#pragma unroll
+      for (int q = 0; q < P; ++q) {
+        const int s = s0 + q;
+        on[q] = s < s_n;
+        skip_in[q] = on[q] && s >= 2 && a2row[s] != 0;  // s-2 -> s
+        alpha[q] = (on[q] && s < 2 && s < slen) ? row0[s] : NEG_INF;
+        if (on[q]) ga[s] = alpha[q];
+      }
+      if (n > 1) {
+        const float* r = rg.next(cur);
+#pragma unroll
+        for (int q = 0; q < P; ++q) lp_t[q] = on[q] ? r[s0 + q] : 0.0f;
+      }
+      if (chained) {
+        alpha_hand_on<P>(edge[0][k], alpha, lane);
+        group_sync(1, bar_count);
+      }
+      float* out = ga + (size_t)s_n + s0;  // row t
+      for (int t = 1; t < n; ++t, out += s_n) {
+        float up1, up2;
+        alpha_from_below<P>(alpha, up1, up2);
+        take_edge(edge[(t - 1) & 1][from], both, second, up1, up2);
+        alpha_step<P>(alpha, lp_t, on, skip_in, s0, up1, up2);
+        if (chained) alpha_hand_on<P>(edge[t & 1][k], alpha, lane);
+#ifndef OPENEAT_CTC_ABLATE_HIST
+#pragma unroll
+        for (int q = 0; q < P; ++q) {
+          if (on[q]) out[q] = alpha[q];
+        }
+#endif
+        if (t + 1 < n) {
+          const float* r = rg.next(cur);
+#pragma unroll
+          for (int q = 0; q < P; ++q) lp_t[q] = on[q] ? r[s0 + q] : 0.0f;
+        }
+#ifndef OPENEAT_CTC_ABLATE_SYNC
+        if (chained) group_sync(1, bar_count);
+#endif
+      }
+      // logZ's ends s_len-1 and max(s_len-2, 0) at step n-1, each once
+#pragma unroll
+      for (int q = 0; q < P; ++q) {
+        const int s = s0 + q;
+        if (on[q] && s == end1) ends[0] = alpha[q];
+        if (on[q] && s == end2 && end2 != end1) ends[1] = alpha[q];
+      }
+      if (k == 0 && lane == 0) {
+        K2_STAMP(3, cur.waited);
+        K2_STAMP(4, cur.freeing);
+        K2_STAMP(5, K2_CLOCK());
+      }
+    } else {
+      // ---- beta over frames n-1..0: step i takes bn0 = beta[i+1] +
+      // label_logp[i+1], formed at the end of step i+1
+      Ring::Cursor cur = rg.start();
+      bool on[P], skip_out[P];
+      float beta[P], bn0[P] = {};
+      float lp_i[P] = {};  // frame i, fetched at step i+1
+      float* last = gb + (size_t)(n - 1) * s_n + s0;
+#pragma unroll
+      for (int q = 0; q < P; ++q) {
+        const int s = s0 + q;
+        on[q] = s < s_n;
+        skip_out[q] = on[q] && s + 2 < s_n && a2row[s + 2] != 0;  // s -> s+2
+        beta[q] = (on[q] && (s == end1 || s == end2)) ? 0.0f : NEG_INF;
+        if (on[q]) last[q] = beta[q];
+      }
+      if (n > 1) {
+        const float* r = rg.next(cur);  // frame n-1
+#pragma unroll
+        for (int q = 0; q < P; ++q) {
+          bn0[q] = on[q] ? beta[q] + r[s0 + q] : NEG_INF;
+        }
+        if (n > 2) {
+          const float* r2 = rg.next(cur);  // frame n-2
+#pragma unroll
+          for (int q = 0; q < P; ++q) lp_i[q] = on[q] ? r2[s0 + q] : 0.0f;
+        }
+        if (chained) {
+          beta_hand_on<P>(edge[0][k], bn0, lane);
+          group_sync(1, bar_count);
+        }
+      }
+      int parity = 0;
+      float* out = gb + (size_t)max(n - 2, 0) * s_n + s0;  // row i
+      for (int i = n - 2; i >= 0; --i, out -= s_n) {
+        float dn1, dn2;
+        beta_from_above<P>(bn0, dn1, dn2);
+        take_edge(edge[parity][from], both, second, dn1, dn2);
+        beta_step<P>(beta, bn0, on, skip_out, s0, s_n, dn1, dn2);
+        if (i >= 1) {
+#pragma unroll
+          for (int q = 0; q < P; ++q) {
+            bn0[q] = on[q] ? beta[q] + lp_i[q] : NEG_INF;  // frame i
+          }
+          parity ^= 1;
+          if (chained) beta_hand_on<P>(edge[parity][k], bn0, lane);
+        }
+#ifndef OPENEAT_CTC_ABLATE_HIST
+#pragma unroll
+        for (int q = 0; q < P; ++q) {
+          if (on[q]) out[q] = beta[q];
+        }
+#endif
+        if (i >= 2) {
+          const float* r = rg.next(cur);  // frame i-1
+#pragma unroll
+          for (int q = 0; q < P; ++q) lp_i[q] = on[q] ? r[s0 + q] : 0.0f;
+        }
+#ifndef OPENEAT_CTC_ABLATE_SYNC
+        if (chained && i >= 1) group_sync(1, bar_count);
+#endif
+      }
+      if (k == 0 && lane == 0) {
+        K2_STAMP(3, cur.waited);
+        K2_STAMP(4, cur.freeing);
+        K2_STAMP(5, K2_CLOCK());
+      }
+    }
+  }
+  __syncthreads();  // the block's history and, in alpha's, the ends
+  const long long t_recursed = K2_CLOCK();
+  if (is_alpha && threadIdx.x == 0) {
+    loss[b] = -lae3(ends[0], ends[1], NEG_INF);
+  }
+  cluster_sync();  // both histories and the loss, in both blocks
+  const long long t_met = K2_CLOCK();
+
+  // ---- gamma = (alpha + beta) - logZ over the n walked frames, NEG_INF
+  // past them: alpha's block the first half of the utterance's elements,
+  // beta's the rest. The other block's rows come from L2 (ldcg).
+  const float logz = -__ldcg(loss + b);
+  const size_t mid = (plane / 2) & ~(size_t)3;
+  gamma_range(ga, gb, is_alpha ? 0 : mid, is_alpha ? mid : plane,
+              (size_t)n * s_n, logz);
+#ifdef OPENEAT_CTC_STAMPS
   __syncthreads();
-  const float logz = lae3(ends[0], ends[1], NEG_INF);
-  if (s == 0) loss[b] = -logz;
-
-  // ---- beta, gamma on the fly. rows[i & 1] holds bnext = beta[i+1] +
-  // label_logp[i+1] for step i.
-  const float beta_init = (on && (s == end1 || s == end2)) ? 0.0f : NEG_INF;
-  float beta = beta_init;
-  {
-    const int t = t_len - 1;
-    if (on) {
-      const float a = gb[(size_t)t * s_n + s];
-      gb[(size_t)t * s_n + s] = (t < len) ? a + beta - logz : NEG_INF;
-    }
+  if (threadIdx.x == 0) {
+    K2_STAMP(0, t_entry);
+    K2_STAMP(1, t_recursed);
+    K2_STAMP(7, t_met);
+    K2_STAMP(2, clock64());
   }
-  float lp_b = (on && t_len > 1) ? lp[(size_t)(t_len - 1) * s_n + s] : 0.0f;
-  for (int i = t_len - 2; i >= 0; --i) {
-    const float lp_i1 = lp_b;  // label_logp at frame i+1
-    if (on && i >= 1) lp_b = lp[(size_t)i * s_n + s];
-    float* buf = rows + (i & 1) * s_n;
-    const float bn0 = beta + lp_i1;
-    if (on) buf[s] = bn0;
-    __syncthreads();
-    if (on) {
-      const float bn1 = (s + 1 < s_n) ? buf[s + 1] : NEG_INF;
-      const float bn2 = skip_out ? buf[s + 2] : NEG_INF;
-      float nw = lae3(bn0, bn1, bn2);
-      nw = (i == len - 1) ? beta_init : nw;
-      nw = (i > len - 1) ? beta : nw;
-      beta = nw;
-      const float a = gb[(size_t)i * s_n + s];
-      gb[(size_t)i * s_n + s] = (i < len) ? a + nw - logz : NEG_INF;
-    }
-  }
+#else
+  (void)t_entry;
+  (void)t_recursed;
+  (void)t_met;
+#endif
 }
 
 // The chain's step with no memory traffic: each of two warps runs
@@ -391,9 +821,24 @@ __global__ void ctc_chain_step_kernel(int steps, float b, float c,
   out[threadIdx.x] = a;
 }
 
+// Positions a lane of a recursion at S: K1's, and K2's (the fewest from
+// K2_P up, in powers of two, that K2_MAX_W warps cover S with); K2's ring
+// slots at S.
+int pair_p(int s_n) { return s_n <= 32 ? 1 : s_n <= 64 ? 2 : 4; }
+int global_p(int s_n) {
+  int p = K2_P;
+  while (32 * p * K2_MAX_W < s_n) p *= 2;
+  return p;
+}
+int global_slots(int s_n) {
+  return min(K2_MAX_SLOTS, K2_RING_BYTES / (K2_CHUNK * s_n * 4));
+}
+
 // Dynamic shared memory of each kernel at (T, S), in bytes.
 long long pair_smem(int t_len, int s_n) { return 2LL * t_len * s_n * 4; }
-long long global_smem(int s_n) { return 2LL * s_n * 4; }
+long long global_smem(int s_n) {
+  return 4LL * global_slots(s_n) * K2_CHUNK * s_n;
+}
 
 // raise a kernel's dynamic shared memory limit once per larger size, so a
 // later launch of the same shape (inside a CUDA graph capture, say) makes
@@ -410,8 +855,9 @@ int raise_smem(const void* kernel, size_t smem, size_t* configured) {
 template <int P>
 int launch_pair(const float* lp, const int* il, const int* sl,
                 const unsigned char* a2, int batch, int t_len, int s_n,
-                float* lo, float* ga, size_t smem, cudaStream_t st) {
+                float* lo, float* ga, cudaStream_t st) {
   static size_t configured = 48 * 1024;
+  const size_t smem = (size_t)pair_smem(t_len, s_n);
   const int rc = raise_smem((const void*)ctc_dp_pair_kernel<P>, smem,
                             &configured);
   if (rc != 0) return rc;
@@ -420,27 +866,56 @@ int launch_pair(const float* lp, const int* il, const int* sl,
   return (int)cudaGetLastError();
 }
 
+template <int P>
+int launch_global(const float* lp, const int* il, const int* sl,
+                  const unsigned char* a2, int batch, int t_len, int s_n,
+                  float* lo, float* ga, float* ws, cudaStream_t st) {
+  static size_t configured = 48 * 1024;
+  const size_t smem = (size_t)global_smem(s_n);
+  const int rc = raise_smem((const void*)ctc_dp_global_kernel<P>, smem,
+                            &configured);
+  if (rc != 0) return rc;
+  ctc_dp_global_kernel<P><<<2 * batch, K2_WARPS * 32, smem, st>>>(
+      lp, il, sl, a2, t_len, s_n, global_slots(s_n), lo, ga, ws);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Dynamic shared memory, in bytes, that a variant needs at (T, S):
 // smem_hist = 1 is K1's counterpart (both histories in shared memory), 0
-// is K2's (alpha's history in device memory).
+// is K2's (its two label_logp rings).
 extern "C" long long openeat_ctc_dp_smem_bytes(int t_len, int s_n,
                                                int smem_hist) {
   return smem_hist ? pair_smem(t_len, s_n) : global_smem(s_n);
 }
 
+// K2's plan at S: positions a lane, warps a recursion, ring slots, and
+// the block's threads, into out[4]. Returns 0.
+extern "C" int openeat_ctc_global_plan(int s_n, int* out) {
+  const int p = global_p(s_n);
+  out[0] = p;
+  out[1] = (s_n + 32 * p - 1) / (32 * p);
+  out[2] = global_slots(s_n);
+  out[3] = K2_WARPS * 32;
+  return 0;
+}
+
 // label_logp [batch, t_len, s_n] float32, in_lens/s_lens [batch] int32,
 // allow2 [batch, s_n] uint8 (0/1), all contiguous on the device. Writes
 // loss [batch] and gamma [batch, t_len, s_n] (float32). smem_hist = 1
-// runs K1's counterpart (s_n <= 128), 0 K2's (s_n <= 1024). Launches one
-// kernel on `stream` and returns a cudaError_t (0 on success).
+// runs K1's counterpart (s_n <= 128; workspace unused, may be null), 0
+// K2's (s_n <= 1024), which keeps beta's history in `workspace`, float32
+// [batch, t_len, s_n] on the device. Launches one kernel on `stream` and
+// returns a cudaError_t (0 on success).
 extern "C" int openeat_ctc_dp(const void* label_logp, const void* in_lens,
                               const void* s_lens, const void* allow2,
-                              void* loss, void* gamma, int batch, int t_len,
-                              int s_n, int smem_hist, void* stream) {
+                              void* loss, void* gamma, void* workspace,
+                              int batch, int t_len, int s_n, int smem_hist,
+                              void* stream) {
   if (batch <= 0 || t_len <= 0 || s_n <= 0 ||
-      s_n > (smem_hist ? PAIR_MAX_S : MAX_S)) {
+      s_n > (smem_hist ? PAIR_MAX_S : MAX_S) ||
+      (!smem_hist && workspace == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -450,28 +925,18 @@ extern "C" int openeat_ctc_dp(const void* label_logp, const void* in_lens,
   const unsigned char* a2 = static_cast<const unsigned char*>(allow2);
   float* lo = static_cast<float*>(loss);
   float* ga = static_cast<float*>(gamma);
-  const int grp = (s_n + 31) / 32 * 32;
+  float* ws = static_cast<float*>(workspace);
   if (smem_hist) {
-    const size_t smem = (size_t)pair_smem(t_len, s_n);
-    if (s_n <= 32) {
-      return launch_pair<1>(lp, il, sl, a2, batch, t_len, s_n, lo, ga, smem,
-                            st);
-    } else if (s_n <= 64) {
-      return launch_pair<2>(lp, il, sl, a2, batch, t_len, s_n, lo, ga, smem,
-                            st);
-    }
-    return launch_pair<4>(lp, il, sl, a2, batch, t_len, s_n, lo, ga, smem,
-                          st);
-  } else {
-    static size_t configured = 48 * 1024;
-    const size_t smem = (size_t)global_smem(s_n);
-    const int rc = raise_smem((const void*)ctc_dp_global_kernel, smem,
-                              &configured);
-    if (rc != 0) return rc;
-    ctc_dp_global_kernel<<<batch, grp, smem, st>>>(lp, il, sl, a2, t_len,
-                                                   s_n, lo, ga);
+    const int p = pair_p(s_n);
+    if (p == 1) return launch_pair<1>(lp, il, sl, a2, batch, t_len, s_n, lo, ga, st);
+    if (p == 2) return launch_pair<2>(lp, il, sl, a2, batch, t_len, s_n, lo, ga, st);
+    return launch_pair<4>(lp, il, sl, a2, batch, t_len, s_n, lo, ga, st);
   }
-  return (int)cudaGetLastError();
+  const int p = global_p(s_n);
+  if (p == 1) return launch_global<1>(lp, il, sl, a2, batch, t_len, s_n, lo, ga, ws, st);
+  if (p == 2) return launch_global<2>(lp, il, sl, a2, batch, t_len, s_n, lo, ga, ws, st);
+  if (p == 4) return launch_global<4>(lp, il, sl, a2, batch, t_len, s_n, lo, ga, ws, st);
+  return launch_global<8>(lp, il, sl, a2, batch, t_len, s_n, lo, ga, ws, st);
 }
 
 // Two warps run `steps` chain steps each (ctc_chain_step_kernel) and
@@ -483,3 +948,15 @@ extern "C" int openeat_ctc_chain_step(int steps, void* out, void* stream) {
       steps, -1.0f, -2.0f, static_cast<float*>(out));
   return (int)cudaGetLastError();
 }
+
+#ifdef OPENEAT_CTC_STAMPS
+// development build only: copies ctc_k2_stamps (the first `blocks`
+// blocks of the last K2 launch, K2_STAMPS values each) to host memory
+// `out`
+extern "C" int openeat_ctc_k2_stamps(void* out, int blocks) {
+  if (blocks < 0 || blocks > K2_STAMP_BLOCKS) return (int)cudaErrorInvalidValue;
+  return (int)cudaMemcpyFromSymbol(out, ctc_k2_stamps,
+                                   (size_t)blocks * K2_STAMPS *
+                                       sizeof(long long));
+}
+#endif

@@ -10,16 +10,22 @@ log_probs [B, T, V] and the scatter of exp(gamma) back into the [B, T, V]
 gradient are XLA ops around the kernel in JAX and torch ops here.
 
 On Hopper (openeat_torch/csrc/ctc_loss.cu) each is one block per
-utterance. K1's counterpart runs alpha and beta at once, a warp each
-(lanes own S/32 positions and swap neighbours by shuffles), over
-label_logp staged into shared memory before the first step, with both
-[T, S] histories in shared memory: a chain of T steps. K2's counterpart
-walks alpha, then beta, a thread per position, with alpha's history in
-device memory, for the tall T x S that do not fit: 2T steps.
-:func:`dispatch_variant` picks between them from the H100's shared
-memory per block. The kernels are bound by latency (the chain of
-dependent steps), not by the bytes they move; :func:`chain_step_ms`
-times one step of the chain.
+utterance that runs alpha and beta at once, so the chain is T steps: a
+recursion is W warps whose lanes own P consecutive label positions and
+swap neighbours by shuffles (and, between warps, through a step-parity
+slot in shared memory under a named barrier of that recursion).
+K1's counterpart (W = 1, S <= 128) stages label_logp into shared memory
+before the first step and keeps both [T, S] histories there. K2's
+counterpart, for the T x S whose histories do not fit, is
+warp-specialised (:func:`global_plan`): a cluster of two blocks an
+utterance, alpha in one and beta in the other, on W warps each, with a
+producer warp that streams label_logp through the block's shared-memory
+ring of frame chunks, tracked by mbarriers; alpha's history goes into
+gamma and beta's into a workspace of the same shape, and after the
+cluster's barrier each block writes half of gamma. :func:`dispatch_variant`
+picks between them from the H100's shared memory per block. The kernels
+are bound by latency (the chain of dependent steps), not by the bytes
+they move; :func:`chain_step_ms` times one step of the chain.
 
 ``ctc_forward_scan``/``ctc_backward_scan`` are the plain version: the
 same recursions as loops over T on [B, S] tensors. One deliberate
@@ -42,12 +48,21 @@ NEG_INF = -1.0e30
 # H100: 227 KB (232,448 bytes) of shared memory per block, less the
 # kernel's static shared memory and a margin
 SMEM_BUDGET = 232448 - 1024
-# The kernels' constants (openeat_torch/csrc/ctc_loss.cu): K2 takes S <=
-# MAX_S (a thread per label position); K1 takes S <= 32 x K1_MAX_P (a
-# warp per recursion, at most K1_MAX_P positions a lane).
+# The kernels' constants (openeat_torch/csrc/ctc_loss.cu): K1 takes S <=
+# 32 x K1_MAX_P (a warp per recursion, at most K1_MAX_P positions a
+# lane); K2 takes S <= MAX_S, at least K2_P positions a lane and at most
+# K2_MAX_W warps a recursion, in two blocks of K2_WARPS warps an
+# utterance, each with a ring of at most K2_MAX_SLOTS chunks of K2_CHUNK
+# frames in K2_RING_BYTES.
 MAX_S = 1024
 K1_MAX_P = 4
 PAIR_MAX_S = 32 * K1_MAX_P
+K2_P = 1
+K2_MAX_W = 8
+K2_WARPS = K2_MAX_W + 1
+K2_CHUNK = 8
+K2_MAX_SLOTS = 8
+K2_RING_BYTES = 96 * 1024
 
 
 def extended_labels(labels: torch.Tensor, label_lens: torch.Tensor,
@@ -153,13 +168,27 @@ def ctc_dp_plain(label_logp: torch.Tensor, input_lens: torch.Tensor,
     return loss, torch.where(valid, gamma, NEG_INF)
 
 
+def global_plan(s: int) -> tuple[int, int, int, int]:
+    """K2's plan at S, as openeat_ctc_global_plan gives it: positions a
+    lane P (the fewest from K2_P up, in powers of two, with which
+    K2_MAX_W warps cover S), warps a recursion W = ceil(S / 32P), ring
+    slots, threads a block (the recursion on warps 0..W-1, the producer
+    of its ring on warp W; alpha's block and beta's form a cluster)."""
+    p = K2_P
+    while 32 * p * K2_MAX_W < s:
+        p *= 2
+    slots = min(K2_MAX_SLOTS, K2_RING_BYTES // (K2_CHUNK * s * 4))
+    return p, -(-s // (32 * p)), slots, 32 * K2_WARPS
+
+
 def smem_bytes(t: int, s: int, variant: str) -> int:
     """Dynamic shared memory of a variant at [T, S], as
     openeat_ctc_dp_smem_bytes gives it: K1's ("shared") alpha and beta
-    histories [T, S]; K2's ("global") its two rows [2, S]. float32."""
+    histories [T, S]; K2's ("global") a block's ring of label_logp
+    chunks. float32."""
     if variant == "shared":
         return 2 * t * s * 4
-    return 2 * s * 4
+    return 4 * global_plan(s)[2] * K2_CHUNK * s
 
 
 def dispatch_variant(b: int, t: int, s: int) -> str:
@@ -183,7 +212,7 @@ def _entry(name: str, argtypes: tuple):
     return fn
 
 
-_DP_ARGS = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 4 + (ctypes.c_void_p,)
+_DP_ARGS = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 4 + (ctypes.c_void_p,)
 
 
 def _launch(label_logp, input_lens, s_lens, allow2, smem_hist: bool):
@@ -198,11 +227,14 @@ def _launch(label_logp, input_lens, s_lens, allow2, smem_hist: bool):
         else a2.to(torch.uint8)
     loss = torch.empty((b,), dtype=torch.float32, device=dev)
     gamma = torch.empty((b, t, s), dtype=torch.float32, device=dev)
+    # K2 keeps beta's history here (K1 in shared memory)
+    bws = None if smem_hist else torch.empty_like(gamma)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _entry("openeat_ctc_dp", _DP_ARGS)(
             lp.data_ptr(), il.data_ptr(), sl.data_ptr(), a2.data_ptr(),
-            loss.data_ptr(), gamma.data_ptr(), b, t, s, int(smem_hist),
+            loss.data_ptr(), gamma.data_ptr(),
+            None if bws is None else bws.data_ptr(), b, t, s, int(smem_hist),
             stream)
     if rc != 0:
         raise RuntimeError(f"CTC kernel launch failed: cudaError {rc}")
@@ -252,8 +284,9 @@ def ctc_dp_shared(label_logp, input_lens, s_lens, allow2):
 
 
 def ctc_dp_global(label_logp, input_lens, s_lens, allow2):
-    """K2's counterpart: alpha history in device memory. CUDA only;
-    every launch adds one to ``ctc_dp_global.launches``."""
+    """K2's counterpart: alpha and beta at once, label_logp streamed
+    through shared-memory rings, both histories in device memory. CUDA
+    only; every launch adds one to ``ctc_dp_global.launches``."""
     _check_cuda(label_logp)
     dispatch_variant(*label_logp.shape)   # raises for S > MAX_S
     ctc_dp_global.launches += 1
