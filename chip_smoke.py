@@ -605,16 +605,16 @@ def dwconv_grad_case(b: int, tp: int, c: int, k: int, dtype, gen,
     return row
 
 
-def _device_kernels(call, attempts: int = 3) -> list[str]:
+def _device_kernels(call, attempts: int = 3) -> dict:
     """Names of the device kernels one call runs (torch.profiler), after a
-    warm-up call. A trace with no device event at all is the profiler
-    missing the call (seen on the card now and then), so it is taken
+    warm-up call, and the number of traces taken: a trace with no device
+    event at all is taken as the profiler missing the call, so it is taken
     again, up to `attempts` times."""
     from torch.profiler import ProfilerActivity, profile
     call()
     torch.cuda.synchronize()
     names: list[str] = []
-    for _ in range(attempts):
+    for traces in range(1, attempts + 1):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             call()
@@ -623,7 +623,7 @@ def _device_kernels(call, attempts: int = 3) -> list[str]:
                  if e.device_type == torch.autograd.DeviceType.CUDA]
         if names:
             break
-    return names
+    return {"kernels": names, "traces": traces}
 
 
 def k3_kernels_per_call(shapes: list[tuple], ctc_shapes: list[tuple],
@@ -632,7 +632,8 @@ def k3_kernels_per_call(shapes: list[tuple], ctc_shapes: list[tuple],
     depthwise_conv1d_dgrad and depthwise_conv1d_wgrad at `shapes`, and of
     the CTC kernel dispatch_variant picks (ctc_dp_shared or ctc_dp_global)
     at each of `ctc_shapes` (B, T, L), its inputs already in the kernel's
-    dtypes: each must run exactly one device kernel."""
+    dtypes: each must run exactly one device kernel. Each row keeps the
+    number of traces its call took (`traces`, in chip_smoke.json)."""
     dev = torch.device("cuda")
     rows = []
     for b, tp, c, k, dtype in shapes:
@@ -648,7 +649,7 @@ def k3_kernels_per_call(shapes: list[tuple], ctc_shapes: list[tuple],
                             lambda: dw.depthwise_conv1d_wgrad(x, dy))):
             rows.append({"call": name, "shape": [b, tp, c], "k": k,
                          "dtype": str(dtype).split(".")[-1],
-                         "kernels": _device_kernels(call)})
+                         **_device_kernels(call)})
     for ctc_shape in ctc_shapes:
         p = ctc_problem(*ctc_shape, VOCAB, gen)
         z, s_lens = ctc.extended_labels(p["labels"], p["ll"])
@@ -659,8 +660,7 @@ def k3_kernels_per_call(shapes: list[tuple], ctc_shapes: list[tuple],
             if ctc.dispatch_variant(*llp.shape) == "shared" \
             else ctc.ctc_dp_global
         rows.append({"call": kernel.__name__, "shape": list(llp.shape),
-                     "kernels": _device_kernels(
-                         lambda: kernel(llp, il, sl, a2))})
+                     **_device_kernels(lambda: kernel(llp, il, sl, a2))})
     for row in rows:
         if len(row["kernels"]) != 1:
             raise AssertionError(f"one call ran {len(row['kernels'])} "

@@ -51,8 +51,8 @@
 // utterance, each on its own SM: alpha in one, beta in the other, each on
 // warps 0..W-1 (so that warps 0..3, and 4..7, sit on SM sub-partitions
 // 0..3), W = ceil(S / 32P) <= K2_MAX_W, with P the fewest positions a lane
-// from K2_P = 1 up that allow it (S = 241: W = 8 of P = 1; S = 1001: 8 of
-// 4). A step is issue-bound at these widths (the exact expf/logf are
+// from 1 up, in powers of two, that allow it (S = 241: W = 8 of P = 1;
+// S = 1001: 8 of 4). A step is issue-bound at these widths (the exact expf/logf are
 // about 75 instructions a position), so few positions a lane, more warps,
 // and each recursion an SM of its own interleave best (PERF.md: P =
 // 1, 2, 4, 8, and both recursions in one block, measured). Warp k hands
@@ -74,13 +74,6 @@
 // block writes gamma = (alpha + beta) - logZ over half of the utterance
 // (16-byte accesses where they line up).
 //
-// Development builds: -DOPENEAT_CTC_K2_P=2|4|8 sets K2_P (the layouts
-// compared in PERF.md); -DOPENEAT_CTC_STAMPS records clock64 stamps per
-// block (openeat_ctc_k2_stamps); -DOPENEAT_CTC_ABLATE_HIST and
-// -DOPENEAT_CTC_ABLATE_SYNC drop K2's history stores or its named
-// barriers to time what they cost (their results are wrong).
-// chip_ctc_probe.py builds and times them all.
-//
 // Arithmetic follows the JAX kernels term for term, the same in both:
 // NEG_INF = -1e30 as the log of zero (never -inf, since -inf - -inf is
 // NaN), the lae3 guard (ms = 0 where m <= NEG_INF), alpha frozen past
@@ -94,12 +87,6 @@
 
 #include <cstdint>
 
-// K2's fewest positions a lane (at S = 241: 8 warps a recursion of 1,
-// or 4, 2, 1 warps of 2, 4, 8)
-#ifndef OPENEAT_CTC_K2_P
-#define OPENEAT_CTC_K2_P 1
-#endif
-
 namespace {
 
 constexpr float NEG_INF = -1.0e30f;
@@ -108,16 +95,13 @@ constexpr int K1_MAX_P = 4;      // K1: label positions per lane
 constexpr int PAIR_MAX_S = 32 * K1_MAX_P;
 constexpr int K1_WARPS = 8;      // K1's block; warps 0 and 1 recur
 constexpr int MAX_S = 1024;      // K2: S <= MAX_S
-constexpr int K2_P = OPENEAT_CTC_K2_P;
 constexpr int K2_MAX_W = 8;                 // warps a recursion
 constexpr int K2_WARPS = K2_MAX_W + 1;      // + the ring's producer
 constexpr int K2_CHUNK = 8;                 // frames a ring slot
 constexpr int K2_MAX_SLOTS = 8;
 constexpr int K2_RING_BYTES = 96 * 1024;
 
-static_assert(K2_P == 1 || K2_P == 2 || K2_P == 4 || K2_P == 8,
-              "K2_P: 1, 2, 4 or 8");
-static_assert(MAX_S <= 32 * 8 * K2_MAX_W, "P = 8 must cover MAX_S");
+static_assert(MAX_S <= 32 * 4 * K2_MAX_W, "P = 4 must cover MAX_S");
 
 __device__ __forceinline__ float lae3(float a, float b, float c) {
   const float m = fmaxf(a, fmaxf(b, c));
@@ -318,28 +302,6 @@ __device__ __forceinline__ void cluster_sync() {
           : "memory");
 }
 
-#ifdef OPENEAT_CTC_STAMPS
-// development build only: per block (2b alpha, 2b+1 beta), clock64 at
-// entry (0), after the block's recursion (1), after the gamma pass (2)
-// and after the cluster's barrier (7), and when its first recursing warp
-// finished (5); the cycles that warp spent waiting for a ring slot to fill
-// (3) and freeing the one before (4), and the cycles the producer spent
-// waiting for a free slot (6)
-constexpr int K2_STAMP_BLOCKS = 64;
-constexpr int K2_STAMPS = 8;
-__device__ long long ctc_k2_stamps[K2_STAMP_BLOCKS][K2_STAMPS];
-#define K2_CLOCK() clock64()
-#define K2_STAMP(i, v)                                                    \
-  do {                                                                    \
-    if (blockIdx.x < K2_STAMP_BLOCKS) ctc_k2_stamps[blockIdx.x][i] = (v); \
-  } while (0)
-#else
-#define K2_CLOCK() 0LL
-#define K2_STAMP(i, v) \
-  do {                 \
-  } while (0)
-#endif
-
 // K1's counterpart. All K1_WARPS warps first copy the utterance's
 // label_logp rows into both histories; then warp 0 runs alpha and warp 1
 // beta, each overwriting its history in place (a lane reads frame t of
@@ -493,10 +455,9 @@ struct Ring {
   struct Cursor {
     const float* row;
     int c, left, slot, parity;
-    long long waited, freeing;  // cycles, in a stamps build
   };
   __device__ __forceinline__ Cursor start() const {
-    return {nullptr, -1, 0, slots - 1, 1, 0, 0};
+    return {nullptr, -1, 0, slots - 1, 1};
   }
   // the next item's row; opening a chunk waits for it and frees the one
   // before, so a consumer waits at most once per chunk
@@ -508,12 +469,8 @@ struct Ring {
         cur.slot = 0;
         cur.parity ^= 1;
       }
-      const long long t0 = K2_CLOCK();
       mbar_wait(full + cur.slot, cur.parity);
-      const long long t1 = K2_CLOCK();
       if (c > 0) mbar_arrive(empty + prev);
-      cur.waited += t1 - t0;
-      cur.freeing += K2_CLOCK() - t1;
       cur.left = chunk_frames(c) - 1;
       cur.row = base + (size_t)(cur.slot * K2_CHUNK + (dir ? cur.left : 0)) *
                            s_n;
@@ -524,11 +481,9 @@ struct Ring {
     return cur.row;
   }
   // producer: chunk c from the utterance's label_logp into its slot
-  __device__ __forceinline__ void fill(int c, const float* lp, int lane,
-                                       long long& waited) const {
-    const long long t0 = K2_CLOCK();
+  __device__ __forceinline__ void fill(int c, const float* lp,
+                                       int lane) const {
     if (c >= slots) mbar_wait(empty + c % slots, ((c / slots) + 1) & 1);
-    waited += K2_CLOCK() - t0;
     const float* src = lp + (size_t)chunk_lo(c) * s_n;
     float* dst = slot(c);
     const int count = chunk_frames(c) * s_n;
@@ -604,7 +559,6 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(K2_WARPS * 32)
   __shared__ __align__(8) float edge[2][K2_MAX_W][2];
   __shared__ float ends[2];
 
-  const long long t_entry = K2_CLOCK();
   const int nw = (s_n + 32 * P - 1) / (32 * P);  // W, warps a recursion
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -634,9 +588,7 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(K2_WARPS * 32)
   if (warp == nw) {
     // ---- the producer: the ring, chunk by chunk
     const int chunks = (rg.items() + K2_CHUNK - 1) / K2_CHUNK;
-    long long waited = 0;
-    for (int c = 0; c < chunks; ++c) rg.fill(c, lp, lane, waited);
-    if (lane == 0) K2_STAMP(6, waited);
+    for (int c = 0; c < chunks; ++c) rg.fill(c, lp, lane);
   } else if (warp < nw && n >= 1) {
     const int k = warp;  // this warp's place in its recursion
     const int s0 = (k * 32 + lane) * P;
@@ -681,20 +633,16 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(K2_WARPS * 32)
         take_edge(edge[(t - 1) & 1][from], both, second, up1, up2);
         alpha_step<P>(alpha, lp_t, on, skip_in, s0, up1, up2);
         if (chained) alpha_hand_on<P>(edge[t & 1][k], alpha, lane);
-#ifndef OPENEAT_CTC_ABLATE_HIST
 #pragma unroll
         for (int q = 0; q < P; ++q) {
           if (on[q]) out[q] = alpha[q];
         }
-#endif
         if (t + 1 < n) {
           const float* r = rg.next(cur);
 #pragma unroll
           for (int q = 0; q < P; ++q) lp_t[q] = on[q] ? r[s0 + q] : 0.0f;
         }
-#ifndef OPENEAT_CTC_ABLATE_SYNC
         if (chained) group_sync(1, bar_count);
-#endif
       }
       // logZ's ends s_len-1 and max(s_len-2, 0) at step n-1, each once
 #pragma unroll
@@ -702,11 +650,6 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(K2_WARPS * 32)
         const int s = s0 + q;
         if (on[q] && s == end1) ends[0] = alpha[q];
         if (on[q] && s == end2 && end2 != end1) ends[1] = alpha[q];
-      }
-      if (k == 0 && lane == 0) {
-        K2_STAMP(3, cur.waited);
-        K2_STAMP(4, cur.freeing);
-        K2_STAMP(5, K2_CLOCK());
       }
     } else {
       // ---- beta over frames n-1..0: step i takes bn0 = beta[i+1] +
@@ -755,35 +698,24 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(K2_WARPS * 32)
           parity ^= 1;
           if (chained) beta_hand_on<P>(edge[parity][k], bn0, lane);
         }
-#ifndef OPENEAT_CTC_ABLATE_HIST
 #pragma unroll
         for (int q = 0; q < P; ++q) {
           if (on[q]) out[q] = beta[q];
         }
-#endif
         if (i >= 2) {
           const float* r = rg.next(cur);  // frame i-1
 #pragma unroll
           for (int q = 0; q < P; ++q) lp_i[q] = on[q] ? r[s0 + q] : 0.0f;
         }
-#ifndef OPENEAT_CTC_ABLATE_SYNC
         if (chained && i >= 1) group_sync(1, bar_count);
-#endif
-      }
-      if (k == 0 && lane == 0) {
-        K2_STAMP(3, cur.waited);
-        K2_STAMP(4, cur.freeing);
-        K2_STAMP(5, K2_CLOCK());
       }
     }
   }
   __syncthreads();  // the block's history and, in alpha's, the ends
-  const long long t_recursed = K2_CLOCK();
   if (is_alpha && threadIdx.x == 0) {
     loss[b] = -lae3(ends[0], ends[1], NEG_INF);
   }
   cluster_sync();  // both histories and the loss, in both blocks
-  const long long t_met = K2_CLOCK();
 
   // ---- gamma = (alpha + beta) - logZ over the n walked frames, NEG_INF
   // past them: alpha's block the first half of the utterance's elements,
@@ -792,19 +724,6 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(K2_WARPS * 32)
   const size_t mid = (plane / 2) & ~(size_t)3;
   gamma_range(ga, gb, is_alpha ? 0 : mid, is_alpha ? mid : plane,
               (size_t)n * s_n, logz);
-#ifdef OPENEAT_CTC_STAMPS
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    K2_STAMP(0, t_entry);
-    K2_STAMP(1, t_recursed);
-    K2_STAMP(7, t_met);
-    K2_STAMP(2, clock64());
-  }
-#else
-  (void)t_entry;
-  (void)t_recursed;
-  (void)t_met;
-#endif
 }
 
 // The chain's step with no memory traffic: each of two warps runs
@@ -822,11 +741,11 @@ __global__ void ctc_chain_step_kernel(int steps, float b, float c,
 }
 
 // Positions a lane of a recursion at S: K1's, and K2's (the fewest from
-// K2_P up, in powers of two, that K2_MAX_W warps cover S with); K2's ring
+// 1 up, in powers of two, that K2_MAX_W warps cover S with); K2's ring
 // slots at S.
 int pair_p(int s_n) { return s_n <= 32 ? 1 : s_n <= 64 ? 2 : 4; }
 int global_p(int s_n) {
-  int p = K2_P;
+  int p = 1;
   while (32 * p * K2_MAX_W < s_n) p *= 2;
   return p;
 }
@@ -935,8 +854,7 @@ extern "C" int openeat_ctc_dp(const void* label_logp, const void* in_lens,
   const int p = global_p(s_n);
   if (p == 1) return launch_global<1>(lp, il, sl, a2, batch, t_len, s_n, lo, ga, ws, st);
   if (p == 2) return launch_global<2>(lp, il, sl, a2, batch, t_len, s_n, lo, ga, ws, st);
-  if (p == 4) return launch_global<4>(lp, il, sl, a2, batch, t_len, s_n, lo, ga, ws, st);
-  return launch_global<8>(lp, il, sl, a2, batch, t_len, s_n, lo, ga, ws, st);
+  return launch_global<4>(lp, il, sl, a2, batch, t_len, s_n, lo, ga, ws, st);
 }
 
 // Two warps run `steps` chain steps each (ctc_chain_step_kernel) and
@@ -948,15 +866,3 @@ extern "C" int openeat_ctc_chain_step(int steps, void* out, void* stream) {
       steps, -1.0f, -2.0f, static_cast<float*>(out));
   return (int)cudaGetLastError();
 }
-
-#ifdef OPENEAT_CTC_STAMPS
-// development build only: copies ctc_k2_stamps (the first `blocks`
-// blocks of the last K2 launch, K2_STAMPS values each) to host memory
-// `out`
-extern "C" int openeat_ctc_k2_stamps(void* out, int blocks) {
-  if (blocks < 0 || blocks > K2_STAMP_BLOCKS) return (int)cudaErrorInvalidValue;
-  return (int)cudaMemcpyFromSymbol(out, ctc_k2_stamps,
-                                   (size_t)blocks * K2_STAMPS *
-                                       sizeof(long long));
-}
-#endif

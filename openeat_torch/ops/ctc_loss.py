@@ -50,14 +50,12 @@ NEG_INF = -1.0e30
 SMEM_BUDGET = 232448 - 1024
 # The kernels' constants (openeat_torch/csrc/ctc_loss.cu): K1 takes S <=
 # 32 x K1_MAX_P (a warp per recursion, at most K1_MAX_P positions a
-# lane); K2 takes S <= MAX_S, at least K2_P positions a lane and at most
-# K2_MAX_W warps a recursion, in two blocks of K2_WARPS warps an
+# lane); K2 takes S <= MAX_S, at most K2_MAX_W warps a recursion, in two blocks of K2_WARPS warps an
 # utterance, each with a ring of at most K2_MAX_SLOTS chunks of K2_CHUNK
 # frames in K2_RING_BYTES.
 MAX_S = 1024
 K1_MAX_P = 4
 PAIR_MAX_S = 32 * K1_MAX_P
-K2_P = 1
 K2_MAX_W = 8
 K2_WARPS = K2_MAX_W + 1
 K2_CHUNK = 8
@@ -170,11 +168,11 @@ def ctc_dp_plain(label_logp: torch.Tensor, input_lens: torch.Tensor,
 
 def global_plan(s: int) -> tuple[int, int, int, int]:
     """K2's plan at S, as openeat_ctc_global_plan gives it: positions a
-    lane P (the fewest from K2_P up, in powers of two, with which
+    lane P (the fewest from 1 up, in powers of two, with which
     K2_MAX_W warps cover S), warps a recursion W = ceil(S / 32P), ring
     slots, threads a block (the recursion on warps 0..W-1, the producer
     of its ring on warp W; alpha's block and beta's form a cluster)."""
-    p = K2_P
+    p = 1
     while 32 * p * K2_MAX_W < s:
         p *= 2
     slots = min(K2_MAX_SLOTS, K2_RING_BYTES // (K2_CHUNK * s * 4))
