@@ -42,14 +42,25 @@
    flagship AIShell Conformer config (examples/aishell/conf/
    train_conformer.yaml model_conf: d=256, 12 blocks, 3+3 decoders) as
    JSON and a model with seeded random weights, then runs
-   openeat_torch.bin.recognize on cuda in the three modes at batch 8.
-   Checks that every key is written, that K3 launched 12 times per
-   encoded batch, and that in float32 the encoder output and CTC
-   log-probs match a CPU run of the same model (plain path) within
-   ENC_TOL, greedy tokens agreeing wherever the CPU top-2 margin exceeds
-   10 x ENC_TOL. Then decodes once with compute_dtype bfloat16.
-4. Breakdown: model load, host collate and each decode stage per batch,
-   and the device's idle share over one rescoring pass (torch.profiler).
+   openeat_torch.bin.recognize on cuda in the four modes at batch 8 and
+   beam 10 (greedy, prefix beam and rescoring with --timestamp_file),
+   once more in the attention mode with --adaptive_steps 1
+   --length_penalty 0.5, and in rescoring and attention with
+   compute_dtype bfloat16. Checks that every key is written, that K3
+   launched 12 times per encoded batch, and that the timestamp JSONL has
+   one row per key with as many times as tokens, nondecreasing and
+   below T' x 40 ms. In float32 the encoder output and CTC log-probs
+   match a CPU run of the same model (plain path) within ENC_TOL, greedy
+   tokens agreeing wherever the CPU top-2 margin exceeds 10 x ENC_TOL.
+   The KV cache against recompute: the cached attention search gives
+   the full-prefix search's tokens on both batches, decoder_step along
+   a fixed prefix matches decoder_logits within ENC_TOL, and its first 4
+   steps match a CPU run within ENC_TOL.
+4. Breakdown: model load, host collate and each decode stage per batch
+   (the attention search with its steps per batch), the device's idle
+   share over one rescoring pass and over the attention search, and the
+   host time the search spends blocked in its per-step "all finished"
+   test (torch.profiler).
 5. Training through openeat_torch.bin.train on cuda: 40 wavs of 3-8 s
    with round(3 x seconds) tokens and two of 19.5 s with 120 tokens
    (their batch's T x S history only fits device memory, so K2's
@@ -61,12 +72,25 @@
    wgrad 12 times per train step (forward also 12 per cv batch and per
    decoded batch), one CTC kernel per train step and cv batch, both
    variants used.
-6. One float32 train step, GPU against CPU, on a 4-utterance batch at
+6. Recipe, after that training run (examples/aishell/run.sh's order):
+   openeat_torch.bin.average_model --val_best --num 2 over its epoch_1
+   and epoch_2 (each averaged tensor equal to a float64 host mean),
+   openeat_torch.bin.train_lm on cuda at examples/aishell/conf/
+   train_lm.yaml's width (as JSON) for 2 epochs on the training and cv
+   transcripts (finite losses, files written), a bigram ARPA from the
+   training transcripts, then recognize of the cv set from avg_2.pt in
+   attention_rescoring unfused, with the Transformer LM (--lm_weight
+   0.3) and with the n-gram, each with its CER through
+   openeat_torch.utils.wer.corpus_wer (printed, no threshold; random
+   transcripts). The fused scores must differ from the unfused ones on
+   some candidate, and the LM's float32 log_probs on the card match a
+   CPU run within ENC_TOL.
+7. One float32 train step, GPU against CPU, on a 4-utterance batch at
    full width (dropout 0, SpecAugment off, TF32 off, same weights).
-7. Overfit: 30 steps on one repeated 8-utterance batch (dropout 0,
+8. Overfit: 30 steps on one repeated 8-utterance batch (dropout 0,
    SpecAugment off); the mean loss of the last 5 must be below 0.9 x
    the first.
-8. Training breakdown at the flagship bf16 setting: frontend, forward,
+9. Training breakdown at the flagship bf16 setting: frontend, forward,
    backward, clip+optimizer per step (host clock around synchronized
    work), the device's idle share over 5 steps (torch.profiler), peak
    memory and audio seconds trained per second.
@@ -89,20 +113,25 @@ import shutil
 import statistics
 import subprocess
 import time
+from collections import Counter
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from openeat_torch.bin import recognize
+from openeat_torch.bin import average_model, recognize, train_lm
 from openeat_torch.bin import train as train_cli
 from openeat_torch.dataset.audio import write_wav
 from openeat_torch.dataset.dataset import (AudioCollate, AudioDataset,
                                            PrefetchLoader)
 from openeat_torch.dataset.text import load_dict
+from openeat_torch.decode import attention_beam
+from openeat_torch.decode.attention_beam import recognize as attention_decode
 from openeat_torch.decode.ctc_greedy import ctc_greedy_search
 from openeat_torch.decode.ctc_prefix_beam import ctc_prefix_beam_search
-from openeat_torch.decode.rescoring import attention_rescoring
+from openeat_torch.decode.rescoring import (attention_rescoring,
+                                            rescoring_scores)
+from openeat_torch.lm.ngram import load_lm as load_ngram
 from openeat_torch.models.asr_model import build_asr_model, init_parameters
 from openeat_torch.modules.dropout import set_generator
 from openeat_torch.ops import ctc_loss as ctc
@@ -114,6 +143,7 @@ from openeat_torch.parallel.train_step import (TrainState, apply_update,
 from openeat_torch.pipeline import DeviceFeeder
 from openeat_torch.utils.common import make_generator
 from openeat_torch.utils.optim import build_optimizer
+from openeat_torch.utils.wer import corpus_wer
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, ".smoke_work")
@@ -139,8 +169,10 @@ FLAGSHIP_MODEL_CONF = {
     "decoder_num_blocks_share": 1, "activation": "swish",
     "compute_dtype": "float32",
 }
-MODES = ["ctc_greedy_search", "ctc_prefix_beam_search",
+MODES = ["ctc_greedy_search", "ctc_prefix_beam_search", "attention",
          "attention_rescoring"]
+BEAM = 10
+MAX_HYP_LEN = 64
 # examples/aishell/conf/train_conformer.yaml as JSON (the card machine has
 # no PyYAML), with a short warmup and two epochs for the smoke run
 TRAIN_CONFIG = {
@@ -355,21 +387,57 @@ def random_model_state(gen: torch.Generator) -> dict:
 
 
 def run_recognize(cfg: str, ckpt: str, manifest: str, dict_path: str,
-                  mode: str, tag: str) -> tuple[dict, float, int]:
+                  mode: str, tag: str, extra=(), timestamps: bool = False
+                  ) -> tuple[dict, float, int, list | None]:
+    """recognize on cuda with K3's count set to 0 just before and read
+    just after. Returns (hyps by key, wall s, K3 launches, the
+    --timestamp_file rows when `timestamps`)."""
     out = os.path.join(WORK, f"hyp_{tag}.txt")
+    ts_path = os.path.join(WORK, f"ts_{tag}.jsonl")
+    ts_args = ["--timestamp_file", ts_path] if timestamps else []
     dw.depthwise_conv1d.launches = 0
     t0 = time.perf_counter()
     recognize.main(["--config", cfg, "--checkpoint", ckpt, "--test_data",
                     manifest, "--dict", dict_path, "--result_file", out,
                     "--mode", mode, "--batch_size", str(BATCH),
-                    "--reverse_weight", "0.3", "--device", "cuda"])
+                    "--beam_size", str(BEAM), "--max_hyp_len",
+                    str(MAX_HYP_LEN), "--reverse_weight", "0.3",
+                    "--device", "cuda", *ts_args, *extra])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dw.depthwise_conv1d.launches
     with open(out, encoding="utf-8") as f:
         hyps = dict((line.rstrip("\n").split(" ", 1) + [""])[:2]
                     for line in f)
-    return hyps, wall, launches
+    rows = None
+    if timestamps:
+        with open(ts_path, encoding="utf-8") as f:
+            rows = [json.loads(line) for line in f]
+    return hyps, wall, launches, rows
+
+
+def encoder_frames(seconds: float) -> int:
+    """Encoder positions of a wav of `seconds`: fbank frames (25 ms /
+    10 ms) through the conv2d x4 subsampling."""
+    frames = (int(seconds * 16000) - 400) // 160 + 1
+    return ((frames - 3) // 2 + 1 - 3) // 2 + 1
+
+
+def check_timestamps(tag: str, rows: list, hyps: dict,
+                     t_enc: dict) -> dict:
+    """One JSONL row per key, as many times as tokens, nondecreasing and
+    inside the utterance (below T' x 40 ms)."""
+    if sorted(r["key"] for r in rows) != sorted(hyps):
+        raise AssertionError(f"{tag}: timestamp keys "
+                             f"{[r['key'] for r in rows]}")
+    n_tokens = 0
+    for r in rows:
+        times = r["times_ms"]
+        if len(times) != len(r["tokens"]) or times != sorted(times) \
+                or any(not 0 <= t < t_enc[r["key"]] * 40.0 for t in times):
+            raise AssertionError(f"{tag}: bad timestamps {r}")
+        n_tokens += len(times)
+    return {"rows": len(rows), "tokens": n_tokens}
 
 
 def compare_with_cpu(cfg_path: str, ckpt: str, manifest: str,
@@ -420,9 +488,14 @@ def stage_breakdown(cfg_path: str, ckpt: str, manifest: str,
                     dict_path: str, dev: torch.device) -> dict:
     """Where a decode run's time goes: model load, host collate, and
     each device stage per batch (host clock around synchronized work,
-    median of 3 passes over both batches); then the device's busy share
-    over one full attention_rescoring pass, from torch.profiler's kernel
-    and copy events."""
+    median of 3 passes over both batches), the attention search's steps
+    among them; then the device's busy share over one full
+    attention_rescoring pass, and over one attention search of both
+    batches with the host time blocked in its per-step "all finished"
+    test (torch.profiler's aten::_local_scalar_dense, the search's only
+    host sync) and the operators it dispatches a step, from
+    torch.profiler's kernel, copy and operator events."""
+    from torch.profiler import ProfilerActivity, profile
     t0 = time.perf_counter()
     model = recognize.load_model(json.load(open(cfg_path)), ckpt, VOCAB, dev)
     torch.cuda.synchronize()
@@ -434,6 +507,18 @@ def stage_breakdown(cfg_path: str, ckpt: str, manifest: str,
     wavs = [(torch.from_numpy(b["wav"]).to(dev),
              torch.from_numpy(b["wav_lens"]).to(dev)) for b in host]
     fe = FrontendConfig()
+    steps = [0]
+    step_fn = model.decoder_step
+
+    def counted_step(*args):
+        steps[0] += 1
+        return step_fn(*args)
+
+    model.decoder_step = counted_step
+
+    def attention(enc, enc_lens):
+        attention_decode(model, enc, enc_lens, beam_size=BEAM,
+                         max_steps=min(int(enc.shape[1]), MAX_HYP_LEN))
 
     def one_pass(lap):
         for wav, lens in wavs:
@@ -445,12 +530,14 @@ def stage_breakdown(cfg_path: str, ckpt: str, manifest: str,
             lap("ctc_head")
             ctc_greedy_search(lp, enc_lens)
             lap("greedy_search")
-            nbest = ctc_prefix_beam_search(lp, enc_lens, beam_size=10,
-                                           max_hyp_len=64)
+            nbest = ctc_prefix_beam_search(lp, enc_lens, beam_size=BEAM,
+                                           max_hyp_len=MAX_HYP_LEN)
             lap("prefix_beam_search")
             attention_rescoring(model, enc, enc_lens, *nbest,
                                 ctc_weight=0.5, reverse_weight=0.3)
             lap("rescoring")
+            attention(enc, enc_lens)
+            lap("attention_search")
 
     totals: dict[str, list] = {}
     with torch.inference_mode():
@@ -466,12 +553,15 @@ def stage_breakdown(cfg_path: str, ckpt: str, manifest: str,
 
             torch.cuda.synchronize()
             clock[0] = time.perf_counter()
+            steps[0] = 0
             one_pass(lap)
-            for name, s in run.items():
-                totals.setdefault(name, []).append(s / len(wavs))
+            for name, sec in run.items():
+                totals.setdefault(name, []).append(sec / len(wavs))
         out["stage_s_per_batch"] = {k: statistics.median(v)
                                     for k, v in totals.items()}
-        from torch.profiler import ProfilerActivity, profile
+        out["attention_steps_per_batch"] = steps[0] / len(wavs)
+        out["attention_s_per_step"] = (out["stage_s_per_batch"][
+            "attention_search"] / out["attention_steps_per_batch"])
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             torch.cuda.synchronize()
@@ -479,13 +569,294 @@ def stage_breakdown(cfg_path: str, ckpt: str, manifest: str,
             one_pass(lambda name: None)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
+        encoded = [model.encode(*compute_features(w, n, fe)) for w, n in wavs]
+        torch.cuda.synchronize()
+        steps[0] = 0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as aprof:
+            t0 = time.perf_counter()
+            for enc, enc_lens in encoded:
+                attention(enc, enc_lens)
+            torch.cuda.synchronize()
+            attn_wall_us = (time.perf_counter() - t0) * 1e6
+    busy_us = _device_busy_us(prof)
     out["profiled_wall_s"] = wall_us / 1e6
     out["device_busy_s"] = busy_us / 1e6
     # no device events means the profiler could not trace the card
     out["device_idle_share"] = 1.0 - busy_us / wall_us if busy_us else None
+    attn_busy = _device_busy_us(aprof)
+    sync_us = sum(e.cpu_time_total for e in aprof.events()
+                  if e.name == "aten::_local_scalar_dense")
+    # operators the host dispatches (top-level aten calls, views and
+    # no-op casts included): what a step costs the host
+    host_ops = sum(1 for e in aprof.events() if e.cpu_parent is None
+                   and e.name.startswith("aten::"))
+    out["attention_search"] = {
+        "host_ops_per_step": host_ops / steps[0],
+        "wall_s_per_batch": attn_wall_us / 1e6 / len(wavs),
+        "device_busy_s_per_batch": attn_busy / 1e6 / len(wavs),
+        "device_idle_share": (1.0 - attn_busy / attn_wall_us
+                              if attn_busy else None),
+        "host_sync_s_per_batch": sync_us / 1e6 / len(wavs)}
     return out
+
+
+def _device_busy_us(prof) -> float:
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def attention_cache_checks(cfg_path: str, ckpt: str, manifest: str,
+                           dict_path: str) -> dict:
+    """The KV cache against recompute on the card, float32: the cached
+    beam search gives the full-prefix search's tokens on both batches;
+    decoder_step along a fixed prefix (the first batch's best
+    hypotheses) matches decoder_logits within ENC_TOL; its first 4
+    steps match a CPU run of the same weights within ENC_TOL."""
+    cfg = json.load(open(cfg_path))
+    gpu = recognize.load_model(cfg, ckpt, VOCAB, torch.device("cuda"))
+    cpu = recognize.load_model(cfg, ckpt, VOCAB, torch.device("cpu"))
+    ds = AudioDataset(manifest, load_dict(dict_path), batch_size=BATCH)
+    feeder = DeviceFeeder(PrefetchLoader(ds, AudioCollate()),
+                          FrontendConfig(), torch.device("cuda"), BATCH)
+    out = {"searches": []}
+    with torch.inference_mode():
+        for i, (_, batch) in enumerate(feeder):
+            enc, lens = gpu.encode(batch["features"],
+                                   batch["features_length"])
+            steps = min(int(enc.shape[1]), MAX_HYP_LEN)
+            cached = attention_beam.attention_beam_search_cached(
+                gpu, enc, lens, beam_size=BEAM, max_steps=steps)
+            full = attention_decode(gpu, enc, lens, beam_size=BEAM,
+                                    max_steps=steps, use_cache=False)
+            row = {"batch": i, "max_steps": steps,
+                   "tokens_equal": bool(torch.equal(cached[0], full[0])
+                                        and torch.equal(cached[1], full[1])),
+                   "score_max_abs_diff": float((cached[2] - full[2]).abs()
+                                               .max()),
+                   "mean_len": float(cached[1].float().mean())}
+            out["searches"].append(row)
+            if not row["tokens_equal"]:
+                raise AssertionError(f"cached and full-prefix attention "
+                                     f"searches differ: {row}")
+            if i == 0:
+                first = (enc, lens, cached[0])
+        enc, lens, hyps = first
+        b, t = enc.shape[:2]
+        ys = torch.cat([torch.full((b, 1), gpu.sos, device=enc.device),
+                        torch.where(hyps < 0, gpu.eos, hyps)], dim=1)
+        n_pos = ys.shape[1]
+        full = gpu.decoder_logits(enc, lens, ys, torch.full((b,), n_pos,
+                                                            device=enc.device))
+        cache = gpu.decoder_init_cache(enc, b, n_pos)
+        cpu_cache = cpu.decoder_init_cache(enc.cpu(), b, n_pos)
+        step_err = cpu_err = 0.0
+        for pos in range(n_pos):
+            lp, cache = gpu.decoder_step(ys[:, pos], pos, cache, lens, t)
+            step_err = max(step_err, float((lp - full[:, pos]).abs().max()))
+            if pos < 4:
+                c_lp, cpu_cache = cpu.decoder_step(ys[:, pos].cpu(), pos,
+                                                   cpu_cache, lens.cpu(), t)
+                cpu_err = max(cpu_err, float((lp.cpu() - c_lp).abs().max()))
+    out.update(prefix_positions=n_pos, step_vs_full_max_abs_err=step_err,
+               step_gpu_vs_cpu_max_abs_err=cpu_err)
+    if step_err > ENC_TOL or cpu_err > ENC_TOL:
+        raise AssertionError(f"decoder_step disagrees: {out}")
+    return out
+
+
+# ---------------------------------------------------------------- recipe
+
+# examples/aishell/conf/train_lm.yaml as JSON, two epochs
+LM_CONFIG = {
+    "model_conf": {"d_model": 256, "attention_heads": 4,
+                   "linear_units": 1024, "num_blocks": 6,
+                   "dropout_rate": 0.1, "activation": "relu",
+                   "autoregressive": True, "lsm_weight": 0.1,
+                   "compute_dtype": "bfloat16"},
+    "dataset_conf": {"token_max_length": 200, "token_min_length": 0,
+                     "batch_size": 64, "sort": True},
+    "grad_clip": 5, "max_epoch": 2, "log_interval": 1, "optim": "adam",
+    "optim_conf": {"lr": 0.001}, "warmup_epoch": 2, "seed": SEED,
+}
+LM_WEIGHT = 0.3
+
+
+def manifest_texts(manifest: str) -> dict:
+    """{key: text} of a manifest's `utt:` and `text:` fields."""
+    out = {}
+    with open(manifest, encoding="utf-8") as f:
+        for line in f:
+            fields = dict(x.split(":", 1) for x in line.rstrip("\n")
+                          .split("\t"))
+            out[fields["utt"]] = fields["text"]
+    return out
+
+
+def write_text(texts: dict, name: str) -> str:
+    path = os.path.join(WORK, name)
+    with open(path, "w", encoding="utf-8") as f:
+        f.writelines(f"{k} {v}\n" for k, v in texts.items())
+    return path
+
+
+def write_arpa(texts: list, path: str) -> None:
+    """A bigram ARPA over the characters of `texts`: relative
+    frequencies, half the mass kept for backoff."""
+    uni, bi, ctx = Counter(), Counter(), Counter()
+    for text in texts:
+        toks = ["<s>", *text, "</s>"]
+        uni.update(toks[1:])
+        ctx.update(toks[:-1])
+        bi.update(zip(toks, toks[1:]))
+    total = sum(uni.values())
+    half = math.log10(0.5)
+    lines = ["\\data\\", f"ngram 1={len(uni) + 2}", f"ngram 2={len(bi)}",
+             "", "\\1-grams:", f"-99\t<s>\t{half:.6f}",
+             f"{math.log10(0.5 / total):.6f}\t<unk>"]
+    lines += [f"{math.log10(c / total):.6f}\t{w}\t{half:.6f}"
+              for w, c in sorted(uni.items())]
+    lines += ["", "\\2-grams:"]
+    lines += [f"{math.log10(0.5 * c / ctx[a]):.6f}\t{a} {b}"
+              for (a, b), c in sorted(bi.items())]
+    lines += ["", "\\end\\", ""]
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("\n".join(lines))
+
+
+def run_recipe(exp: str, train_data: str, cv_data: str,
+               dict_path: str) -> dict:
+    """The recipe after training: average_model --val_best --num 2 over
+    the run's epoch_1/epoch_2 (held to a float64 host mean), train_lm on
+    cuda for 2 epochs on the transcripts, then recognize of the cv set
+    from avg_2.pt in attention_rescoring with the Transformer LM fused
+    and with the n-gram fused, and the CER of each decode. K3's count is
+    set to 0 before the decodes and read after them."""
+    out = {}
+    avg_path = average_model.main(["--exp_dir", exp, "--dst", "avg_2",
+                                   "--num", "2", "--val_best"])
+    avg = torch.load(avg_path, weights_only=True)
+    epochs = [torch.load(os.path.join(exp, f"epoch_{e}.pt"),
+                         weights_only=True) for e in (1, 2)]
+    for k, v in avg.items():
+        ref = ((epochs[0][k].double() + epochs[1][k].double()) / 2).float() \
+            if v.is_floating_point() else epochs[1][k]
+        if not torch.equal(v, ref):
+            raise AssertionError(f"average_model: {k} is not the mean")
+    out["averaged_tensors"] = len(avg)
+
+    train_texts, cv_texts = manifest_texts(train_data), manifest_texts(cv_data)
+    lm_cfg = os.path.join(WORK, "train_lm.json")
+    with open(lm_cfg, "w") as f:
+        json.dump(LM_CONFIG, f)
+    lm_exp = os.path.join(WORK, "exp_lm")
+    t0 = time.perf_counter()
+    lm_state = train_lm.main([
+        "--config", lm_cfg, "--train_data", write_text(train_texts, "lm_tr"),
+        "--cv_data", write_text(cv_texts, "lm_cv"), "--dict", dict_path,
+        "--exp_dir", lm_exp, "--device", "cuda", "--num_workers", "2"])
+    torch.cuda.synchronize()
+    out["train_lm_wall_s"] = time.perf_counter() - t0
+    with open(os.path.join(lm_exp, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    out["lm_step_losses"] = [r["loss"] for r in records
+                             if r["kind"] == "train"]
+    out["lm_cv_losses"] = [r["cv_loss"] for r in records
+                           if r["kind"] == "epoch"]
+    if len(out["lm_step_losses"]) != lm_state.step or not all(
+            math.isfinite(x) for x in out["lm_step_losses"]
+            + out["lm_cv_losses"]):
+        raise AssertionError(f"train_lm losses: {records}")
+    for name in ("epoch_1.pt", "epoch_1.json", "epoch_2.pt", "epoch_2.json",
+                 "train.json"):
+        if not os.path.exists(os.path.join(lm_exp, name)):
+            raise AssertionError(f"train_lm did not write {name}")
+    arpa = os.path.join(WORK, "lm.arpa")
+    write_arpa(list(train_texts.values()), arpa)
+
+    cfg = os.path.join(exp, "train.json")
+    lm_args = ["--lm_config", os.path.join(lm_exp, "train.json"),
+               "--lm_checkpoint", os.path.join(lm_exp, "epoch_2.pt"),
+               "--lm_weight", str(LM_WEIGHT)]
+    ngram_args = ["--ngram_lm", arpa, "--lm_weight", str(LM_WEIGHT)]
+    n_batches = math.ceil(len(cv_texts) / BATCH)
+    out["decodes"] = []
+    launches = 0
+    for tag, extra in (("recipe_rescoring", []), ("recipe_lm", lm_args),
+                       ("recipe_ngram", ngram_args)):
+        hyps, wall, k3, _ = run_recognize(cfg, avg_path, cv_data, dict_path,
+                                          "attention_rescoring", tag, extra)
+        launches += k3
+        if set(hyps) != set(cv_texts) or k3 != 12 * n_batches:
+            raise AssertionError(f"{tag}: keys {sorted(hyps)}, K3 {k3}")
+        cer = corpus_wer(cv_texts, hyps)
+        row = {"run": tag, "wall_s": wall, "k3_launches": k3,
+               "cer": cer.wer, "ref_chars": cer.ref_len}
+        out["decodes"].append(row)
+        print("recipe decode " + json.dumps(row), flush=True)
+    out["k3_launches"] = launches
+    out["fusion"] = fusion_checks(cfg, avg_path, lm_exp, arpa, cv_data,
+                                  dict_path)
+    return out
+
+
+def fusion_checks(cfg_path: str, ckpt: str, lm_exp: str, arpa: str,
+                  cv_data: str, dict_path: str) -> dict:
+    """On the cv batch: the LM-fused rescoring scores differ from the
+    unfused ones on at least one candidate, and some candidate has a
+    nonzero n-gram term; the LM's float32 log_probs on the card match a
+    CPU run within ENC_TOL. The scores are taken at ctc_weight 0: a
+    model this briefly trained can leave near-uniform CTC posteriors
+    whose prefix beams all die at -1e30, which would swamp every other
+    term in float32."""
+    dev = torch.device("cuda")
+    char_dict = load_dict(dict_path)
+    id2tok = {v: k for k, v in char_dict.items()}
+    model = recognize.load_model(json.load(open(cfg_path)), ckpt, VOCAB, dev)
+    lm_cfg = json.load(open(os.path.join(lm_exp, "train.json")))
+    lm_ckpt = os.path.join(lm_exp, "epoch_2.pt")
+    lm = recognize.load_language_model(lm_cfg, lm_ckpt, len(char_dict), dev)
+    ngram = load_ngram(arpa)
+    ds = AudioDataset(cv_data, char_dict, batch_size=BATCH)
+    feeder = DeviceFeeder(PrefetchLoader(ds, AudioCollate()),
+                          FrontendConfig(), dev, BATCH)
+    with torch.inference_mode():
+        _, batch = next(iter(feeder))
+        enc, lens = model.encode(batch["features"], batch["features_length"])
+        nbest = ctc_prefix_beam_search(model.ctc_log_probs(enc), lens,
+                                       beam_size=BEAM,
+                                       max_hyp_len=MAX_HYP_LEN)
+        kw = dict(ctc_weight=0.0, reverse_weight=0.3)
+        plain = rescoring_scores(model, enc, lens, *nbest, **kw)
+        fused = rescoring_scores(model, enc, lens, *nbest, **kw,
+                                 lm_logp_fn=lm.log_probs,
+                                 lm_weight=LM_WEIGHT)
+        hyps, hyp_lens = nbest[0].cpu(), nbest[1].cpu()
+        ngram_terms = [[ngram.score(" ".join(
+            id2tok.get(int(t), "<unk>") for t in hyps[b, k, :hyp_lens[b, k]]))
+            for k in range(hyps.shape[1])] for b in range(hyps.shape[0])]
+        f32_conf = dict(lm_cfg["model_conf"], compute_dtype="float32")
+        lm_f32 = {d: recognize.load_language_model(
+            dict(lm_cfg, model_conf=f32_conf), lm_ckpt, len(char_dict),
+            torch.device(d)) for d in ("cuda", "cpu")}
+        ys = torch.cat([torch.full((hyps.shape[0], 1), lm.sos),
+                        torch.where(hyps[:, 0] < 0, lm.eos, hyps[:, 0])], 1)
+        ys_lens = hyp_lens[:, 0] + 1
+        g_lp = lm_f32["cuda"].log_probs(ys.to(dev), ys_lens.to(dev))
+        c_lp = lm_f32["cpu"].log_probs(ys, ys_lens)
+    res = {"lm_fused_candidates_changed": int(((fused - plain).abs() > 0)
+                                              .sum()),
+           "candidates": int(plain.numel()),
+           "dead_prefix_beams": int((nbest[2] <= -1e29).sum()),
+           "ngram_nonzero_terms": sum(t != 0 for row in ngram_terms
+                                      for t in row),
+           "lm_f32_gpu_vs_cpu_max_abs_err": float(
+               (g_lp.cpu() - c_lp).abs().max())}
+    if not res["lm_fused_candidates_changed"] \
+            or not res["ngram_nonzero_terms"] \
+            or res["lm_f32_gpu_vs_cpu_max_abs_err"] > ENC_TOL:
+        raise AssertionError(f"LM fusion checks: {res}")
+    return res
 
 
 # ---------------------------------------------------------------- timing 2
@@ -1075,8 +1446,7 @@ def train_breakdown(manifest: str, dict_path: str, n_steps: int = 6) -> dict:
             one_step(host, lambda name: None)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy_us = _device_busy_us(prof)
     out["profiled_steps"] = 5
     out["profiled_wall_s"] = wall_us / 1e6
     out["device_busy_s"] = busy_us / 1e6
@@ -1207,13 +1577,20 @@ def main() -> None:
         audio_s = sum(durations)
         n_batches = len(main_shapes)
         keys = {f"utt{i:03d}" for i in range(N_UTTS)}
+        t_enc = {f"utt{i:03d}": encoder_frames(d)
+                 for i, d in enumerate(durations)}
         runs = []
         decode_launches = 0
-        for mode, cfg, tag in ([("ctc_greedy_search", cfg32, "warmup")]
-                               + [(m, cfg32, m) for m in MODES]
-                               + [("attention_rescoring", cfg16, "bf16")]):
-            hyps, wall, launches = run_recognize(cfg, ckpt, manifest,
-                                                 dict_path, mode, tag)
+        adaptive = ["--adaptive_steps", "1", "--length_penalty", "0.5"]
+        for mode, cfg, tag, extra in (
+                [("ctc_greedy_search", cfg32, "warmup", [])]
+                + [(m, cfg32, m, []) for m in MODES]
+                + [("attention", cfg32, "attention_adaptive", adaptive),
+                   ("attention_rescoring", cfg16, "bf16", []),
+                   ("attention", cfg16, "attention_bf16", [])]):
+            want_ts = cfg == cfg32 and tag in MODES and mode != "attention"
+            hyps, wall, launches, ts = run_recognize(
+                cfg, ckpt, manifest, dict_path, mode, tag, extra, want_ts)
             decode_launches += launches
             if set(hyps) != keys:
                 raise AssertionError(f"{tag}: keys written {sorted(hyps)}")
@@ -1224,6 +1601,8 @@ def main() -> None:
                    "batches": n_batches, "s_per_batch": wall / n_batches,
                    "rtf": wall / audio_s, "k3_launches": launches,
                    "nonempty_hyps": sum(bool(v) for v in hyps.values())}
+            if ts is not None:
+                run["timestamps"] = check_timestamps(tag, ts, hyps, t_enc)
             runs.append(run)
             print("decode " + json.dumps(run), flush=True)
         report["decode_runs"] = runs
@@ -1231,6 +1610,10 @@ def main() -> None:
         report["cpu_parity"] = compare_with_cpu(cfg32, ckpt, manifest,
                                                 dict_path)
         print("cpu_parity " + json.dumps(report["cpu_parity"]), flush=True)
+        report["attention_cache"] = attention_cache_checks(
+            cfg32, ckpt, manifest, dict_path)
+        print("attention_cache " + json.dumps(report["attention_cache"]),
+              flush=True)
         report["breakdown"] = stage_breakdown(cfg32, ckpt, manifest,
                                               dict_path, torch.device("cuda"))
         print("breakdown " + json.dumps(report["breakdown"]), flush=True)
@@ -1245,6 +1628,10 @@ def main() -> None:
         report["train_run"] = train_run
         print("train " + json.dumps({k: v for k, v in train_run.items()
                                      if k != "epochs"}), flush=True)
+        report["recipe"] = run_recipe(os.path.join(WORK, "exp"), train_data,
+                                      cv_data, dict_path)
+        print("recipe " + json.dumps({k: v for k, v in report["recipe"].items()
+                                      if k != "decodes"}), flush=True)
         report["train_step_gpu_vs_cpu"] = gpu_vs_cpu_step(train_data,
                                                           dict_path)
         print("train_step_gpu_vs_cpu "
@@ -1275,7 +1662,8 @@ def main() -> None:
     kernels = [
         _kernel_row("depthwise_conv1d", "openeat_torch/csrc/depthwise_conv.cu",
                     "openeat_tpu/ops/depthwise_conv.py:39",
-                    decode_launches + n["depthwise_conv1d"], k3),
+                    decode_launches + n["depthwise_conv1d"]
+                    + report["recipe"]["k3_launches"], k3),
         _kernel_row("depthwise_conv1d_dgrad",
                     "openeat_torch/csrc/depthwise_conv.cu",
                     "openeat_tpu/ops/depthwise_conv.py:114",

@@ -2,22 +2,30 @@
 
 Port of openeat_tpu/bin/recognize.py: reads a manifest, extracts
 features on the device, encodes whole batches and decodes them with
-ctc_greedy_search, ctc_prefix_beam_search or attention_rescoring, and
-writes `<utt> <text>` lines. The flags are the JAX entry point's, plus
---device (default cuda; cpu must be asked for).
+ctc_greedy_search, ctc_prefix_beam_search, attention (the KV-cached
+beam search; --adaptive_steps bounds its steps by the CTC greedy
+lengths, --length_penalty adds a per-token bonus at the final pick) or
+attention_rescoring, and writes `<utt> <text>` lines. The flags are the
+JAX entry point's, plus --device (default cuda; cpu must be asked for).
 
 --checkpoint takes the port's own state_dict (.pt) or an .npz of flax
 leaves as openeat_tpu/utils/checkpoint.py:_flatten keys them, converted
-through openeat_torch/utils/param_bridge.py.
+through openeat_torch/utils/param_bridge.py; so does --lm_checkpoint.
+With --lm_weight > 0, attention_rescoring fuses a Transformer LM
+(--lm_config, --lm_checkpoint; on the device) or an ARPA/binary n-gram
+(--ngram_lm; on the host). --timestamp_file writes JSONL {key, tokens,
+times_ms} of the CTC emission onsets (one encoder position = subsampling
+rate x 10 ms) in the CTC-alignment modes.
 
-Not ported yet, refused with NotImplementedError: --mode attention,
---timestamp_file, --quantize int8, --dp other than 1, LM fusion,
---bpe_model, --data_type feat/kaldi and WeNet-layout configs.
+Not ported yet, refused with NotImplementedError: --quantize int8, --dp
+other than 1, --bpe_model, --data_type feat/kaldi and WeNet-layout
+configs.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 
 import numpy as np
@@ -27,10 +35,16 @@ from openeat_torch.config import load_config
 from openeat_torch.dataset.dataset import (AudioCollate, AudioDataset,
                                            PrefetchLoader)
 from openeat_torch.dataset.text import load_dict, token_ids_to_text
+from openeat_torch.decode.attention_beam import adaptive_max_steps
+from openeat_torch.decode.attention_beam import recognize as attention_decode
 from openeat_torch.decode.ctc_greedy import ctc_greedy_search
 from openeat_torch.decode.ctc_prefix_beam import ctc_prefix_beam_search
-from openeat_torch.decode.rescoring import attention_rescoring
+from openeat_torch.decode.rescoring import (attention_rescoring,
+                                            rescoring_scores)
+from openeat_torch.lm.ngram import load_lm
 from openeat_torch.models.asr_model import ASRModel, build_asr_model
+from openeat_torch.models.language_model import (LanguageModel,
+                                                 build_language_model)
 from openeat_torch.ops.frontend import FrontendConfig
 from openeat_torch.pipeline import DeviceFeeder
 from openeat_torch.utils.common import init_logger, resolve_device
@@ -38,6 +52,10 @@ from openeat_torch.utils.param_bridge import flax_to_state_dict
 
 MODES = ["ctc_greedy_search", "ctc_prefix_beam_search", "attention",
          "attention_rescoring"]
+# ms of audio per encoder position: 10 ms frames through the conv2d x4
+# subsampling, the one input layer ported (build_asr_model refuses the
+# others)
+POS_MS = 40.0
 
 
 def get_parser() -> argparse.ArgumentParser:
@@ -77,16 +95,8 @@ def get_parser() -> argparse.ArgumentParser:
 def refuse_unported(args, cfg: dict) -> None:
     """Raise NotImplementedError for what this port does not do yet."""
     later = {
-        "--mode attention": (args.mode == "attention",
-                             "the attention-decode slice (KV-cache "
-                             "forward_step)"),
-        "--timestamp_file": (args.timestamp_file is not None,
-                             "a later decode slice"),
         "--quantize int8": (args.quantize != "none", "the int8 slice"),
         "--dp": (args.dp != 1, "the parallel-layout slice"),
-        "LM fusion": (args.lm_weight > 0 or bool(args.lm_config)
-                      or bool(args.lm_checkpoint) or bool(args.ngram_lm),
-                      "the LM slice"),
         "--bpe_model": (args.bpe_model is not None,
                         "a later slice (BPE tokenizer)"),
         "--data_type feat/kaldi": (args.data_type != "wav",
@@ -102,18 +112,23 @@ def refuse_unported(args, cfg: dict) -> None:
                 f"with {where}")
 
 
+def _read_checkpoint(checkpoint: str) -> dict:
+    """An .npz of flax leaves (keyed as _flatten keys them) or a .pt
+    state_dict, as a dict."""
+    if checkpoint.endswith(".npz"):
+        with np.load(checkpoint) as z:
+            return {k: z[k] for k in z.files}
+    return torch.load(checkpoint, map_location="cpu", weights_only=True)
+
+
 def load_model(cfg: dict, checkpoint: str, vocab_size: int,
                device: torch.device) -> ASRModel:
     """Build the model from `cfg` and fill it from `checkpoint`. Whether
     the encoder has global CMVN is read from the checkpoint; a config
     that says otherwise is an error."""
-    if checkpoint.endswith(".npz"):
-        with np.load(checkpoint) as z:
-            flat = {k: z[k] for k in z.files}
-        has_cmvn = "params/encoder/global_cmvn/mean" in flat
-    else:
-        state = torch.load(checkpoint, map_location="cpu", weights_only=True)
-        has_cmvn = "encoder.global_cmvn.mean" in state
+    state = _read_checkpoint(checkpoint)
+    has_cmvn = ("params/encoder/global_cmvn/mean" if checkpoint.endswith(
+        ".npz") else "encoder.global_cmvn.mean") in state
     use_global_cmvn = cfg.get("use_global_cmvn", has_cmvn)
     if use_global_cmvn != has_cmvn:
         raise ValueError(f"config sets use_global_cmvn={use_global_cmvn} "
@@ -125,9 +140,22 @@ def load_model(cfg: dict, checkpoint: str, vocab_size: int,
                             cfg.get("vocab_size", vocab_size),
                             use_global_cmvn=use_global_cmvn)
     if checkpoint.endswith(".npz"):
-        state = flax_to_state_dict(flat, model)
+        state = flax_to_state_dict(state, model)
     model.load_state_dict(state, strict=True)
     return model.to(device).eval()
+
+
+def load_language_model(lm_cfg: dict, checkpoint: str, vocab_size: int,
+                        device: torch.device) -> LanguageModel:
+    """The Transformer LM of `lm_cfg`'s model_conf, sized to the ASR
+    dict, from a .pt state_dict or an .npz of flax leaves."""
+    lm = build_language_model(dict(lm_cfg.get("model_conf", {}) or {}),
+                              vocab_size)
+    state = _read_checkpoint(checkpoint)
+    if checkpoint.endswith(".npz"):
+        state = flax_to_state_dict(state, lm)
+    lm.load_state_dict(state, strict=True)
+    return lm.to(device).eval()
 
 
 def main(argv=None):
@@ -135,6 +163,12 @@ def main(argv=None):
     logger = init_logger()
     cfg = load_config(args.config)
     refuse_unported(args, cfg)
+    want_times = args.timestamp_file is not None
+    if want_times and args.mode == "attention":
+        raise SystemExit("--timestamp_file needs a CTC frame alignment; "
+                         "the attention mode has none (use "
+                         "ctc_greedy_search / ctc_prefix_beam_search / "
+                         "attention_rescoring)")
     device = resolve_device(args.device)
     char_dict = load_dict(args.dict_path)
     model = load_model(cfg, args.checkpoint, len(char_dict), device)
@@ -155,6 +189,17 @@ def main(argv=None):
                           frontend, device,
                           pad_batch_multiple=args.batch_size)
 
+    lm_logp_fn, lm_style, ngram = None, "ar", None
+    if args.lm_weight > 0 and args.lm_config and args.lm_checkpoint:
+        lm = load_language_model(load_config(args.lm_config),
+                                 args.lm_checkpoint, len(char_dict), device)
+        lm_style = "ar" if lm.autoregressive else "mlm"
+        lm_logp_fn = lm.log_probs if lm.autoregressive else lm.mlm_log_probs
+    elif args.lm_weight > 0 and args.ngram_lm:
+        ngram = load_lm(args.ngram_lm)
+    ts_out = (open(args.timestamp_file, "w", encoding="utf-8")
+              if want_times else None)
+
     n_done = 0
     os.makedirs(os.path.dirname(os.path.abspath(args.result_file)),
                 exist_ok=True)
@@ -163,29 +208,91 @@ def main(argv=None):
         for keys, batch in feeder:
             enc, enc_lens = model.encode(batch["features"],
                                          batch["features_length"])
-            ctc_logp = model.ctc_log_probs(enc)
-            if args.mode == "ctc_greedy_search":
-                hyps, hyp_lens = ctc_greedy_search(ctc_logp, enc_lens)
+            times = None
+            if args.mode == "attention":
+                max_steps = min(int(enc.shape[1]), args.max_hyp_len)
+                if args.adaptive_steps:
+                    _, glens = ctc_greedy_search(model.ctc_log_probs(enc),
+                                                 enc_lens)
+                    max_steps = adaptive_max_steps(glens, cap=max_steps)
+                hyps, hyp_lens, _ = attention_decode(
+                    model, enc, enc_lens, beam_size=args.beam_size,
+                    max_steps=max_steps, length_penalty=args.length_penalty)
+            elif args.mode == "ctc_greedy_search":
+                out = ctc_greedy_search(model.ctc_log_probs(enc), enc_lens,
+                                        return_times=want_times)
+                hyps, hyp_lens = out[:2]
+                if want_times:
+                    times = out[2]
             else:
-                nbest, nbest_lens, nbest_scores = ctc_prefix_beam_search(
-                    ctc_logp, enc_lens, beam_size=args.beam_size,
-                    max_hyp_len=args.max_hyp_len)
+                out = ctc_prefix_beam_search(
+                    model.ctc_log_probs(enc), enc_lens,
+                    beam_size=args.beam_size, max_hyp_len=args.max_hyp_len,
+                    return_times=want_times)
+                nbest, nbest_lens, nbest_scores = out[:3]
                 if args.mode == "ctc_prefix_beam_search":
+                    win = torch.zeros(len(nbest), dtype=torch.long)
                     hyps, hyp_lens = nbest[:, 0], nbest_lens[:, 0]
+                elif ngram is not None:
+                    hyps, hyp_lens, win = _ngram_rescore(
+                        model, enc, enc_lens, nbest, nbest_lens,
+                        nbest_scores, ngram, id2tok, args)
                 else:
-                    hyps, hyp_lens, _, _ = attention_rescoring(
+                    hyps, hyp_lens, _, win = attention_rescoring(
                         model, enc, enc_lens, nbest, nbest_lens,
                         nbest_scores, ctc_weight=args.ctc_weight,
-                        reverse_weight=args.reverse_weight)
-            hyps = hyps.cpu().numpy()
-            hyp_lens = hyp_lens.cpu().numpy()
+                        reverse_weight=args.reverse_weight,
+                        lm_logp_fn=lm_logp_fn,
+                        lm_weight=args.lm_weight if lm_logp_fn else 0.0,
+                        lm_style=lm_style)
+                if want_times:
+                    times = out[3].cpu()[torch.arange(len(nbest)),
+                                         torch.as_tensor(win).cpu()]
+            hyps = torch.as_tensor(hyps).cpu().numpy()
+            hyp_lens = torch.as_tensor(hyp_lens).cpu().numpy()
+            if times is not None:
+                times = times.cpu().numpy()
             for i, key in enumerate(keys):
                 text = token_ids_to_text(hyps[i][: hyp_lens[i]], id2tok,
                                          eos_id=model.eos)
                 fout.write(f"{key} {text}\n")
+                if ts_out is not None:
+                    n = int(hyp_lens[i])
+                    toks = [id2tok.get(int(t), "<unk>") for t in hyps[i][:n]]
+                    ts_out.write(json.dumps(
+                        {"key": key, "tokens": toks,
+                         "times_ms": [float(t * POS_MS)
+                                      for t in times[i][:n]]},
+                        ensure_ascii=False) + "\n")
             n_done += len(keys)
             logger.info("decoded %d utts", n_done)
+    if ts_out is not None:
+        ts_out.close()
+        logger.info("wrote %s", args.timestamp_file)
     logger.info("wrote %s", args.result_file)
+
+
+def _ngram_rescore(model, enc, enc_lens, nbest, nbest_lens, nbest_scores,
+                   ngram, id2tok, args):
+    """Attention + ctc rescoring plus the host n-gram's lm_weight * log10
+    score (bos and eos) of each candidate, in float32 as the JAX entry
+    point adds it. Returns numpy (hyps [B, L], lens [B], winner [B])."""
+    b, k, _ = nbest.shape
+    score = rescoring_scores(model, enc, enc_lens, nbest, nbest_lens,
+                             nbest_scores, ctc_weight=args.ctc_weight,
+                             reverse_weight=args.reverse_weight)
+    score = score.cpu().numpy().copy()
+    nbest_np = nbest.cpu().numpy()
+    lens_np = nbest_lens.cpu().numpy()
+    for bi in range(b):
+        for ki in range(k):
+            toks = [id2tok.get(int(t), "<unk>")
+                    for t in nbest_np[bi, ki][: int(lens_np[bi, ki])]]
+            score[bi, ki] += args.lm_weight * ngram.score(
+                " ".join(toks), bos=True, eos=True)
+    best = score.argmax(axis=1)
+    return (nbest_np[np.arange(b), best], lens_np[np.arange(b), best],
+            best)
 
 
 if __name__ == "__main__":

@@ -109,7 +109,7 @@ def refuse_unported(args, cfg: dict) -> None:
                 f"with {where}")
 
 
-def _dropout_seed(seed: int, epoch: int) -> int:
+def dropout_seed(seed: int, epoch: int) -> int:
     """Seed of an epoch's dropout generator: a stream apart from the
     frontend's and the loader's (seed + epoch), and the same on a
     resumed run as on an uninterrupted one."""
@@ -219,7 +219,7 @@ def _train(args, cfg: dict, device: torch.device,
                            shuffle_batches=True, seed=seed + epoch),
             frontend, device, train=True, seed=seed + epoch,
             accum_grad=train_cfg.accum_grad)
-        dropout_gen = make_generator(_dropout_seed(seed, epoch), device)
+        dropout_gen = make_generator(dropout_seed(seed, epoch), device)
         summary = executor.train(state, (b for _, b in train_feed),
                                  dropout_gen, epoch)
         cv_feed = DeviceFeeder(PrefetchLoader(cv_ds, collate,

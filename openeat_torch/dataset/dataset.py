@@ -1,10 +1,11 @@
-"""Data pipeline (host): AudioDataset, AudioCollate and a thread-pool
-PrefetchLoader. Port of openeat_tpu/dataset/dataset.py for wav input:
-manifest -> length-sorted dynamic, static or shuffle batches -> padded
-int16 waveform batches with IGNORE_ID-padded targets; the loader can
-shuffle the batch order per epoch from a seed. Feature extraction runs
-on the device (openeat_torch/ops/frontend.py). Speed perturbation comes
-with a later slice."""
+"""Data pipeline (host): AudioDataset, AudioCollate, the LM's
+TextDataset and TextCollate, and a thread-pool PrefetchLoader. Port of
+openeat_tpu/dataset/dataset.py for wav input: manifest -> length-sorted
+dynamic, static or shuffle batches -> padded int16 waveform batches with
+IGNORE_ID-padded targets; the loader can shuffle the batch order per
+epoch from a seed. Feature extraction runs on the device
+(openeat_torch/ops/frontend.py). Speed perturbation comes with a later
+slice."""
 
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from openeat_torch.dataset import audio as audio_lib
 from openeat_torch.dataset.batching import make_batches, pad_batch_1d
 from openeat_torch.dataset.manifest import (Utterance, parse_manifest,
                                             parse_wav_entry)
+from openeat_torch.dataset.text import text_to_token_ids
 from openeat_torch.utils.common import IGNORE_ID
 
 logger = logging.getLogger("openeat_torch")
@@ -91,6 +93,81 @@ class AudioCollate:
         return [keys[i] for i in order], {
             "wav": wav, "wav_lens": wav_lens, "targets": targets,
             "targets_length": target_lens}
+
+
+class TextDataset:
+    """LM dataset: lines of '<utt> <text>' or bare text, tokenized with
+    the dict, kept when token_min_length < len < token_max_length,
+    sorted by length, cut into batches of batch_size rows (int32
+    arrays)."""
+
+    def __init__(self, data_file: str, char_dict: dict[str, int],
+                 token_max_length: int = 200, token_min_length: int = 0,
+                 batch_size: int = 32, sort: bool = True):
+        rows = []
+        with open(data_file, encoding="utf-8") as f:
+            for line in f:
+                text = line.strip()
+                if not text:
+                    continue
+                parts = text.split(maxsplit=1)
+                text = parts[1] if len(parts) == 2 else parts[0]
+                ids = text_to_token_ids(text, char_dict)
+                if token_min_length < len(ids) < token_max_length:
+                    rows.append(np.asarray(ids, np.int32))
+        if sort:
+            rows.sort(key=len)
+        self.rows = rows
+        self.batches = [rows[i: i + batch_size]
+                        for i in range(0, len(rows), batch_size)]
+
+    def __len__(self):
+        return len(self.batches)
+
+    def __getitem__(self, idx: int) -> list[np.ndarray]:
+        return self.batches[idx]
+
+
+class TextCollate:
+    """Rows -> {"tokens": int32 [B, L] IGNORE_ID padded to a multiple of
+    token_bucket, "tokens_length": [B]}; for a masked LM
+    (autoregressive=False) BERT-style masking from
+    np.random.default_rng(seed), drawn in the JAX package's order: per
+    token, mask with probability mask_rate; a masked token becomes
+    mask_id (80%), a random token (10%) or stays (10%), and only masked
+    positions have a target ("masked_targets", IGNORE_ID elsewhere).
+    The rng is shared by every call: collate the batches in order for
+    masks equal to the JAX package's."""
+
+    def __init__(self, vocab_size: int, autoregressive: bool = True,
+                 mask_id: int | None = None, mask_rate: float = 0.15,
+                 token_bucket: int = 8, seed: int = 777):
+        self.vocab_size = vocab_size
+        self.autoregressive = autoregressive
+        self.mask_id = vocab_size - 1 if mask_id is None else mask_id
+        self.mask_rate = mask_rate
+        self.token_bucket = token_bucket
+        self.rng = np.random.default_rng(seed)
+
+    def __call__(self, batch: list[np.ndarray]) -> dict:
+        tokens, lens = pad_batch_1d(batch, IGNORE_ID, self.token_bucket,
+                                    np.int32)
+        if self.autoregressive:
+            return {"tokens": tokens, "tokens_length": lens}
+        inputs = tokens.copy()
+        targets = np.full_like(tokens, IGNORE_ID)
+        for i, n in enumerate(lens):
+            for j in range(int(n)):
+                if self.rng.random() < self.mask_rate:
+                    targets[i, j] = tokens[i, j]
+                    r = self.rng.random()
+                    if r < 0.8:
+                        inputs[i, j] = self.mask_id
+                    elif r < 0.9:
+                        inputs[i, j] = int(self.rng.integers(
+                            0, self.vocab_size))
+        return {"tokens": inputs, "tokens_length": lens,
+                "masked_targets": targets}
 
 
 class PrefetchLoader:

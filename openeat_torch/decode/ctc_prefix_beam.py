@@ -77,10 +77,13 @@ def _lexsort(keys) -> torch.Tensor:
 
 class BeamState:
     """Per-utterance beams, batched: prefixes [B, K, L] (IGNORE_ID
-    padded), lens/last/h1/h2 [B, K] int64, pb/pnb [B, K] float32."""
+    padded), lens/last/h1/h2 [B, K] int64, pb/pnb [B, K] float32, and,
+    when asked for, times [B, K, L] int64: the frame each token entered
+    its prefix (the onset along the highest-mass path: a merge of equal
+    prefixes keeps its best candidate's times), else None."""
 
     def __init__(self, batch: int, beam_size: int, max_hyp_len: int,
-                 device):
+                 device, with_times: bool = False):
         k = beam_size
         i64 = dict(dtype=torch.long, device=device)
         self.prefixes = torch.full((batch, k, max_hyp_len), IGNORE_ID, **i64)
@@ -91,12 +94,15 @@ class BeamState:
         self.pb = torch.full((batch, k), NEG_INF, device=device)
         self.pb[:, 0] = 0.0
         self.pnb = torch.full((batch, k), NEG_INF, device=device)
+        self.times = torch.zeros((batch, k, max_hyp_len), **i64) \
+            if with_times else None
 
 
 def prefix_beam_step(st: BeamState, lp: torch.Tensor, active: torch.Tensor,
-                     blank_id: int = 0) -> None:
+                     blank_id: int = 0, frame_idx: int = 0) -> None:
     """One frame for every utterance, in place. lp: [B, V] log-probs;
-    active: [B] bool, False makes the frame an identity step."""
+    active: [B] bool, False makes the frame an identity step; frame_idx
+    is recorded as the time of the tokens this frame appends."""
     b, k, max_len = st.prefixes.shape
     c = k  # first-stage prune width
     n_cand = k * (c + 1)
@@ -176,6 +182,12 @@ def prefix_beam_step(st: BeamState, lp: torch.Tensor, active: torch.Tensor,
     pos = lens.clamp(max=max_len - 1)[..., None]
     cur = prefixes.gather(2, pos)[..., 0]
     prefixes.scatter_(2, pos, torch.where(extend, tok, cur)[..., None])
+    if st.times is not None:
+        times = st.times.gather(1, parent[..., None].expand(-1, -1, max_len))
+        cur_t = times.gather(2, pos)[..., 0]
+        times.scatter_(2, pos,
+                       torch.where(extend, frame_idx, cur_t)[..., None])
+        st.times = times
     tu = tok + 1
     st.prefixes = prefixes
     st.lens = torch.where(extend, lens + 1, lens)
@@ -189,16 +201,19 @@ def prefix_beam_step(st: BeamState, lp: torch.Tensor, active: torch.Tensor,
 
 def ctc_prefix_beam_search(ctc_log_probs: torch.Tensor, lens: torch.Tensor,
                            beam_size: int = 10, max_hyp_len: int = 64,
-                           blank_id: int = 0):
+                           blank_id: int = 0, return_times: bool = False):
     """ctc_log_probs: [B, T, V]; lens: [B].
     Returns (prefixes [B, K, max_hyp_len] IGNORE_ID padded, prefix_lens
-    [B, K], scores [B, K]), best first."""
+    [B, K], scores [B, K]), best first; return_times appends each
+    token's emission frame [B, K, max_hyp_len] (the onset convention)."""
     b, t_max, _ = ctc_log_probs.shape
-    st = BeamState(b, beam_size, max_hyp_len, ctc_log_probs.device)
+    st = BeamState(b, beam_size, max_hyp_len, ctc_log_probs.device,
+                   return_times)
     for t in range(t_max):
-        prefix_beam_step(st, ctc_log_probs[:, t], t < lens, blank_id)
+        prefix_beam_step(st, ctc_log_probs[:, t], t < lens, blank_id, t)
     scores = _logaddexp(st.pb, st.pnb)
     _, order = torch.sort(-scores, dim=1, stable=True)
-    return (st.prefixes.gather(1, order[..., None].expand(-1, -1,
-                                                          max_hyp_len)),
-            st.lens.gather(1, order), scores.gather(1, order))
+    rows = order[..., None].expand(-1, -1, max_hyp_len)
+    out = (st.prefixes.gather(1, rows), st.lens.gather(1, order),
+           scores.gather(1, order))
+    return out + (st.times.gather(1, rows),) if return_times else out

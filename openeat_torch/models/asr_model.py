@@ -2,8 +2,9 @@
 Port of openeat_tpu/models/asr_model.py: build_asr_model, the training
 forward with its joint loss (ctc_weight * CTC + (1 - ctc_weight) *
 label-smoothed attention loss, the right-to-left decoder at
-reverse_weight), and the decode methods encode, ctc_log_probs and
-decoder_logits; sos = eos = vocab_size - 1.
+reverse_weight), and the decode methods encode, ctc_log_probs,
+decoder_logits and the KV-cache pair decoder_init_cache / decoder_step;
+sos = eos = vocab_size - 1.
 
 `compute_dtype` sets the activations' dtype; parameters stay float32 and
 are cast at use, as flax does, so bfloat16 compute trains float32
@@ -45,10 +46,12 @@ _NOT_PORTED = {
     "decoder_use_adapter": (False, "a later slice (adapters)"),
     "moe_experts": (0, "the parallel-layout slice (mixture of experts)"),
     "static_chunk_size": (0, "the streaming slice (chunked attention)"),
+    "use_dynamic_chunk": (False,
+                          "the streaming slice (dynamic chunk training)"),
 }
 
 
-def _deterministic(method):
+def deterministic(method):
     """Run a decode method with every submodule in eval mode."""
     @functools.wraps(method)
     def run(self, *args, **kwargs):
@@ -167,7 +170,7 @@ class ASRModel(nn.Module):
 
     # ---- decode ----
 
-    @_deterministic
+    @deterministic
     def encode(self, features: torch.Tensor, features_length: torch.Tensor):
         """(encoder_out [B, T', D] float32, out_lens [B])."""
         out, out_lens, _ = self.encoder(features, features_length)
@@ -176,7 +179,7 @@ class ASRModel(nn.Module):
     def ctc_log_probs(self, encoder_out: torch.Tensor) -> torch.Tensor:
         return self.ctc.log_softmax(encoder_out.to(self.compute_dtype))
 
-    @_deterministic
+    @deterministic
     def decoder_logits(self, encoder_out, encoder_out_lens, ys_in,
                        ys_in_lens, reverse: bool = False) -> torch.Tensor:
         """Full forward of the left (or right) decoder on sos-prefixed
@@ -189,6 +192,23 @@ class ASRModel(nn.Module):
             else self.decoder.left_decoder
         return torch.log_softmax(dec(ys_in, tgt_mask, memory, memory_mask),
                                  dim=-1)
+
+    @deterministic
+    def decoder_init_cache(self, encoder_out: torch.Tensor, beam_batch: int,
+                           max_len: int) -> dict:
+        """KV cache of the left decoder for `beam_batch` rows (the rows
+        of `encoder_out`) and `max_len` positions."""
+        return self.decoder.init_cache(encoder_out.to(self.compute_dtype),
+                                       beam_batch, max_len)
+
+    @deterministic
+    def decoder_step(self, tokens: torch.Tensor, pos: int, cache: dict,
+                     encoder_out_lens: torch.Tensor, encoder_t: int
+                     ) -> tuple[torch.Tensor, dict]:
+        """One left-decoder step: (float32 log-probs [B, V], cache)."""
+        memory_mask = make_non_pad_mask(encoder_out_lens,
+                                        encoder_t)[:, None, :]
+        return self.decoder.forward_step(tokens, pos, cache, memory_mask)
 
 
 def build_asr_model(model_conf: dict, input_size: int, vocab_size: int,

@@ -17,23 +17,23 @@ from torch import nn
 
 from openeat_torch.modules.dropout import Dropout
 from openeat_torch.modules.layers import Dense
-
-NEG_INF = -1.0e9
+from openeat_torch.utils.mask import NEG_INF
 
 
 def _softmax_context(scores: torch.Tensor, v: torch.Tensor,
                      mask: torch.Tensor | None,
-                     dropout: Dropout) -> torch.Tensor:
+                     dropout: Dropout | None) -> torch.Tensor:
     """scores [B, H, Tq, Tk] f32 (already scaled); v [B, H, Tk, D];
-    mask bool [B, 1, Tk] or [B, Tq, Tk], True = attend.
-    Returns ctx [B, Tq, H*D] in v's dtype."""
+    mask bool [B, 1, Tk] or [B, Tq, Tk], True = attend; dropout None
+    for none. Returns ctx [B, Tq, H*D] in v's dtype."""
     if mask is not None:
         m = mask[:, None]
         scores = scores.masked_fill(~m, NEG_INF)
     attn = torch.softmax(scores, dim=-1)
     if mask is not None:
         attn = attn.masked_fill(~m, 0.0)
-    ctx = torch.matmul(dropout(attn.to(v.dtype)), v)
+    attn = attn.to(v.dtype)
+    ctx = torch.matmul(attn if dropout is None else dropout(attn), v)
     b, h, t, d = ctx.shape
     return ctx.transpose(1, 2).reshape(b, t, h * d)
 
@@ -64,6 +64,31 @@ class MultiHeadedAttention(nn.Module):
         scores = torch.matmul(q, k.transpose(-1, -2)).float() * self.d_k ** -0.5
         return self.linear_out(_softmax_context(scores, v, mask,
                                                 self.attn_dropout))
+
+    # ---- incremental decode (KV caching); layouts [B, L, H, Dk] ----
+
+    def project_q(self, query: torch.Tensor) -> torch.Tensor:
+        """[B, L, D] -> [B, L, H, Dk]."""
+        q = self.linear_q(query)
+        return q.view(q.shape[0], q.shape[1], self.h, self.d_k)
+
+    def project_kv(self, x: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+        """[B, L, D] -> (k, v), each [B, L, H, Dk]."""
+        b, t, _ = x.shape
+        return (self.linear_k(x).view(b, t, self.h, self.d_k),
+                self.linear_v(x).view(b, t, self.h, self.d_k))
+
+    def attend_cached(self, q: torch.Tensor, k: torch.Tensor,
+                      v: torch.Tensor, mask: torch.Tensor | None = None
+                      ) -> torch.Tensor:
+        """Attention of q [B, Lq, H, Dk] over precomputed k, v [B, Lk, H,
+        Dk]; mask bool [B, 1, Lk] or [B, Lq, Lk]. No dropout: decode
+        only."""
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+        scores = torch.matmul(q, k.transpose(-1, -2)).float() \
+            * self.d_k ** -0.5
+        return self.linear_out(_softmax_context(scores, v, mask, None))
 
 
 class RelPositionMultiHeadedAttention(MultiHeadedAttention):

@@ -1,8 +1,11 @@
 """Transformer decoder block (PyTorch).
 Port of openeat_tpu/modules/decoder_layer.py:DecoderLayer.__call__:
 pre-norm self-attention -> cross-attention -> FFN, LayerNorm eps 1e-12,
-each branch through dropout at dropout_rate before its residual add.
-The KV-cache `step` comes with the attention decode mode."""
+each branch through dropout at dropout_rate before its residual add;
+and the KV-cache `step` of the attention decode mode: self-attention K/V
+written into a static [B, Lmax, H, Dk] cache at the position, the
+history masked by arange(Lmax) <= pos, cross-attention K/V projected
+once per utterance."""
 
 from __future__ import annotations
 
@@ -42,3 +45,31 @@ class DecoderLayer(nn.Module):
         h = self.norm2(x)
         x = x + self.drop(self.src_attn(h, memory, memory, memory_mask))
         return x + self.drop(self.feed_forward(self.norm3(x)))
+
+    # ---- incremental decode ----
+
+    def init_cross_cache(self, memory: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Cross-attention K/V of `memory`, projected once: (k, v), each
+        [B, T, H, Dk]."""
+        return self.src_attn.project_kv(memory)
+
+    def step(self, x: torch.Tensor, pos: int, self_k: torch.Tensor,
+             self_v: torch.Tensor, cross_kv, memory_mask: torch.Tensor):
+        """One position. x: [B, 1, D], the embedded token at `pos`;
+        self_k/v: [B, Lmax, H, Dk] caches, written at `pos` in place;
+        cross_kv from init_cross_cache; memory_mask bool [B, 1, T].
+        Returns (y [B, 1, D], self_k, self_v). No dropout."""
+        b, lmax = self_k.shape[:2]
+        h = self.norm1(x)
+        q = self.self_attn.project_q(h)
+        k_new, v_new = self.self_attn.project_kv(h)
+        self_k[:, pos] = k_new[:, 0]
+        self_v[:, pos] = v_new[:, 0]
+        hist = (torch.arange(lmax, device=x.device) <= pos)[None, None, :]
+        x = x + self.self_attn.attend_cached(q, self_k, self_v,
+                                             hist.expand(b, 1, lmax))
+        h = self.norm2(x)
+        x = x + self.src_attn.attend_cached(self.src_attn.project_q(h),
+                                            *cross_kv, memory_mask)
+        return x + self.feed_forward(self.norm3(x)), self_k, self_v

@@ -37,15 +37,20 @@ class TrainState:
     n_applied: int = 0   # updates applied; drives the learning rate
 
 
-def _loss_and_grads(model: nn.Module, batch: dict, accum_grad: int
-                    ) -> dict[str, torch.Tensor]:
-    keys = ("features", "features_length", "targets", "targets_length")
+def asr_loss(model: nn.Module, batch: dict) -> dict[str, torch.Tensor]:
+    """The ASR model's metrics on a batch of its four keys."""
+    return model(batch["features"], batch["features_length"],
+                 batch["targets"], batch["targets_length"])
+
+
+def _loss_and_grads(model: nn.Module, batch: dict, accum_grad: int,
+                    loss_fn: Callable) -> dict[str, torch.Tensor]:
     micro = ([batch] if accum_grad == 1 else
-             [{k: batch[k][i] for k in keys} for i in range(accum_grad)])
+             [{k: v[i] for k, v in batch.items()}
+              for i in range(accum_grad)])
     sums: dict[str, torch.Tensor] = {}
     for mb in micro:
-        metrics = model(mb["features"], mb["features_length"],
-                        mb["targets"], mb["targets_length"])
+        metrics = loss_fn(model, mb)
         metrics["loss"].backward()
         for k, v in metrics.items():
             v = v.detach().float()
@@ -82,11 +87,16 @@ def apply_update(state: TrainState, schedule: Callable[[int], float],
 
 
 def build_train_step(schedule: Callable[[int], float], accum_grad: int = 1,
-                     grad_clip: float = 5.0) -> Callable:
+                     grad_clip: float = 5.0,
+                     loss_fn: Callable | None = None) -> Callable:
     """Returns train_step(state, batch, generator) -> metrics dict.
 
     With accum_grad > 1 every batch array has a leading [accum_grad,
-    micro, ...] layout. `generator` feeds the model's dropout."""
+    micro, ...] layout. `generator` feeds the model's dropout.
+    `loss_fn(model, batch) -> metrics with "loss"` replaces the ASR loss
+    (asr_loss), as the LM trainer does, like the JAX
+    build_train_step(..., loss_fn=)."""
+    loss_fn = asr_loss if loss_fn is None else loss_fn
 
     def train_step(state: TrainState, batch: dict,
                    generator: torch.Generator | None) -> dict:
@@ -94,7 +104,7 @@ def build_train_step(schedule: Callable[[int], float], accum_grad: int = 1,
         model.train()
         set_generator(model, generator)
         state.optimizer.zero_grad(set_to_none=True)
-        metrics = _loss_and_grads(model, batch, accum_grad)
+        metrics = _loss_and_grads(model, batch, accum_grad, loss_fn)
         gnorm, applied = apply_update(state, schedule, grad_clip)
         metrics["grad_norm"] = gnorm
         metrics["skipped"] = torch.tensor(0.0 if applied else 1.0)
@@ -103,10 +113,12 @@ def build_train_step(schedule: Callable[[int], float], accum_grad: int = 1,
     return train_step
 
 
-def build_eval_step(model: nn.Module) -> Callable:
+def build_eval_step(model: nn.Module,
+                    loss_fn: Callable | None = None) -> Callable:
+    loss_fn = asr_loss if loss_fn is None else loss_fn
+
     @torch.no_grad()
     def eval_step(batch: dict) -> dict:
         model.eval()
-        return model(batch["features"], batch["features_length"],
-                     batch["targets"], batch["targets_length"])
+        return loss_fn(model, batch)
     return eval_step

@@ -10,14 +10,19 @@
 - load_trained_modules: partial init from another checkpoint, copying
   the entries whose key starts with one of the module prefixes
   (``--init_mods``, e.g. "encoder.,ctc.,decoder.") and whose shape
-  matches.
-Checkpoint averaging (bin/average_model.py) comes with a later slice.
+  matches;
+- find_epoch_checkpoints / average_checkpoints: the mean of the N best
+  ``epoch_N.pt`` by the ``cv_loss`` in their ``.json`` (val_best) or of
+  the last N in an epoch range, summed in float64 in the chosen order,
+  divided by N and cast to float32, as the JAX package averages
+  (bin/average_model.py).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 
 import torch
 
@@ -71,3 +76,46 @@ def load_trained_modules(target: dict, source: dict, init_mods: list[str]
             new[key] = source[key].to(value.dtype)
             copied.append(key)
     return new, copied
+
+
+def find_epoch_checkpoints(exp_dir: str) -> list[tuple[int, str]]:
+    """(epoch, path) of every epoch_N.pt in exp_dir, by epoch."""
+    out = []
+    for name in os.listdir(exp_dir):
+        m = re.fullmatch(r"epoch_(\d+)\.pt", name)
+        if m:
+            out.append((int(m.group(1)), os.path.join(exp_dir, name)))
+    return sorted(out)
+
+
+def average_checkpoints(exp_dir: str, num: int = 5, val_best: bool = True,
+                        min_epoch: int = 0, max_epoch: int = 10 ** 9
+                        ) -> dict[str, torch.Tensor]:
+    """Average N checkpoints of [min_epoch, max_epoch]: with val_best the
+    N of lowest cv_loss (a missing one counts as inf; ties by epoch),
+    otherwise the last N. Floating entries are summed in float64, then
+    divided by N and cast to float32; any other entry is the last
+    chosen checkpoint's."""
+    cands = [(e, p) for e, p in find_epoch_checkpoints(exp_dir)
+             if min_epoch <= e <= max_epoch]
+    if not cands:
+        raise FileNotFoundError(f"no epoch_N.pt checkpoints in {exp_dir}")
+    if val_best:
+        scored = []
+        for e, p in cands:
+            info = load_checkpoint(p)[1]
+            scored.append((float(info.get("cv_loss", float("inf"))), e, p))
+        chosen = [p for _, _, p in sorted(scored)[:num]]
+    else:
+        chosen = [p for _, p in cands[-num:]]
+    acc: dict[str, torch.Tensor] = {}
+    for p in chosen:
+        for k, v in load_checkpoint(p)[0].items():
+            if v.is_floating_point():
+                v = v.double()
+                acc[k] = acc[k] + v if k in acc else v
+            else:
+                acc[k] = v
+    n = len(chosen)
+    return {k: (v / n).float() if v.is_floating_point() else v
+            for k, v in acc.items()}

@@ -136,14 +136,18 @@ def remove_duplicates_and_blank(hyp, blank_id: int = 0) -> list:
 
 
 def ctc_collapse(tokens: torch.Tensor, blank_id: int = 0,
-                 pad_value: int = IGNORE_ID) -> torch.Tensor:
+                 pad_value: int = IGNORE_ID, return_positions: bool = False):
     """Batched CTC collapse. tokens [B, T] -> [B, T]: tokens that differ
     from their predecessor and are neither blank nor pad, compacted to
-    the front in order, the rest `pad_value`."""
+    the front in order, the rest `pad_value`. With return_positions,
+    also each kept token's frame [B, T] (0 on pad lanes)."""
     b, t = tokens.shape
     prev = torch.cat([tokens.new_full((b, 1), -1), tokens[:, :-1]], dim=1)
     keep = (tokens != prev) & (tokens != blank_id) & (tokens != pad_value)
     pos = torch.arange(t, device=tokens.device)[None, :].expand(b, t)
     order = torch.argsort(torch.where(keep, pos, t + pos), dim=1)
-    gathered = tokens.gather(1, order)
-    return torch.where(keep.gather(1, order), gathered, pad_value)
+    kept = keep.gather(1, order)
+    out = torch.where(kept, tokens.gather(1, order), pad_value)
+    if not return_positions:
+        return out
+    return out, torch.where(kept, order, 0)
