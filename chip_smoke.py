@@ -94,11 +94,37 @@
    backward, clip+optimizer per step (host clock around synchronized
    work), the device's idle share over 5 steps (torch.profiler), peak
    memory and audio seconds trained per second.
+10. Streaming (before 7-9), the streaming Conformer of examples/aishell/
+   conf/train_conformer_streaming.yaml (causal convs, dynamic chunks;
+   static chunk 16 with 4 left chunks for the offline reference) at full
+   width with seeded random weights, float32, chunks of 16 positions
+   (640 ms) with 4 left chunks, 200 ms pieces. In the kernel phase K3
+   runs at the chunk step's shapes [1, 30, 256] and [8, 30, 256] (the
+   conv cache in front of the chunk) in both dtypes, by TMA, bit-equal
+   to its plain version, timed beside a copy of its input. Then: the
+   encoder rows StreamingRecognizer collects for 4 decode wavs match the
+   offline chunk-masked encode on the card within rtol 1e-3 / atol 2e-4
+   and the streamed greedy result is the offline one (frame argmax equal
+   wherever the top-2 margin exceeds 10 x the measured log-prob gap),
+   with 12 K3 launches per chunk step at [1, 30, 256] by TMA; one
+   stream's rows on the card against the CPU within ENC_TOL;
+   StreamingBatch at S = 8 over the 16 wavs with ragged arrivals and
+   reused slots against 16 sequential S = 1 runs, by the same rules,
+   12 K3 launches per step. openeat_torch.bin.stream_recognize on cuda
+   over the 16 wavs with --timestamp_file: --slots 1 greedy (seconds
+   per chunk step, p50 and p99 piece latency) and --slots 8
+   attention_rescoring (aggregate x-realtime), in float32 and bfloat16.
+   The device's idle share over profiled chunk steps at S = 1 and S = 8.
+   Then bin.train on the streaming config (bf16, dynamic chunks,
+   SpecAugment, dropout) for one epoch of the training corpus, finite
+   losses, the launch counts of 5, and stream_recognize --slots 4 of the
+   cv set from its checkpoint.
 
 Any failed check raises. Before the last two stdout lines it prints the
 card's name and power limit again; then the kernels line (each kernel's
 launches on the main path, error, times and bounds; the CTC rows with
-their chain bound) and the JSON result. Details go to
+their chain bound; K3 once more at each chunk-step shape with the
+stream runs' launches there) and the JSON result. Details go to
 chiprun_out/chip_smoke.json.
 """
 
@@ -119,23 +145,30 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from openeat_torch.bin import average_model, recognize, train_lm
+from openeat_torch.bin import (average_model, recognize, stream_recognize,
+                               train_lm)
 from openeat_torch.bin import train as train_cli
-from openeat_torch.dataset.audio import write_wav
+from openeat_torch.dataset.audio import read_wav, write_wav
 from openeat_torch.dataset.dataset import (AudioCollate, AudioDataset,
                                            PrefetchLoader)
 from openeat_torch.dataset.text import load_dict
 from openeat_torch.decode import attention_beam
 from openeat_torch.decode.attention_beam import recognize as attention_decode
 from openeat_torch.decode.ctc_greedy import ctc_greedy_search
-from openeat_torch.decode.ctc_prefix_beam import ctc_prefix_beam_search
 from openeat_torch.decode.rescoring import (attention_rescoring,
                                             rescoring_scores)
+from openeat_torch.decode.ctc_prefix_beam import (ctc_prefix_beam_search,
+                                                  prefix_beam_init,
+                                                  prefix_beam_step)
+from openeat_torch.decode.streaming import StreamingRecognizer, zero_caches
+from openeat_torch.decode.streaming_batch import StreamingBatch
 from openeat_torch.lm.ngram import load_lm as load_ngram
 from openeat_torch.models.asr_model import build_asr_model, init_parameters
+from openeat_torch.modules import convolution as conv_module
 from openeat_torch.modules.dropout import set_generator
 from openeat_torch.ops import ctc_loss as ctc
 from openeat_torch.ops import depthwise_conv as dw
+from openeat_torch.ops import fbank as fbank_mod
 from openeat_torch.ops import nvcc
 from openeat_torch.ops.frontend import FrontendConfig, compute_features
 from openeat_torch.parallel.train_step import (TrainState, apply_update,
@@ -259,10 +292,11 @@ def offset_view(t: torch.Tensor) -> torch.Tensor:
 
 
 def kernel_case(b: int, tp: int, c: int, k: int, dtype, gen,
-                offset: bool = False) -> dict:
-    """K3's forward against its plain version; times it, the plain version
-    and the library call, unless `offset` (the input at a 2-byte offset,
-    checked only)."""
+                offset: bool = False, exact: bool = False) -> dict:
+    """K3's forward against its plain version; times it, a copy of its
+    input, the plain version and the library call, unless `offset` (the
+    input at a 2-byte offset, checked only). `exact` asks bit-equality
+    in bfloat16 too."""
     dev = torch.device("cuda")
     x32 = torch.randn((b, tp, c), generator=gen, device=dev)
     w32 = torch.randn((k, c), generator=gen, device=dev) * 0.3
@@ -277,7 +311,7 @@ def kernel_case(b: int, tp: int, c: int, k: int, dtype, gen,
     row = {"shape": [b, tp, c], "k": k, "dtype": str(dtype).split(".")[-1],
            "route": dw.device_plan(x, k, dgrad=False).route,
            "offset_bytes": x.data_ptr() % 16, "max_abs_err": float(err.max())}
-    if dtype == torch.float32:
+    if dtype == torch.float32 or exact:
         ok = row["max_abs_err"] == 0.0
     else:
         ulp = bf16_ulp(dw.depthwise_conv1d_plain(x.float(), w.float()))
@@ -300,6 +334,8 @@ def kernel_case(b: int, tp: int, c: int, k: int, dtype, gen,
     row["library_max_abs_err"] = float(
         (lib.transpose(1, 2).float() - plain.float()).abs().max())
     row["ms"] = device_ms(lambda i: dw.depthwise_conv1d(xs[i], w), n_inputs)
+    dst = [torch.empty_like(xi) for xi in xs]
+    row["copy_ms"] = device_ms(lambda i: dst[i].copy_(xs[i]), n_inputs)
     row["plain_ms"] = device_ms(
         lambda i: dw.depthwise_conv1d_plain(xs[i], w), n_inputs)
     row["library_ms"] = device_ms(
@@ -366,10 +402,11 @@ def write_config(compute_dtype: str) -> str:
     return path
 
 
-def random_model_state(gen: torch.Generator) -> dict:
+def random_model_state(gen: torch.Generator,
+                       conf: dict = FLAGSHIP_MODEL_CONF) -> dict:
     """Full-width model with weights drawn from `gen`: matrices scaled by
     1/sqrt(fan_in), LayerNorm gains near 1, small biases."""
-    model = build_asr_model(FLAGSHIP_MODEL_CONF, 80, VOCAB)
+    model = build_asr_model(conf, 80, VOCAB)
     with torch.no_grad():
         for name, p in model.named_parameters():
             z = torch.randn(p.shape, generator=gen)
@@ -859,6 +896,418 @@ def fusion_checks(cfg_path: str, ckpt: str, lm_exp: str, arpa: str,
     return res
 
 
+# ---------------------------------------------------------------- stream
+
+CHUNK, LEFT_CHUNKS = 16, 4     # bin/stream_recognize's defaults: 640 ms
+PIECE_MS = 200
+# examples/aishell/conf/train_conformer_streaming.yaml's model_conf (causal
+# convs, dynamic chunks) with the static chunk that the offline reference
+# masks with, so that its offline forward is what the stream reproduces
+STREAM_MODEL_CONF = dict(FLAGSHIP_MODEL_CONF, causal=True,
+                         use_dynamic_chunk=True, static_chunk_size=CHUNK,
+                         num_left_chunks=LEFT_CHUNKS)
+# its training as JSON, with the smoke's batches and warmup, one epoch
+STREAM_TRAIN_CONFIG = dict(
+    TRAIN_CONFIG, max_epoch=1,
+    model_conf=dict(TRAIN_CONFIG["model_conf"], causal=True,
+                    use_dynamic_chunk=True))
+STREAM_TOL = (1e-3, 2e-4)   # rtol, atol: tests/test_streaming.py's
+
+
+def write_stream_config(compute_dtype: str) -> str:
+    cfg = {"model_conf": dict(STREAM_MODEL_CONF, compute_dtype=compute_dtype),
+           "vocab_size": VOCAB, "input_size": 80,
+           "collate_conf": {"feature_extraction_conf": {"mel_bins": 80},
+                            "normalization": True}}
+    path = os.path.join(WORK, f"stream_{compute_dtype}.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def manifest_wavs(manifest: str) -> dict:
+    """{key: x32768-scaled samples} of a manifest's wavs."""
+    out = {}
+    with open(manifest, encoding="utf-8") as f:
+        for line in f:
+            fields = dict(x.split(":", 1) for x in line.rstrip("\n")
+                          .split("\t"))
+            out[fields["utt"]] = read_wav(fields["feat"])[0] * 32768.0
+    return out
+
+
+def stream_wav(model, wav: np.ndarray, piece_ms: int = PIECE_MS,
+               **kw) -> StreamingRecognizer:
+    """One stream through StreamingRecognizer in piece_ms pieces, then
+    finish()."""
+    sr = StreamingRecognizer(model, chunk_size=CHUNK,
+                             num_left_chunks=LEFT_CHUNKS, **kw)
+    n = 16 * piece_ms
+    for i in range(0, len(wav), n):
+        sr.accept_waveform(wav[i:i + n])
+    sr.finish()
+    return sr
+
+
+def _within(got: torch.Tensor, ref: torch.Tensor, rtol: float,
+            atol: float) -> tuple[bool, float]:
+    err = (got.float() - ref.float()).abs()
+    return bool((err <= atol + rtol * ref.float().abs()).all()), \
+        float(err.max())
+
+
+def _frame_agreement(lp_ref: torch.Tensor, lp_got: torch.Tensor) -> dict:
+    """Frame argmax of lp_got [T, V] against lp_ref on the frames whose
+    top-2 margin in lp_ref exceeds 10 x the largest |lp_got - lp_ref|
+    (the others are near-ties that rounding may flip)."""
+    gap = float((lp_got - lp_ref).abs().max())
+    top2 = lp_ref.topk(2, dim=-1).values
+    sure = (top2[:, 0] - top2[:, 1]) > 10 * gap
+    agree = lp_got.argmax(-1) == lp_ref.argmax(-1)
+    return {"frames": int(lp_ref.shape[0]), "near_ties": int((~sure).sum()),
+            "disagreements": int((sure & ~agree).sum()), "lp_gap": gap}
+
+
+class K3Trace:
+    """Records (shape, dtype, route) of each depthwise_conv1d call that
+    the conv modules make, by wrapping the name they call; the wrapper's
+    own launch count is untouched."""
+
+    def __init__(self):
+        self.calls: list[tuple] = []
+        self._orig = conv_module.depthwise_conv1d
+
+    def __enter__(self):
+        def traced(x, w):
+            route = dw.device_plan(x, w.shape[0], dgrad=False).route
+            self.calls.append((tuple(x.shape), str(x.dtype).split(".")[-1],
+                               route))
+            return self._orig(x, w)
+        conv_module.depthwise_conv1d = traced
+        return self
+
+    def __exit__(self, *exc):
+        conv_module.depthwise_conv1d = self._orig
+
+
+def stream_checks(cfg_path: str, ckpt: str, manifest: str) -> dict:
+    """The streaming path on the card, float32, full width, seeded random
+    weights, c = 16 with 4 left chunks, 200 ms pieces:
+    - for 4 of the decode wavs, the encoder rows StreamingRecognizer
+      collects match the offline chunk-masked encode of the same model
+      on the card (host fbank of the whole wav) within rtol 1e-3 / atol
+      2e-4, and the streamed greedy result is the offline greedy result
+      (frame argmax equal wherever the top-2 margin exceeds 10 x the
+      measured log-prob gap; tokens equal when no frame is that close);
+      K3 runs 12 times per chunk step, at [1, 30, 256] float32, by TMA;
+    - one stream's encoder rows on the card against the CPU (plain
+      kernels) within ENC_TOL;
+    - StreamingBatch at S = 8 over all 16 wavs, ragged (two piece sizes,
+      16 streams through 8 slots, so slots are reused), against 16
+      sequential S = 1 runs: the same frame-argmax rule and tokens,
+      encoder rows within rtol 1e-3 / atol 2e-4, 12 K3 launches a step."""
+    cfg = json.load(open(cfg_path))
+    gpu = recognize.load_model(cfg, ckpt, VOCAB, torch.device("cuda"))
+    cpu = recognize.load_model(cfg, ckpt, VOCAB, torch.device("cpu"))
+    wavs = manifest_wavs(manifest)
+    keys = sorted(wavs)
+    rtol, atol = STREAM_TOL
+    # K3's input on the chunk step: the conv cache, then the chunk
+    chunk_shape = (1, gpu.cnn_module_kernel - 1 + CHUNK, gpu.d_model)
+    out = {"streamed_vs_offline": []}
+    with torch.inference_mode():
+        for key in keys[:4]:
+            wav = wavs[key]
+            dw.depthwise_conv1d.launches = 0
+            with K3Trace() as trace:
+                sr = stream_wav(gpu, wav, collect_encoder_out=True)
+            launches = dw.depthwise_conv1d.launches
+            steps = sr.offset // CHUNK
+            streamed = torch.from_numpy(np.concatenate(sr.enc_chunks)).cuda()
+            t = streamed.shape[0]
+            feats, flens = fbank_mod.fbank(
+                torch.from_numpy(wav.astype(np.float32))[None],
+                torch.tensor([len(wav)]))
+            enc, lens = gpu.encode(feats.cuda(), flens.cuda())
+            ok, err = _within(streamed, enc[0, :t], rtol, atol)
+            lp_ref = gpu.ctc_log_probs(enc[:, :t])[0]
+            agree = _frame_agreement(lp_ref, gpu.ctc_log_probs(
+                streamed[None])[0])
+            hyp, hyp_len = ctc_greedy_search(lp_ref[None],
+                                             torch.tensor([t]).cuda())
+            offline = hyp[0, :hyp_len[0]].tolist()
+            row = {"key": key, "seconds": len(wav) / 16000, "rows": t,
+                   "offline_rows": int(lens[0]), "chunk_steps": steps,
+                   "k3_launches": launches,
+                   "k3_shapes": sorted({c[:2] for c in trace.calls}),
+                   "k3_routes": sorted({c[2] for c in trace.calls}),
+                   "max_abs_err": err, "within_tol": ok,
+                   "tokens": len(sr.result()),
+                   "tokens_equal": sr.result() == offline, **agree}
+            out["streamed_vs_offline"].append(row)
+            print("stream_vs_offline " + json.dumps(row), flush=True)
+            if not ok or t != int(lens[0]) or agree["disagreements"] \
+                    or (not agree["near_ties"] and not row["tokens_equal"]):
+                raise AssertionError(f"streamed encoder differs from the "
+                                     f"offline chunk-masked one: {row}")
+            if launches != 12 * steps or len(trace.calls) != launches \
+                    or row["k3_routes"] != ["tma"] \
+                    or row["k3_shapes"] != [(chunk_shape, "float32")]:
+                raise AssertionError(f"K3 on the chunk step: {row}")
+
+        wav = wavs[keys[0]]
+        g = stream_wav(gpu, wav, collect_encoder_out=True)
+        c = stream_wav(cpu, wav, collect_encoder_out=True)
+        err = float(np.abs(np.concatenate(g.enc_chunks)
+                           - np.concatenate(c.enc_chunks)).max())
+        out["gpu_vs_cpu"] = {"key": keys[0], "max_abs_err": err,
+                             "tokens_equal": g.result() == c.result()}
+        if err > ENC_TOL:
+            raise AssertionError(f"stream GPU vs CPU: {out['gpu_vs_cpu']}")
+
+        seq = {}
+        for key in keys:
+            sr = stream_wav(gpu, wavs[key], collect_encoder_out=True)
+            seq[key] = (sr.result(), np.concatenate(sr.enc_chunks))
+        batch = StreamingBatch(gpu, slots=8, chunk_size=CHUNK,
+                               num_left_chunks=LEFT_CHUNKS, beam_size=BEAM,
+                               max_hyp_len=MAX_HYP_LEN)
+        n_steps = [0]
+        step = batch._step
+
+        def counted(*args):
+            n_steps[0] += 1
+            return step(*args)
+
+        batch._step = counted
+        dw.depthwise_conv1d.launches = 0
+        pending, live, got, slots_used = list(keys), [], {}, {}
+        while pending or live:
+            while pending and len(live) < 8:
+                key = pending.pop(0)
+                h = batch.open()
+                slots_used.setdefault(h.slot, []).append(key)
+                live.append([h, key, 0, 16 * (200 if h.slot % 2 else 130)])
+            for ent in live:
+                h, key, pos, n = ent
+                batch.accept(h, wavs[key][pos:pos + n])
+                ent[2] = pos + n
+            batch.run_ready()
+            still = []
+            for ent in live:
+                h, key, pos, _ = ent
+                if pos < len(wavs[key]):
+                    still.append(ent)
+                    continue
+                got[key] = (batch.finish(h, rescore=False),
+                            batch.encoder_out(h))
+                batch.close(h)
+            live = still
+        rows = []
+        for key in keys:
+            ref_toks, ref_enc = seq[key]
+            toks, enc = got[key]
+            ok, err = _within(torch.from_numpy(enc), torch.from_numpy(ref_enc),
+                              rtol, atol)
+            agree = _frame_agreement(
+                gpu.ctc_log_probs(torch.from_numpy(ref_enc).cuda()[None])[0],
+                gpu.ctc_log_probs(torch.from_numpy(enc).cuda()[None])[0])
+            rows.append({"key": key, "tokens_equal": toks == ref_toks,
+                         "rows_equal_count": enc.shape == ref_enc.shape,
+                         "max_abs_err": err, "within_tol": ok, **agree})
+        out["batch_vs_sequential"] = {
+            "slots": 8, "streams": len(keys), "steps": n_steps[0],
+            "k3_launches": dw.depthwise_conv1d.launches,
+            "slots_reused": sum(len(v) > 1 for v in slots_used.values()),
+            "streams_tokens_equal": sum(r["tokens_equal"] for r in rows),
+            "near_tie_frames": sum(r["near_ties"] for r in rows),
+            "max_abs_err": max(r["max_abs_err"] for r in rows)}
+        print("stream_batch " + json.dumps(out["batch_vs_sequential"]),
+              flush=True)
+        bad = [r for r in rows
+               if not (r["within_tol"] and r["rows_equal_count"])
+               or r["disagreements"]
+               or (not r["near_ties"] and not r["tokens_equal"])]
+        res = out["batch_vs_sequential"]
+        if bad or res["k3_launches"] != 12 * res["steps"] \
+                or not res["slots_reused"]:
+            raise AssertionError(f"S = 8 batch vs sequential: {res} {bad}")
+        out["batch_rows"] = rows
+    return out
+
+
+def stream_cli_runs(cfg32: str, cfg16: str, ckpt: str, manifest: str,
+                    dict_path: str, t_enc: dict) -> list:
+    """bin/stream_recognize on cuda over the 16 decode wavs, with
+    --timestamp_file: --slots 1 greedy (piece latencies) and --slots 8
+    attention_rescoring (aggregate x-realtime), in float32 and in
+    bfloat16. K3's count is set to 0 before each run and read after;
+    every key is written, the timestamps are sane, K3 ran 12 times per
+    chunk step (S = 1: one step per 16 encoder positions, each stream's
+    last one short)."""
+    keys = {f"utt{i:03d}" for i in range(N_UTTS)}
+    s1_steps = sum(math.ceil(t / CHUNK) for t in t_enc.values())
+    runs = []
+    for tag, cfg, extra in (
+            ("stream_s1_greedy", cfg32,
+             ["--slots", "1", "--final_mode", "ctc_greedy_search"]),
+            ("stream_s8_rescoring", cfg32,
+             ["--slots", "8", "--final_mode", "attention_rescoring",
+              "--reverse_weight", "0.3", "--beam_size", str(BEAM)]),
+            ("stream_s1_greedy_bf16", cfg16,
+             ["--slots", "1", "--final_mode", "ctc_greedy_search"]),
+            ("stream_s8_rescoring_bf16", cfg16,
+             ["--slots", "8", "--final_mode", "attention_rescoring",
+              "--reverse_weight", "0.3", "--beam_size", str(BEAM)])):
+        out = os.path.join(WORK, f"hyp_{tag}.txt")
+        ts = os.path.join(WORK, f"ts_{tag}.jsonl")
+        dw.depthwise_conv1d.launches = 0
+        stats = stream_recognize.main(
+            ["--config", cfg, "--checkpoint", ckpt, "--test_data", manifest,
+             "--dict", dict_path, "--result_file", out, "--timestamp_file",
+             ts, "--device", "cuda", *extra])
+        launches = dw.depthwise_conv1d.launches
+        with open(out, encoding="utf-8") as f:
+            hyps = dict((line.rstrip("\n").split(" ", 1) + [""])[:2]
+                        for line in f)
+        with open(ts, encoding="utf-8") as f:
+            rows = [json.loads(line) for line in f]
+        steps = launches // 12
+        run = {"run": tag, "k3_launches": launches, "chunk_steps": steps,
+               "s_per_chunk_step": stats["wall_s"] / max(steps, 1),
+               "rtf": stats["wall_s"] / stats["audio_s"], **stats,
+               "timestamps": check_timestamps(tag, rows, hyps, t_enc),
+               "nonempty_hyps": sum(bool(v) for v in hyps.values())}
+        runs.append(run)
+        print("stream_cli " + json.dumps(run), flush=True)
+        if set(hyps) != keys or launches % 12 \
+                or ("_s1_" in tag and steps != s1_steps):
+            raise AssertionError(f"{tag}: keys {sorted(hyps)}, K3 "
+                                 f"{launches}, expected 12 x {s1_steps} "
+                                 f"steps at S = 1")
+    return runs
+
+
+def stream_idle(cfg_path: str, ckpt: str, manifest: str) -> dict:
+    """The device's idle share over profiled chunk steps (torch.profiler):
+    one 200 ms-piece S = 1 stream of the longest wav, and one S = 8 batch
+    of 8 wavs whose audio is all in before its steps run; host clock
+    around each, synchronized."""
+    from torch.profiler import ProfilerActivity, profile
+    model = recognize.load_model(json.load(open(cfg_path)), ckpt, VOCAB,
+                                 torch.device("cuda"))
+    wavs = manifest_wavs(manifest)
+    keys = sorted(wavs, key=lambda k: -len(wavs[k]))
+    out = {}
+
+    def s1():
+        return stream_wav(model, wavs[keys[0]]).offset // CHUNK
+
+    def s8():
+        batch = StreamingBatch(model, slots=8, chunk_size=CHUNK,
+                               num_left_chunks=LEFT_CHUNKS, beam_size=BEAM,
+                               max_hyp_len=MAX_HYP_LEN)
+        hs = [batch.open() for _ in range(8)]
+        for h, key in zip(hs, keys[:8]):
+            batch.accept(h, wavs[key])
+        batch.run_ready()
+        return int(batch._offset_host.max()) // CHUNK
+
+    with torch.inference_mode():
+        for name, fn in (("s1", s1), ("s8", s8)):
+            fn()   # warm-up
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                steps = fn()
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+            busy = _device_busy_us(prof)
+            host_ops = sum(1 for e in prof.events() if e.cpu_parent is None
+                           and e.name.startswith("aten::"))
+            out[name] = {"chunk_steps": steps,
+                         "profiled_wall_s": wall_us / 1e6,
+                         "s_per_chunk_step": wall_us / 1e6 / steps,
+                         "host_ops_per_chunk_step": host_ops / steps,
+                         "device_busy_s": busy / 1e6,
+                         "device_idle_share": (1.0 - busy / wall_us
+                                               if busy else None)}
+        # the S = 8 step's two halves, host clock around synchronized
+        # work: encode_chunk with the CTC head, and the c prefix-beam
+        # frames the step carries
+        s, dev = 8, next(model.parameters()).device
+        k, v, cnn = zero_caches(model, s, LEFT_CHUNKS * CHUNK, dev)
+        win = torch.randn((s, 4 * CHUNK + 3, 80), device=dev)
+        offset = torch.zeros((s,), dtype=torch.long, device=dev)
+        valid = torch.full((s,), CHUNK, device=dev)
+        lp = torch.randn((s, CHUNK, VOCAB), device=dev).log_softmax(-1)
+
+        def encode():
+            enc = model.encode_chunk(win, offset, k, v, offset, cnn, valid)[0]
+            model.ctc_log_probs(enc).argmax(-1)
+
+        def beam():
+            st = prefix_beam_init(s, BEAM, MAX_HYP_LEN, dev, True)
+            for i in range(CHUNK):
+                prefix_beam_step(st, lp[:, i], valid > i, 0, offset + i)
+
+        for name, fn in (("encode_s", encode), ("beam_s", beam)):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+            out["s8"][name + "_per_chunk_step"] = \
+                (time.perf_counter() - t0) / 5
+    return out
+
+
+def stream_training(train_data: str, cv_data: str, dict_path: str) -> dict:
+    """bin.train on cuda with the streaming config (causal,
+    use_dynamic_chunk, bf16) for one epoch; finite losses and the launch
+    counts of check_train_counts; then bin/stream_recognize --slots 4 of
+    the cv set from epoch_1.pt (no quality threshold)."""
+    cfg_path = os.path.join(WORK, "train_conformer_streaming.json")
+    with open(cfg_path, "w") as f:
+        json.dump(STREAM_TRAIN_CONFIG, f)
+    exp = os.path.join(WORK, "exp_stream")
+    n_cv = len(AudioDataset(cv_data, load_dict(dict_path),
+                            batch_type="dynamic", max_frames_in_batch=10000))
+    _reset_counts()
+    t0 = time.perf_counter()
+    state = train_cli.main(["--config", cfg_path, "--train_data", train_data,
+                            "--cv_data", cv_data, "--dict", dict_path,
+                            "--exp_dir", exp, "--device", "cuda",
+                            "--num_workers", "4"])
+    torch.cuda.synchronize()
+    counts = _counts()
+    out = {"train_wall_s": time.perf_counter() - t0, "steps": state.step,
+           "launches": counts}
+    with open(os.path.join(exp, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    out["step_losses"] = [r["loss"] for r in records if r["kind"] == "train"]
+    out["cv"] = [r for r in records if r["kind"] == "epoch"]
+    if len(out["step_losses"]) != state.step or not all(
+            math.isfinite(x) for x in out["step_losses"]):
+        raise AssertionError(f"streaming training losses: {records}")
+    check_train_counts({"n_train_steps": state.step, "n_cv_batches": n_cv},
+                       counts, decode_batches=0)
+    hyp = os.path.join(WORK, "hyp_stream_trained.txt")
+    dw.depthwise_conv1d.launches = 0
+    stats = stream_recognize.main([
+        "--config", os.path.join(exp, "train.json"), "--checkpoint",
+        os.path.join(exp, "epoch_1.pt"), "--test_data", cv_data, "--dict",
+        dict_path, "--result_file", hyp, "--slots", "4", "--device", "cuda"])
+    with open(hyp, encoding="utf-8") as f:
+        out["decoded"] = sum(1 for _ in f)
+    out["decode"] = dict(stats, k3_launches=dw.depthwise_conv1d.launches)
+    if out["decoded"] != N_CV:
+        raise AssertionError(f"stream_recognize wrote {out['decoded']} lines")
+    return out
+
+
 # ---------------------------------------------------------------- timing 2
 
 def event_ms(fn, reps: int = 5) -> float:
@@ -1271,9 +1720,9 @@ def run_training(train_data: str, cv_data: str, dict_path: str) -> dict:
     return out
 
 
-def check_train_counts(run: dict, counts: dict) -> None:
+def check_train_counts(run: dict, counts: dict,
+                       decode_batches: int = 1) -> None:
     steps, cv = run["n_train_steps"], run["n_cv_batches"]
-    decode_batches = 1
     want = {"depthwise_conv1d": 12 * (steps + cv + decode_batches),
             "depthwise_conv1d_dgrad": 12 * steps,
             "depthwise_conv1d_wgrad": 12 * steps}
@@ -1281,7 +1730,8 @@ def check_train_counts(run: dict, counts: dict) -> None:
         if counts[name] != n:
             raise AssertionError(f"{name} launched {counts[name]} times, "
                                  f"expected {n} ({steps} train steps, {cv} "
-                                 f"cv batches, 1 decoded batch): {counts}")
+                                 f"cv batches, {decode_batches} decoded "
+                                 f"batches): {counts}")
     n_ctc = counts["ctc_dp_shared"] + counts["ctc_dp_global"]
     if n_ctc != steps + cv or not counts["ctc_dp_shared"] \
             or not counts["ctc_dp_global"]:
@@ -1512,6 +1962,18 @@ def main() -> None:
                 row = kernel_case(*shape, dtype, gen)
                 rows.append(row)
                 print("K3 " + json.dumps(row), flush=True)
+        # the streaming chunk step's shapes, [S, K - 1 + c, 256]: the
+        # conv cache in front of the chunk, by TMA and bit-equal to the
+        # plain version in both dtypes
+        chunk_rows = []
+        for shape in ((1, 14 + CHUNK, 256, 15), (8, 14 + CHUNK, 256, 15)):
+            for dtype in (torch.float32, torch.bfloat16):
+                row = kernel_case(*shape, dtype, gen, exact=True)
+                if row["route"] != "tma":
+                    raise AssertionError(f"chunk shape not by TMA: {row}")
+                chunk_rows.append(row)
+                print("K3 chunk " + json.dumps(row), flush=True)
+        report["k3_chunk_cases"] = chunk_rows
         # the element-load route: odd C in bfloat16, a 2-byte-offset input
         for shape, offset in (((3, 40, 99, 7), False),
                               ((2, 40, 256, 7), True)):
@@ -1632,6 +2094,42 @@ def main() -> None:
                                       cv_data, dict_path)
         print("recipe " + json.dumps({k: v for k, v in report["recipe"].items()
                                       if k != "decodes"}), flush=True)
+
+        # ---- slice 7: streaming through its entry points
+        cfg_s32 = write_stream_config("float32")
+        cfg_s16 = write_stream_config("bfloat16")
+        ckpt_s = os.path.join(WORK, "stream_model.pt")
+        torch.save(random_model_state(
+            torch.Generator().manual_seed(SEED + 7), STREAM_MODEL_CONF),
+            ckpt_s)
+        t0 = time.perf_counter()
+        report["stream"] = stream_checks(cfg_s32, ckpt_s, manifest)
+        report["stream"]["checks_wall_s"] = time.perf_counter() - t0
+        with K3Trace() as trace:
+            report["stream_cli"] = stream_cli_runs(
+                cfg_s32, cfg_s16, ckpt_s, manifest, dict_path, t_enc)
+        stream_launches = sum(r["k3_launches"]
+                              for r in report["stream_cli"])
+        chunk_tally = Counter(c[:2] for c in trace.calls)
+        routes = Counter(c[2] for c in trace.calls)
+        if sum(chunk_tally.values()) != stream_launches \
+                or set(routes) != {"tma"}:
+            raise AssertionError(f"K3 trace {chunk_tally} {routes} vs "
+                                 f"count {stream_launches}")
+        report["stream_k3_routes"] = dict(routes)
+        report["stream_k3_shapes"] = {f"{list(k[0])} {k[1]}": v
+                                      for k, v in chunk_tally.items()}
+        report["stream_idle"] = stream_idle(cfg_s32, ckpt_s, manifest)
+        print("stream_idle " + json.dumps(report["stream_idle"]), flush=True)
+        report["stream_training"] = stream_training(train_data, cv_data,
+                                                    dict_path)
+        print("stream_training " + json.dumps(
+            {k: v for k, v in report["stream_training"].items()
+             if k != "cv"}), flush=True)
+        stream_train_k3 = report["stream_training"]["launches"]
+        train_counts = {k: v + stream_train_k3[k]
+                        for k, v in train_counts.items()}
+
         report["train_step_gpu_vs_cpu"] = gpu_vs_cpu_step(train_data,
                                                           dict_path)
         print("train_step_gpu_vs_cpu "
@@ -1663,7 +2161,7 @@ def main() -> None:
         _kernel_row("depthwise_conv1d", "openeat_torch/csrc/depthwise_conv.cu",
                     "openeat_tpu/ops/depthwise_conv.py:39",
                     decode_launches + n["depthwise_conv1d"]
-                    + report["recipe"]["k3_launches"], k3),
+                    + report["recipe"]["k3_launches"] + stream_launches, k3),
         _kernel_row("depthwise_conv1d_dgrad",
                     "openeat_torch/csrc/depthwise_conv.cu",
                     "openeat_tpu/ops/depthwise_conv.py:114",
@@ -1682,6 +2180,17 @@ def main() -> None:
     for row, case in ((kernels[3], train_ctc("shared")),
                       (kernels[4], train_ctc("global"))):
         row["chain_bound_ms"] = case["chain_bound_ms"]
+    # K3 at the streaming chunk step's shapes: launches are those of the
+    # stream_recognize runs at that shape and dtype
+    for case in chunk_rows:
+        shape = f"{case['shape']} {case['dtype']}"
+        kernels.append(dict(
+            _kernel_row("depthwise_conv1d", "openeat_torch/csrc/"
+                        "depthwise_conv.cu",
+                        "openeat_tpu/ops/depthwise_conv.py:39",
+                        report["stream_k3_shapes"].get(shape, 0), case),
+            shape=case["shape"], dtype=case["dtype"],
+            copy_ms=case["copy_ms"]))
     report["kernels"] = kernels
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)

@@ -7,8 +7,12 @@ Adam with WarmupLR, grad clip and the non-finite skip), then cv, then
 the checkpoint `epoch_N.pt` with its info `epoch_N.json`, and the
 rolling `optimizer.pt` that makes `--checkpoint exp/epoch_N.pt` resume
 exactly. The resolved config is written as `train.json`, which
-openeat_torch.bin.recognize reads (JSON: the port does not depend on
-PyYAML; the JAX trainer writes `.yaml`).
+openeat_torch.bin.recognize and bin.stream_recognize read (JSON: the
+port does not depend on PyYAML; the JAX trainer writes `.yaml`). A
+streaming config trains as the JAX trainer trains it: static chunk
+masks throughout, or with use_dynamic_chunk a chunk size drawn per
+batch from the epoch's dropout generator in training, the cv pass
+full-context.
 
 Refused with NotImplementedError, each naming the slice that brings it:
 --bpe_model, --data_type feat/kaldi, --dp/--tp other than 1,

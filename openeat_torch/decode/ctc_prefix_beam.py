@@ -6,7 +6,9 @@ Each frame expands K prefixes into K "stay" candidates (blank or the
 repeated last token) and K*C extensions by the frame's top-C tokens,
 merges equal prefixes, which are found by sorting on two independent
 32-bit rolling hashes, by log-adding their masses, and keeps the best K.
-Frames past an utterance's length are identity steps.
+Frames past an utterance's length are identity steps. The streaming
+runtimes carry a BeamState across chunks: prefix_beam_init, one
+prefix_beam_step per frame, prefix_beam_finalize at the end.
 
 Matching the JAX search bit for bit takes:
 - the uint32 hashes, which wrap mod 2**32, kept in int64 and masked with
@@ -19,6 +21,8 @@ Matching the JAX search bit for bit takes:
 """
 
 from __future__ import annotations
+
+import copy
 
 import torch
 
@@ -97,12 +101,52 @@ class BeamState:
         self.times = torch.zeros((batch, k, max_hyp_len), **i64) \
             if with_times else None
 
+    FIELDS = ("prefixes", "lens", "last", "h1", "h2", "pb", "pnb", "times")
+
+    def rows(self, idx: torch.Tensor) -> "BeamState":
+        """A state of the utterances `idx` [N] of this one."""
+        out = copy.copy(self)
+        for f in self.FIELDS:
+            v = getattr(self, f)
+            setattr(out, f, None if v is None else v[idx])
+        return out
+
+    def keep_where(self, mask: torch.Tensor, other: "BeamState") -> None:
+        """In place: keep the rows where mask [B] is True, take the
+        other state's rows elsewhere."""
+        for f in self.FIELDS:
+            v = getattr(self, f)
+            if v is not None:
+                m = mask.view((-1,) + (1,) * (v.dim() - 1))
+                setattr(self, f, torch.where(m, v, getattr(other, f)))
+
+
+def prefix_beam_init(batch: int, beam_size: int, max_hyp_len: int, device,
+                     with_times: bool = False) -> BeamState:
+    """Empty-prefix beams for `batch` utterances: the state a stream
+    carries from chunk to chunk."""
+    return BeamState(batch, beam_size, max_hyp_len, device, with_times)
+
+
+def prefix_beam_finalize(st: BeamState, with_times: bool = False):
+    """(prefixes [B, K, L], lens [B, K], scores [B, K]) best first (a
+    stable sort: ties keep beam order, as jnp.argsort); with_times
+    appends the emission frames [B, K, L]."""
+    scores = _logaddexp(st.pb, st.pnb)
+    _, order = torch.sort(-scores, dim=1, stable=True)
+    rows = order[..., None].expand(-1, -1, st.prefixes.shape[2])
+    out = (st.prefixes.gather(1, rows), st.lens.gather(1, order),
+           scores.gather(1, order))
+    return out + (st.times.gather(1, rows),) if with_times else out
+
 
 def prefix_beam_step(st: BeamState, lp: torch.Tensor, active: torch.Tensor,
-                     blank_id: int = 0, frame_idx: int = 0) -> None:
+                     blank_id: int = 0,
+                     frame_idx: int | torch.Tensor = 0) -> None:
     """One frame for every utterance, in place. lp: [B, V] log-probs;
     active: [B] bool, False makes the frame an identity step; frame_idx
-    is recorded as the time of the tokens this frame appends."""
+    (an int, or [B] for one per utterance) is recorded as the time of
+    the tokens this frame appends."""
     b, k, max_len = st.prefixes.shape
     c = k  # first-stage prune width
     n_cand = k * (c + 1)
@@ -183,6 +227,8 @@ def prefix_beam_step(st: BeamState, lp: torch.Tensor, active: torch.Tensor,
     cur = prefixes.gather(2, pos)[..., 0]
     prefixes.scatter_(2, pos, torch.where(extend, tok, cur)[..., None])
     if st.times is not None:
+        if isinstance(frame_idx, torch.Tensor):
+            frame_idx = frame_idx.view(-1, 1)
         times = st.times.gather(1, parent[..., None].expand(-1, -1, max_len))
         cur_t = times.gather(2, pos)[..., 0]
         times.scatter_(2, pos,
@@ -207,13 +253,8 @@ def ctc_prefix_beam_search(ctc_log_probs: torch.Tensor, lens: torch.Tensor,
     [B, K], scores [B, K]), best first; return_times appends each
     token's emission frame [B, K, max_hyp_len] (the onset convention)."""
     b, t_max, _ = ctc_log_probs.shape
-    st = BeamState(b, beam_size, max_hyp_len, ctc_log_probs.device,
-                   return_times)
+    st = prefix_beam_init(b, beam_size, max_hyp_len, ctc_log_probs.device,
+                          return_times)
     for t in range(t_max):
         prefix_beam_step(st, ctc_log_probs[:, t], t < lens, blank_id, t)
-    scores = _logaddexp(st.pb, st.pnb)
-    _, order = torch.sort(-scores, dim=1, stable=True)
-    rows = order[..., None].expand(-1, -1, max_hyp_len)
-    out = (st.prefixes.gather(1, rows), st.lens.gather(1, order),
-           scores.gather(1, order))
-    return out + (st.times.gather(1, rows),) if return_times else out
+    return prefix_beam_finalize(st, return_times)

@@ -2,9 +2,11 @@
 Port of openeat_tpu/models/asr_model.py: build_asr_model, the training
 forward with its joint loss (ctc_weight * CTC + (1 - ctc_weight) *
 label-smoothed attention loss, the right-to-left decoder at
-reverse_weight), and the decode methods encode, ctc_log_probs,
-decoder_logits and the KV-cache pair decoder_init_cache / decoder_step;
-sos = eos = vocab_size - 1.
+reverse_weight), and the decode methods encode, the streaming step
+encode_chunk, ctc_log_probs, decoder_logits and the KV-cache pair
+decoder_init_cache / decoder_step; sos = eos = vocab_size - 1. The
+encoder's chunk masks (static_chunk_size, num_left_chunks,
+use_dynamic_chunk) are those of the JAX model.
 
 `compute_dtype` sets the activations' dtype; parameters stay float32 and
 are cast at use, as flax does, so bfloat16 compute trains float32
@@ -45,9 +47,6 @@ _NOT_PORTED = {
     "encoder_use_adapter": (False, "a later slice (adapters)"),
     "decoder_use_adapter": (False, "a later slice (adapters)"),
     "moe_experts": (0, "the parallel-layout slice (mixture of experts)"),
-    "static_chunk_size": (0, "the streaming slice (chunked attention)"),
-    "use_dynamic_chunk": (False,
-                          "the streaming slice (dynamic chunk training)"),
 }
 
 
@@ -82,10 +81,18 @@ class ASRModel(nn.Module):
                  positional_dropout_rate: float = 0.0,
                  ctc_weight: float = 0.3, lsm_weight: float = 0.1,
                  reverse_weight: float = 0.0,
-                 length_normalized_loss: bool = False):
+                 length_normalized_loss: bool = False,
+                 static_chunk_size: int = 0, num_left_chunks: int = -1,
+                 use_dynamic_chunk: bool = False):
         super().__init__()
         act = get_activation(activation_type)
+        self.input_size = input_size
         self.vocab_size = vocab_size
+        self.d_model = d_model
+        self.attention_heads = attention_heads
+        self.encoder_num_blocks = encoder_num_blocks
+        self.cnn_module_kernel = cnn_module_kernel
+        self.causal = causal
         self.compute_dtype = compute_dtype
         self.ctc_weight = ctc_weight
         self.lsm_weight = lsm_weight
@@ -96,7 +103,8 @@ class ASRModel(nn.Module):
             pos_enc_layer_type, macaron_style, use_cnn_module,
             cnn_module_kernel, causal, encoder_num_blocks,
             encoder_num_blocks_share, use_global_cmvn, compute_dtype,
-            dropout_rate, positional_dropout_rate)
+            dropout_rate, positional_dropout_rate, static_chunk_size,
+            num_left_chunks, use_dynamic_chunk)
         self.ctc = CTCHead(d_model, vocab_size, compute_dtype,
                            length_normalized_loss)
         self.decoder = BiTransformerDecoder(
@@ -116,11 +124,15 @@ class ASRModel(nn.Module):
     # ---- training ----
 
     def forward(self, features: torch.Tensor, features_length: torch.Tensor,
-                targets: torch.Tensor, targets_length: torch.Tensor
+                targets: torch.Tensor, targets_length: torch.Tensor,
+                chunk_size: int | torch.Tensor | None = None
                 ) -> dict[str, torch.Tensor]:
         """Joint loss. Returns the metrics dict: loss, loss_ctc, and
-        loss_att and acc when ctc_weight < 1 (acc 0 otherwise)."""
-        encoder_out, out_lens, _ = self.encoder(features, features_length)
+        loss_att and acc when ctc_weight < 1 (acc 0 otherwise).
+        `chunk_size` replaces the dynamic chunk draw of a
+        use_dynamic_chunk model in training."""
+        encoder_out, out_lens, _ = self.encoder(features, features_length,
+                                                chunk_size)
         return self._joint_loss(encoder_out, out_lens, targets,
                                 targets_length)
 
@@ -175,6 +187,16 @@ class ASRModel(nn.Module):
         """(encoder_out [B, T', D] float32, out_lens [B])."""
         out, out_lens, _ = self.encoder(features, features_length)
         return out.float(), out_lens
+
+    @deterministic
+    def encode_chunk(self, feat_window, offset, k_caches, v_caches,
+                     cache_len, cnn_caches, valid_len=None):
+        """Streaming encoder step (TransformerEncoder.forward_chunk):
+        (chunk_out [B, c, D] float32, new_k, new_v, new_cnn)."""
+        out, k, v, c = self.encoder.forward_chunk(
+            feat_window, offset, k_caches, v_caches, cache_len, cnn_caches,
+            valid_len)
+        return out.float(), k, v, c
 
     def ctc_log_probs(self, encoder_out: torch.Tensor) -> torch.Tensor:
         return self.ctc.log_softmax(encoder_out.to(self.compute_dtype))
@@ -252,6 +274,9 @@ def build_asr_model(model_conf: dict, input_size: int, vocab_size: int,
         lsm_weight=mc.get("lsm_weight", 0.1),
         reverse_weight=mc.get("reverse_weight", 0.0),
         length_normalized_loss=mc.get("length_normalized_loss", False),
+        static_chunk_size=mc.get("static_chunk_size", 0),
+        num_left_chunks=mc.get("num_left_chunks", -1),
+        use_dynamic_chunk=mc.get("use_dynamic_chunk", False),
     )
 
 

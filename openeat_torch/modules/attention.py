@@ -6,8 +6,10 @@ before the softmax and zeroed after it (a fully masked query row gives
 0, not NaN), dropout (rate 0 unless set, as in the JAX modules) acts on
 the probabilities, and the rel-pos variant computes (q+u)k^T + (q+v)p^T as one
 product over the concatenated 2*d_k contraction, without rel_shift (the
-WeNet convention the JAX package keeps). These are plain matmuls: no
-Pallas kernel stands behind them in the JAX package.
+WeNet convention the JAX package keeps). Its `forward_chunk` is the
+streaming step: the chunk's queries attend over a right-aligned K/V
+history and the chunk's own keys and values. These are plain matmuls:
+no Pallas kernel stands behind them in the JAX package.
 """
 
 from __future__ import annotations
@@ -106,17 +108,38 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
     def forward(self, query, key, value, mask=None, pos_emb=None):
         if pos_emb is None:
             raise ValueError("rel-pos attention needs pos_emb")
+        k = self._split(self.linear_k(key))
+        v = self._split(self.linear_v(value))
+        return self.linear_out(_softmax_context(
+            self._scores(query, k, pos_emb), v, mask, self.attn_dropout))
+
+    def _scores(self, query: torch.Tensor, k: torch.Tensor,
+                pos_emb: torch.Tensor) -> torch.Tensor:
+        """Scaled float32 scores [B, H, Tq, Tk] of query [B, Tq, D]
+        against k [B, H, Tk, Dk] and pos_emb [1|B, Tk, D]."""
         q = self.linear_q(query)
         b, t, _ = q.shape
         q = q.view(b, t, self.h, self.d_k)
-        k = self._split(self.linear_k(key))
-        v = self._split(self.linear_v(value))
         p = self._split(self.linear_pos(pos_emb.to(q.dtype)))  # [1|B,H,T,D]
         u = self.pos_bias_u.to(q.dtype)
         vb = self.pos_bias_v.to(q.dtype)
         q2 = torch.cat([q + u, q + vb], dim=-1).transpose(1, 2)
         k2 = torch.cat([k, p.expand_as(k)], dim=-1)
-        scores = torch.matmul(q2, k2.transpose(-1, -2)).float() \
+        return torch.matmul(q2, k2.transpose(-1, -2)).float() \
             * self.d_k ** -0.5
-        return self.linear_out(_softmax_context(scores, v, mask,
-                                                self.attn_dropout))
+
+    def forward_chunk(self, x: torch.Tensor, k_cache: torch.Tensor,
+                      v_cache: torch.Tensor, kv_mask: torch.Tensor,
+                      pos_emb: torch.Tensor):
+        """Streaming chunk attention. x: [B, Tc, D]; k_cache, v_cache:
+        [B, Lc, H, Dk] right-aligned histories; kv_mask: bool [B, 1,
+        Lc+Tc], True = a valid slot; pos_emb: [1|B, Lc+Tc, D], the
+        absolute-position rows of the kv window (a masked slot's row may
+        be anything finite). Returns (out [B, Tc, D], k_new, v_new
+        [B, Tc, H, Dk]); the caller rolls k_new, v_new into the
+        histories."""
+        k_new, v_new = self.project_kv(x)
+        k = torch.cat([k_cache.to(k_new.dtype), k_new], dim=1).transpose(1, 2)
+        v = torch.cat([v_cache.to(v_new.dtype), v_new], dim=1).transpose(1, 2)
+        ctx = _softmax_context(self._scores(x, k, pos_emb), v, kv_mask, None)
+        return self.linear_out(ctx), k_new, v_new

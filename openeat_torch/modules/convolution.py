@@ -1,12 +1,15 @@
 """Conformer convolution module (PyTorch, [B, T, C] layout).
-Port of openeat_tpu/modules/convolution.py without the streaming cache.
+Port of openeat_tpu/modules/convolution.py, with its streaming cache.
 
 mask -> pointwise_conv1 -> GLU -> pad (causal: K-1 on the left, else
 (K-1)/2 on both sides) -> depthwise conv -> LayerNorm (eps 1e-5) ->
-activation -> pointwise_conv2 -> mask. The depthwise conv runs through
-kernel K3 (openeat_torch/ops/depthwise_conv.py) on the padded
-[B, T+K-1, C] input with taps w [K, C]; its bias is added outside the
-kernel.
+activation -> pointwise_conv2 -> mask. A streaming chunk of a causal
+module passes `cache` [B, K-1, C], the previous chunk's last K-1 GLU
+rows: they take the place of the left padding, and the call returns the
+chunk's own last K-1 rows as the next cache. The depthwise conv runs
+through kernel K3 (openeat_torch/ops/depthwise_conv.py) on the padded
+(or cache-led) [B, T+K-1, C] input with taps w [K, C]; its bias is added
+outside the kernel.
 """
 
 from __future__ import annotations
@@ -54,20 +57,31 @@ class ConvolutionModule(nn.Module):
         self.pointwise_conv2 = Dense(channels, channels, dtype=dtype)
 
     def forward(self, x: torch.Tensor,
-                mask_pad: torch.Tensor | None = None) -> torch.Tensor:
-        """x: [B, T, C]; mask_pad: bool [B, 1, T] or [B, T], True = valid."""
+                mask_pad: torch.Tensor | None = None,
+                cache: torch.Tensor | None = None):
+        """x: [B, T, C]; mask_pad: bool [B, 1, T] or [B, T], True = valid.
+        Returns y [B, T, C], or (y, new_cache [B, K-1, C]) when `cache`
+        is given (causal modules only)."""
         if mask_pad is not None:
             valid = mask_pad.reshape(x.shape[0], -1)[..., None]
             x = torch.where(valid, x, 0.0)
         x = F.glu(self.pointwise_conv1(x), dim=-1)
-        if self.causal:
-            pad = (self.kernel_size - 1, 0)
+        new_cache = None
+        if cache is not None:
+            if not self.causal:
+                raise ValueError("a conv cache needs a causal module")
+            x = torch.cat([cache.to(x.dtype), x], dim=1)
+            # its own tensor: a view would keep the whole chunk alive
+            new_cache = x[:, x.shape[1] - (self.kernel_size - 1):].clone()
         else:
-            half = (self.kernel_size - 1) // 2
-            pad = (half, half)
-        x = F.pad(x, (0, 0) + pad)
+            if self.causal:
+                pad = (self.kernel_size - 1, 0)
+            else:
+                half = (self.kernel_size - 1) // 2
+                pad = (half, half)
+            x = F.pad(x, (0, 0) + pad)
         x = self.depthwise_conv(x)
         x = self.pointwise_conv2(self.activation(self.norm(x)))
         if mask_pad is not None:
             x = torch.where(valid, x, 0.0)
-        return x
+        return x if new_cache is None else (x, new_cache)

@@ -5,8 +5,8 @@ byte per element and so realises a keep probability rounded to q/256
 (rate 0.1 keeps 230/256); this port keeps exactly 1 - rate and scales by
 1 / (1 - rate). A mask is drawn only in ``model.train()`` and only from
 the ``torch.Generator`` that :func:`set_generator` hands every Dropout
-of a model; training without one raises rather than touching the
-global RNG.
+of a model (and the encoder's dynamic chunk draw); training without one
+raises rather than touching the global RNG.
 """
 
 from __future__ import annotations
@@ -38,7 +38,9 @@ class Dropout(nn.Module):
 
 
 def set_generator(model: nn.Module, generator: torch.Generator | None) -> None:
-    """Point every Dropout in `model` at `generator`."""
+    """Point every module of `model` that draws in training at
+    `generator`: each Dropout, and the encoder's dynamic chunk draw
+    (the modules with a `generator` attribute)."""
     for m in model.modules():
-        if isinstance(m, Dropout):
+        if hasattr(m, "generator"):
             m.generator = generator

@@ -1,9 +1,18 @@
 """ASR encoder (PyTorch). Port of openeat_tpu/modules/encoder.py:
-TransformerEncoder.__call__ and its block stack.
+TransformerEncoder and its block stack, the streaming `forward_chunk`
+of both included.
 
 Optional GlobalCMVN -> conv2d x4 subsampling embed -> N blocks -> final
 LayerNorm (eps 1e-5). With num_blocks_share = s, num_blocks // s
 physical layers `layer_{i}` are each applied s times in a row.
+
+Chunk masks: `static_chunk_size` > 0 limits every query to its chunk
+and `num_left_chunks` chunks before it (-1: all of them);
+`use_dynamic_chunk` draws a chunk size per batch in training only, as
+the JAX encoder does: u uniform in [1, max(T, 2)), then T if u > T // 2
+(full context) else u % 25 + 1. The draw comes from `generator`, which
+openeat_torch.modules.dropout.set_generator points at the trainer's
+dropout generator.
 """
 
 from __future__ import annotations
@@ -14,11 +23,12 @@ import torch
 from torch import nn
 
 from openeat_torch.modules.cmvn import GlobalCMVN
-from openeat_torch.modules.embedding import POS_ENC_CLASSES
+from openeat_torch.modules.embedding import POS_ENC_CLASSES, sinusoid_table
 from openeat_torch.modules.encoder_layer import EncoderLayer
 from openeat_torch.modules.layers import LayerNorm
 from openeat_torch.modules.subsampling import Conv2dSubsampling4
-from openeat_torch.utils.mask import make_non_pad_mask
+from openeat_torch.utils.mask import (chunk_mask, dynamic_chunk_mask,
+                                      make_non_pad_mask)
 
 
 class Encoder(nn.Module):
@@ -39,12 +49,31 @@ class Encoder(nn.Module):
                 dtype, dropout_rate))
         self.after_norm = LayerNorm(d_model, 1e-5, dtype)
 
+    def applications(self) -> list[EncoderLayer]:
+        """The layers in the order they run, each shared layer repeated."""
+        return [getattr(self, f"layer_{i}") for i in range(self.num_layers)
+                for _ in range(self.num_blocks_share)]
+
     def forward(self, xs, mask, pos_emb, mask_pad=None):
-        for i in range(self.num_layers):
-            layer = getattr(self, f"layer_{i}")
-            for _ in range(self.num_blocks_share):
-                xs = layer(xs, mask, pos_emb, mask_pad)
+        for layer in self.applications():
+            xs = layer(xs, mask, pos_emb, mask_pad)
         return self.after_norm(xs)
+
+    def forward_chunk(self, xs, k_caches, v_caches, kv_mask, cnn_caches,
+                      pos_emb):
+        """Streaming step across the stack; the caches are sequences
+        with one entry per application. Returns (out, new_k, new_v,
+        new_cnn), the k/v entries being the chunk's own keys and values
+        for the caller to roll into the histories."""
+        new_k, new_v, new_cnn = [], [], []
+        for idx, layer in enumerate(self.applications()):
+            xs, k, v, c = layer.forward_chunk(
+                xs, k_caches[idx], v_caches[idx], kv_mask, cnn_caches[idx],
+                pos_emb)
+            new_k.append(k)
+            new_v.append(v)
+            new_cnn.append(c)
+        return self.after_norm(xs), new_k, new_v, new_cnn
 
 
 class TransformerEncoder(nn.Module):
@@ -57,9 +86,17 @@ class TransformerEncoder(nn.Module):
                  use_global_cmvn: bool = False,
                  dtype: torch.dtype = torch.float32,
                  dropout_rate: float = 0.0,
-                 positional_dropout_rate: float = 0.0):
+                 positional_dropout_rate: float = 0.0,
+                 static_chunk_size: int = 0, num_left_chunks: int = -1,
+                 use_dynamic_chunk: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.d_model = d_model
+        self.static_chunk_size = static_chunk_size
+        self.num_left_chunks = num_left_chunks
+        self.use_dynamic_chunk = use_dynamic_chunk
+        # the dynamic chunk draw's generator (set_generator sets it)
+        self.generator: torch.Generator | None = None
         if use_global_cmvn:
             self.global_cmvn = GlobalCMVN(input_size)
         self.use_global_cmvn = use_global_cmvn
@@ -73,12 +110,88 @@ class TransformerEncoder(nn.Module):
             macaron_style, use_cnn_module, cnn_module_kernel, causal,
             num_blocks, num_blocks_share, dtype, dropout_rate)
 
-    def forward(self, xs: torch.Tensor, xs_lens: torch.Tensor):
-        """xs: [B, T, F] features; xs_lens: [B].
+    def _chunk_mask(self, t: int, device: torch.device,
+                    chunk_size: int | None) -> torch.Tensor | None:
+        """[T, T] attention mask of the chunk settings, or None (full
+        context). `chunk_size` replaces the dynamic draw."""
+        if self.use_dynamic_chunk and self.training:
+            if chunk_size is None:
+                if self.generator is None:
+                    raise RuntimeError(
+                        "dynamic-chunk training needs a generator; call "
+                        "openeat_torch.modules.dropout.set_generator")
+                g = self.generator
+                u = torch.randint(1, max(t, 2), (), generator=g,
+                                  device=g.device)
+                chunk_size = torch.where(u > t // 2, t, u % 25 + 1)
+            return dynamic_chunk_mask(t, torch.as_tensor(chunk_size,
+                                                         device=device),
+                                      self.num_left_chunks)
+        if chunk_size is not None:
+            raise ValueError("chunk_size replaces the dynamic chunk draw, "
+                             "which only training with use_dynamic_chunk "
+                             "makes")
+        if self.static_chunk_size > 0:
+            return chunk_mask(t, self.static_chunk_size,
+                              self.num_left_chunks, device)
+        return None
+
+    def forward(self, xs: torch.Tensor, xs_lens: torch.Tensor,
+                chunk_size: int | torch.Tensor | None = None):
+        """xs: [B, T, F] features; xs_lens: [B]; chunk_size: the dynamic
+        chunk size to use in place of the training draw.
         Returns (encoder_out [B, T', D], out_lens [B], pos_emb [1, T', D])."""
         if self.use_global_cmvn:
             xs = self.global_cmvn(xs)
         xs, pos_emb, out_lens = self.embed(xs.to(self.dtype), xs_lens)
-        mask = make_non_pad_mask(out_lens, xs.shape[1])[:, None, :]
-        xs = self.encoders(xs, mask, pos_emb, mask)
+        mask_pad = make_non_pad_mask(out_lens, xs.shape[1])[:, None, :]
+        mask = mask_pad
+        cm = self._chunk_mask(xs.shape[1], xs.device, chunk_size)
+        if cm is not None:
+            mask = mask & cm[None]
+        xs = self.encoders(xs, mask, pos_emb, mask_pad)
         return xs, out_lens, pos_emb
+
+    def forward_chunk(self, feat_window: torch.Tensor,
+                      offset: int | torch.Tensor, k_caches, v_caches,
+                      cache_len: int | torch.Tensor, cnn_caches,
+                      valid_len: int | torch.Tensor | None = None):
+        """Streaming step on a raw feature window.
+
+        feat_window: [B, W, F] with W = 4c + 3 frames for c outputs of
+        the conv2d x4 subsampling; offset: the absolute output position
+        of the chunk's first frame; k_caches, v_caches: one [B, Lc, H,
+        Dk] right-aligned history per application, of which the last
+        cache_len slots are valid; cnn_caches: [B, K-1, D] each;
+        valid_len: the chunk's valid outputs (the final, zero-padded
+        chunk of a stream has fewer than c; None: all). offset,
+        cache_len and valid_len are ints, or tensors [B] with one value
+        per stream. Returns (chunk_out [B, c, D], new_k, new_v,
+        new_cnn)."""
+        if self.use_global_cmvn:
+            feat_window = self.global_cmvn(feat_window)
+        feat_window = feat_window.to(self.dtype)
+        b, w, _ = feat_window.shape
+        dev = feat_window.device
+        lens = torch.full((b,), w, dtype=torch.long, device=dev)
+        xs, _, _ = self.embed(feat_window, lens, offset)
+        t_chunk = xs.shape[1]
+        l_cache = k_caches[0].shape[1]
+
+        def per_row(v):
+            return v.view(-1, 1, 1) if isinstance(v, torch.Tensor) else v
+
+        if valid_len is None:
+            valid_len = t_chunk
+        slot = torch.arange(l_cache + t_chunk, device=dev)[None, None, :]
+        in_cache = (slot >= l_cache - per_row(cache_len)) & (slot < l_cache)
+        in_chunk = (slot >= l_cache) & (slot - l_cache < per_row(valid_len))
+        kv_mask = (in_cache | in_chunk).expand(b, 1, l_cache + t_chunk)
+        # slot i of the kv window holds absolute position
+        # offset - (l_cache - i): the offline forward's convention of a
+        # position row per key (no rel_shift)
+        pe = sinusoid_table(l_cache + t_chunk, self.d_model, xs.dtype, dev,
+                            offset - l_cache)
+        pos_emb = pe if pe.dim() == 3 else pe[None]
+        return self.encoders.forward_chunk(xs, k_caches, v_caches, kv_mask,
+                                           cnn_caches, pos_emb)

@@ -1,11 +1,13 @@
 """Conformer/Transformer encoder block (PyTorch).
-Port of openeat_tpu/modules/encoder_layer.py:EncoderLayer.__call__.
+Port of openeat_tpu/modules/encoder_layer.py:EncoderLayer, its
+streaming `forward_chunk` included.
 
 Pre-norm: half-scaled macaron FFN -> MHA -> convolution module -> FFN
 -> final LayerNorm when a conv module is present; LayerNorm eps 1e-12.
 Each branch's output passes dropout at dropout_rate before the residual
 add; attention probabilities drop at attention_dropout_rate (0.0 in the
-JAX modules).
+JAX modules). `forward_chunk` runs the same order on one chunk, with
+the attention's K/V history and the conv cache, and no dropout.
 """
 
 from __future__ import annotations
@@ -73,3 +75,23 @@ class EncoderLayer(nn.Module):
         if self.use_cnn_module:
             x = self.norm_final(x)
         return x
+
+    def forward_chunk(self, x: torch.Tensor, k_cache: torch.Tensor,
+                      v_cache: torch.Tensor, kv_mask: torch.Tensor,
+                      cnn_cache: torch.Tensor, pos_emb: torch.Tensor):
+        """Streaming step of a Conformer block. x: [B, Tc, D]; k_cache,
+        v_cache: [B, Lc, H, Dk] right-aligned histories; kv_mask: bool
+        [B, 1, Lc+Tc]; cnn_cache: [B, K-1, D]; pos_emb: [1|B, Lc+Tc, D].
+        Returns (y, k_new, v_new, new_cnn_cache)."""
+        if not self.use_cnn_module:
+            raise ValueError("streaming needs Conformer blocks")
+        if self.macaron_style:
+            x = x + self.ff_scale * self.feed_forward_macaron(
+                self.norm_ff_macaron(x))
+        h, k_new, v_new = self.self_attn.forward_chunk(
+            self.norm_mha(x), k_cache, v_cache, kv_mask, pos_emb)
+        x = x + h
+        h, new_cnn = self.conv_module(self.norm_conv(x), None, cnn_cache)
+        x = x + h
+        x = x + self.ff_scale * self.feed_forward(self.norm_ff(x))
+        return self.norm_final(x), k_new, v_new, new_cnn

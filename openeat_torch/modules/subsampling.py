@@ -35,12 +35,15 @@ class Conv2dSubsampling4(nn.Module):
         self.Dense_0 = Dense(f * d_model, d_model, dtype=dtype)
         self.pos_enc = pos_enc
 
-    def forward(self, x: torch.Tensor, lengths: torch.Tensor):
-        """x: [B, T, F] -> (x [B, T', d], pos_emb [1, T', d], lens [B])."""
+    def forward(self, x: torch.Tensor, lengths: torch.Tensor,
+                offset: int | torch.Tensor = 0):
+        """x: [B, T, F] -> (x [B, T', d], pos_emb [1, T', d], lens [B]);
+        the positional rows start at `offset` (a tensor [B]: one start
+        per row, and pos_emb [B, T', d])."""
         h = F.relu(self.Conv_0(x[:, None]))
         h = F.relu(self.Conv_1(h))                  # [B, C, T', F']
         b, c, t, f = h.shape
         h = h.permute(0, 2, 3, 1).reshape(b, t, f * c)
-        h, pos_emb = self.pos_enc(self.Dense_0(h))
+        h, pos_emb = self.pos_enc(self.Dense_0(h), offset)
         new_len = conv_out_len(conv_out_len(lengths, 3, 2), 3, 2)
         return h, pos_emb, new_len

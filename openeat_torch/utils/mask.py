@@ -1,7 +1,9 @@
 """Mask utilities (PyTorch). Port of openeat_tpu/utils/mask.py.
 
 Boolean masks are True where a position is VALID (may attend / is real
-data).
+data). The chunk masks are the streaming-style training masks: a query
+attends within its chunk and `num_left_chunks` chunks before it (-1:
+all of them).
 """
 
 from __future__ import annotations
@@ -15,6 +17,31 @@ def make_non_pad_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
     """True at valid (non-pad) positions; [B, max_len]."""
     pos = torch.arange(max_len, device=lengths.device)[None, :]
     return pos < lengths.long()[:, None]
+
+
+def chunk_mask(size: int, chunk_size: int, num_left_chunks: int = -1,
+               device=None) -> torch.Tensor:
+    """[size, size] bool chunked-attention mask for a fixed chunk size."""
+    pos = torch.arange(size, device=device)
+    q, k = (pos // chunk_size)[:, None], (pos // chunk_size)[None, :]
+    m = k <= q
+    if num_left_chunks >= 0:
+        m = m & (k >= q - num_left_chunks)
+    return m
+
+
+def dynamic_chunk_mask(size: int, chunk_size: torch.Tensor | int,
+                       num_left_chunks: torch.Tensor | int = -1
+                       ) -> torch.Tensor:
+    """chunk_mask with the chunk size (clamped to >= 1) and the left
+    chunks given as tensors, so a chunk size drawn on the device builds
+    its mask without a host sync."""
+    cs = torch.clamp(torch.as_tensor(chunk_size), min=1)
+    pos = torch.arange(size, device=cs.device)
+    q, k = (pos // cs)[:, None], (pos // cs)[None, :]
+    m = k <= q
+    left = torch.as_tensor(num_left_chunks, device=cs.device)
+    return torch.where(left >= 0, m & (k >= q - left), m)
 
 
 def make_attn_mask(lengths: torch.Tensor, max_len: int,

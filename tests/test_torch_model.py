@@ -97,8 +97,8 @@ def test_bridge_owns_the_depthwise_layout():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="streaming"):
-        build_asr_model(dict(TINY_CONF, static_chunk_size=4), FEAT_DIM,
+    with pytest.raises(NotImplementedError, match="adapters"):
+        build_asr_model(dict(TINY_CONF, encoder_use_adapter=True), FEAT_DIM,
                         VOCAB)
     with pytest.raises(NotImplementedError, match="parallel"):
         build_asr_model(dict(TINY_CONF, moe_experts=4), FEAT_DIM, VOCAB)

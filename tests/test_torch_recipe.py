@@ -9,8 +9,8 @@
   <dst>.pt and <dst>.json;
 - corpus_wer against JAX's on strings drawn by hypothesis, in char and
   word mode, with the per-cluster split and the verbose alignment;
-- model_conf use_dynamic_chunk is refused by build_asr_model and by
-  bin.train, not silently trained as a full-context model.
+- model_conf use_dynamic_chunk builds and bin.train trains it (the
+  streaming slice ported it; it was refused before).
 """
 
 import io
@@ -144,16 +144,30 @@ def test_corpus_wer_matches_jax(pairs, char_mode, case_sensitive):
 
 
 def test_use_dynamic_chunk_is_refused(tmp_path, corpus):
-    build_asr_model(dict(TINY_CONF, use_dynamic_chunk=False), FEAT_DIM,
-                    VOCAB)
-    with pytest.raises(NotImplementedError, match="use_dynamic_chunk"):
-        build_asr_model(dict(TINY_CONF, use_dynamic_chunk=True), FEAT_DIM,
-                        VOCAB)
+    """No longer refused since the streaming slice: the option builds a
+    dynamic-chunk encoder, and bin.train trains it with its chunk draw
+    (the trainer's dropout generator) in training only."""
+    model = build_asr_model(dict(TINY_CONF, use_dynamic_chunk=True),
+                            FEAT_DIM, VOCAB)
+    assert model.encoder.use_dynamic_chunk
+    assert not build_asr_model(dict(TINY_CONF, use_dynamic_chunk=False),
+                               FEAT_DIM, VOCAB).encoder.use_dynamic_chunk
     cfg_path = str(tmp_path / "streaming.json")
     with open(cfg_path, "w") as f:
-        json.dump({"model_conf": dict(TINY_CONF, use_dynamic_chunk=True)}, f)
+        json.dump({"model_conf": dict(TINY_CONF, use_dynamic_chunk=True,
+                                      causal=True),
+                   "dataset_conf": {"batch_size": 4},
+                   "optim_conf": {"lr": 0.002}, "warmup_steps": 2,
+                   "log_interval": 1, "seed": 3}, f)
     data = corpus["data"]
-    with pytest.raises(NotImplementedError, match="dynamic chunk"):
-        train.main(["--config", cfg_path, "--train_data", data["manifest"],
-                    "--cv_data", data["manifest"], "--dict", data["dict"],
-                    "--exp_dir", str(tmp_path / "exp"), "--device", "cpu"])
+    exp = tmp_path / "exp"
+    state = train.main(["--config", cfg_path, "--train_data",
+                        data["manifest"], "--cv_data", data["manifest"],
+                        "--dict", data["dict"], "--exp_dir", str(exp),
+                        "--device", "cpu", "--max_epoch", "1"])
+    with open(exp / "metrics.jsonl") as f:
+        records = [json.loads(line) for line in f]
+    losses = [r["loss"] for r in records if r["kind"] == "train"]
+    assert len(losses) == state.step > 0
+    assert all(np.isfinite(x) for x in losses)
+    assert (exp / "epoch_1.pt").exists()

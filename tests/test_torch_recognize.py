@@ -249,14 +249,16 @@ PORT_MODULES = [
     "openeat_torch.utils.scheduler", "openeat_torch.bin.train_lm",
     "openeat_torch.bin.average_model", "openeat_torch.decode.attention_beam",
     "openeat_torch.models.language_model", "openeat_torch.lm.ngram",
-    "openeat_torch.utils.wer"]
+    "openeat_torch.utils.wer", "openeat_torch.decode.endpoint",
+    "openeat_torch.decode.streaming", "openeat_torch.decode.streaming_batch",
+    "openeat_torch.bin.stream_recognize"]
 
 
 def test_port_imports_no_jax():
-    """Every openeat_torch module (the training, attention decode, LM
-    and recipe slices' among them) and chip_smoke.py import with jax
-    blocked, and no jax, flax, optax, orbax or openeat_tpu module
-    loads."""
+    """Every openeat_torch module (the training, attention decode, LM,
+    recipe and streaming slices' among them) and chip_smoke.py import
+    with jax blocked, and no jax, flax, optax, orbax or openeat_tpu
+    module loads."""
     code = (
         "import sys, importlib, pkgutil\n"
         "sys.modules['jax'] = None\n"
