@@ -119,6 +119,26 @@
    SpecAugment, dropout) for one epoch of the training corpus, finite
    losses, the launch counts of 5, and stream_recognize --slots 4 of the
    cv set from its checkpoint.
+11. Serving and int8 (after 10's stream runs), the same streaming model
+   in float32. bin/serve's build_server on cuda, 127.0.0.1, port 0,
+   --slots 8, rescoring finals, reverse_weight 0.3: 16 AsrClient
+   threads send the decode wavs in 200 ms pieces as fast as the socket
+   takes them (8 wait for admission) and one more sends the first wav
+   at 8 kHz. Every final's tokens and times_ms equal a direct float16
+   StreamingBatch run of the same int16 audio on the card, each
+   session's partials concatenate to a prefix of its direct greedy
+   path, no error event arrives, and K3 runs 12 times a chunk step at
+   [8, 30, 256] float32 by TMA; aggregate x-realtime (first open to last
+   final), end-to-final p50/p99, first-partial p50, the smallest top-2
+   CTC log-prob margin, and the device's idle share over a second,
+   profiled round of the 16 clients. serve_endpoint: one session on
+   --endpoint --endpoint_rule3_ms 2000 at the audio's own pace and no
+   "end" gets its final with endpoint true after at most 2000 + 640 ms
+   of decoded audio. int8: the widened weights on the card bit-equal to
+   the CPU's, bin/serve --quantize int8 under the same 16 clients
+   (x-realtime; finals equal to float32's counted, not asserted),
+   bin/recognize --quantize int8 on the flagship (attention_rescoring,
+   batch 8, RTF), and its greedy tokens on 4 wavs equal to a CPU run's.
 
 Any failed check raises. Before the last two stdout lines it prints the
 card's name and power limit again; then the kernels line (each kernel's
@@ -138,6 +158,7 @@ import os
 import shutil
 import statistics
 import subprocess
+import threading
 import time
 from collections import Counter
 
@@ -147,8 +168,9 @@ import torch.nn.functional as F
 
 from openeat_torch.bin import (average_model, recognize, stream_recognize,
                                train_lm)
+from openeat_torch.bin import serve as serve_cli
 from openeat_torch.bin import train as train_cli
-from openeat_torch.dataset.audio import read_wav, write_wav
+from openeat_torch.dataset.audio import read_wav, resample, write_wav
 from openeat_torch.dataset.dataset import (AudioCollate, AudioDataset,
                                            PrefetchLoader)
 from openeat_torch.dataset.text import load_dict
@@ -160,12 +182,14 @@ from openeat_torch.decode.rescoring import (attention_rescoring,
 from openeat_torch.decode.ctc_prefix_beam import (ctc_prefix_beam_search,
                                                   prefix_beam_init,
                                                   prefix_beam_step)
-from openeat_torch.decode.streaming import StreamingRecognizer, zero_caches
+from openeat_torch.decode.streaming import (FRAME_MS, StreamingRecognizer,
+                                            zero_caches)
 from openeat_torch.decode.streaming_batch import StreamingBatch
 from openeat_torch.lm.ngram import load_lm as load_ngram
 from openeat_torch.models.asr_model import build_asr_model, init_parameters
 from openeat_torch.modules import convolution as conv_module
 from openeat_torch.modules.dropout import set_generator
+from openeat_torch.modules.layers import Dense
 from openeat_torch.ops import ctc_loss as ctc
 from openeat_torch.ops import depthwise_conv as dw
 from openeat_torch.ops import fbank as fbank_mod
@@ -174,8 +198,11 @@ from openeat_torch.ops.frontend import FrontendConfig, compute_features
 from openeat_torch.parallel.train_step import (TrainState, apply_update,
                                                build_train_step)
 from openeat_torch.pipeline import DeviceFeeder
+from openeat_torch.runtime.client import AsrClient
+from openeat_torch.runtime.server import recv_frame, send_json
 from openeat_torch.utils.common import make_generator
 from openeat_torch.utils.optim import build_optimizer
+from openeat_torch.utils.quantize import quantized_bytes
 from openeat_torch.utils.wer import corpus_wer
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -1308,6 +1335,350 @@ def stream_training(train_data: str, cv_data: str, dict_path: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- serving
+
+SERVE_SLOTS = 8
+ENDPOINT_RULE3_MS = 2000.0
+
+
+def build_served(cfg_path: str, ckpt: str, dict_path: str, *extra):
+    """An AsrServer through bin/serve's build_server on cuda, 127.0.0.1,
+    port 0, --slots 8, rescoring finals, reverse_weight 0.3."""
+    return serve_cli.build_server(serve_cli.get_parser().parse_args(
+        ["--config", cfg_path, "--checkpoint", ckpt, "--dict", dict_path,
+         "--port", "0", "--slots", str(SERVE_SLOTS), "--chunk_size",
+         str(CHUNK), "--num_left_chunks", str(LEFT_CHUNKS), "--beam_size",
+         str(BEAM), "--max_hyp_len", str(MAX_HYP_LEN), "--reverse_weight",
+         "0.3", "--device", "cuda", *extra]))
+
+
+def client_session(addr, wav: np.ndarray, rate: int = 16000,
+                   pace: bool = False, send_end: bool = True) -> dict:
+    """One AsrClient session: `wav` (x32768 floats at `rate`) in
+    PIECE_MS pieces, as fast as the socket takes them (at the audio's
+    own pace when `pace`), then "end" (unless not `send_end`: then it
+    waits for the server's endpoint final and stops sending when it
+    arrives). A reader thread stamps each event on the host clock."""
+    c = AsrClient(*addr, sample_rate=rate, timeout=300)
+    out = {"partials": [], "t_partials": [], "errors": [], "final": None,
+           "sent_s": 0.0}
+
+    def reader():
+        try:
+            while True:
+                frame = recv_frame(c.sock)
+                if frame is None:
+                    return
+                t, ev = time.perf_counter(), json.loads(frame[1])
+                if ev["event"] == "partial":
+                    out["partials"].append(ev)
+                    out["t_partials"].append(t)
+                elif ev["event"] == "error":
+                    out["errors"].append(ev)
+                    return
+                elif ev["event"] == "final":
+                    out["final"], out["t_final"] = ev, t
+                    return
+        except OSError as e:
+            out["errors"].append({"message": repr(e)})
+
+    th = threading.Thread(target=reader, daemon=True)
+    try:
+        out["t_open"] = t0 = time.perf_counter()
+        th.start()
+        n = rate * PIECE_MS // 1000
+        for i in range(0, len(wav), n):
+            if pace:
+                time.sleep(max(0.0, t0 + i / rate - time.perf_counter()))
+            if out["final"] is not None:
+                break
+            c.send_audio(wav[i:i + n])
+            out["sent_s"] = min(i + n, len(wav)) / rate
+        out["t_end"] = time.perf_counter()
+        if send_end:
+            send_json(c.sock, {"op": "end"})
+        th.join(timeout=300)
+    finally:
+        c.close()
+    if th.is_alive() or out["errors"] or out["final"] is None:
+        raise AssertionError(f"serve session: {out['errors']}, final "
+                             f"{out['final']}")
+    return out
+
+
+def serve_traffic(srv, wavs: list, wav8k=None) -> dict:
+    """Every wav as a concurrent client session (a thread each), plus
+    one at 8 kHz; K3's count set to 0 just before and read just after;
+    the server's chunk steps counted and K3's shapes traced."""
+    n_steps = [0]
+    step = srv.batch._step
+
+    def counted(*args):
+        n_steps[0] += 1
+        return step(*args)
+
+    srv.batch._step = counted
+    jobs = [(w, 16000) for w in wavs]
+    if wav8k is not None:
+        jobs.append((wav8k, 8000))
+    sessions = [None] * len(jobs)
+    failures = []
+
+    def run(i):
+        try:
+            sessions[i] = client_session(srv.addr, *jobs[i])
+        except (AssertionError, OSError) as e:
+            failures.append(repr(e))
+
+    dw.depthwise_conv1d.launches = 0
+    with K3Trace() as trace:
+        threads = [threading.Thread(target=run, args=(i,))
+                   for i in range(len(jobs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        torch.cuda.synchronize()
+    launches = dw.depthwise_conv1d.launches
+    srv.batch._step = step
+    if failures or any(t.is_alive() for t in threads):
+        raise AssertionError(f"serve traffic: {failures}")
+    t0 = min(s["t_open"] for s in sessions)
+    t1 = max(s["t_final"] for s in sessions)
+    audio_s = sum(s["final"]["audio_s"] for s in sessions)
+    end_to_final = [s["t_final"] - s["t_end"] for s in sessions]
+    first_partial = [s["t_partials"][0] - s["t_open"] for s in sessions
+                     if s["t_partials"]]
+    shapes = Counter(c[:2] for c in trace.calls)
+    routes = Counter(c[2] for c in trace.calls)
+    res = {"sessions": len(sessions), "audio_s": audio_s, "wall_s": t1 - t0,
+           "x_realtime": audio_s / (t1 - t0), "chunk_steps": n_steps[0],
+           "k3_launches": launches,
+           "k3_shapes": {f"{list(k[0])} {k[1]}": v for k, v in shapes.items()},
+           "k3_routes": dict(routes),
+           "end_to_final_ms_p50": float(np.percentile(end_to_final, 50) * 1e3),
+           "end_to_final_ms_p99": float(np.percentile(end_to_final, 99) * 1e3),
+           "first_partial_ms_p50": (float(np.percentile(first_partial, 50)
+                                          * 1e3) if first_partial else None),
+           "sessions_with_partials": len(first_partial)}
+    if launches != 12 * n_steps[0] or not launches \
+            or sum(shapes.values()) != launches or set(routes) != {"tma"} \
+            or set(shapes) != {((SERVE_SLOTS, 14 + CHUNK,
+                                 srv.batch.model.d_model), "float32")}:
+        raise AssertionError(f"K3 while serving: {res}")
+    return {"stats": res, "sessions": sessions}
+
+
+def _pcm(wav: np.ndarray) -> np.ndarray:
+    """The samples as AsrClient sends them: rounded to int16."""
+    return np.clip(np.round(wav), -32768, 32767).astype(np.int16)
+
+
+def direct_finals(model, wavs: list, wav8k=None) -> list:
+    """What the server must answer: each wav (as int16, the 8 kHz one
+    resampled piece by piece as the server does) through a float16
+    StreamingBatch with the server's settings, 8 at a time; per stream
+    (final tokens, times_ms, full-chunk greedy path before finish, the
+    smallest top-2 CTC log-prob margin of its frames)."""
+    streams = [[_pcm(w).astype(np.float32)] for w in wavs]
+    if wav8k is not None:
+        pcm, n = _pcm(wav8k), 8000 * PIECE_MS // 1000
+        streams.append([resample(pcm[i:i + n].astype(np.float32), 8000,
+                                 16000) for i in range(0, len(pcm), n)])
+    batch = StreamingBatch(model, slots=SERVE_SLOTS, chunk_size=CHUNK,
+                           num_left_chunks=LEFT_CHUNKS, beam_size=BEAM,
+                           max_hyp_len=MAX_HYP_LEN, normalization="running",
+                           transfer_dtype="float16")
+    out = []
+    for g in range(0, len(streams), SERVE_SLOTS):
+        group = streams[g:g + SERVE_SLOTS]
+        hs = [batch.open() for _ in group]
+        for h, pieces in zip(hs, group):
+            for p in pieces:
+                batch.accept(h, p)
+        batch.run_ready()
+        greedy = [h.result() for h in hs]
+        finals = batch.finish_many(hs, rescore=True, ctc_weight=0.5,
+                                   reverse_weight=0.3)
+        for h, gr in zip(hs, greedy):
+            with torch.inference_mode():
+                lp = model.ctc_log_probs(torch.from_numpy(
+                    batch.encoder_out(h)).cuda())
+            top2 = lp.topk(2, dim=-1).values
+            out.append((finals[h.slot], h.result_times_ms(), gr,
+                        float((top2[:, 0] - top2[:, 1]).min())))
+            batch.close(h)
+    return out
+
+
+def serve_checks(cfg_path: str, ckpt: str, manifest: str,
+                 dict_path: str) -> dict:
+    """bin/serve on the card, float32, the streaming Conformer: 16
+    clients sending the decode wavs in 200 ms pieces as fast as the
+    socket takes them (8 wait for admission) and one at 8 kHz. Every
+    final equals the direct float16 StreamingBatch's tokens and times;
+    the partials of each session concatenate to a prefix of its direct
+    greedy path; no error event. x-realtime, end-to-final and
+    first-partial latency, K3 launches; then the same 16 clients again
+    under torch.profiler for the idle share over the serving window."""
+    from torch.profiler import ProfilerActivity, profile
+    wavs = manifest_wavs(manifest)
+    keys = sorted(wavs)
+    wav8k = resample(wavs[keys[0]], 16000, 8000)
+    srv = build_served(cfg_path, ckpt, dict_path)
+    srv.start()
+    try:
+        run = serve_traffic(srv, [wavs[k] for k in keys], wav8k)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            prof_run = serve_traffic(srv, [wavs[k] for k in keys])
+    finally:
+        srv.shutdown()
+    busy = _device_busy_us(prof)
+    wall = prof_run["stats"]["wall_s"]
+    direct = direct_finals(srv.batch.model, [wavs[k] for k in keys], wav8k)
+    rows = []
+    for key, s, (toks, times, greedy, margin) in zip(
+            keys + ["8khz"], run["sessions"], direct):
+        streamed = [t for p in s["partials"] for t in p["tokens"]]
+        rows.append({"key": key, "tokens": len(toks),
+                     "final_equal": (s["final"]["tokens"] == toks
+                                     and s["final"]["times_ms"] == times),
+                     "partials_prefix": streamed == greedy[:len(streamed)],
+                     "partial_tokens": len(streamed),
+                     "min_logp_margin": margin})
+    out = dict(run["stats"], profiled_wall_s=wall,
+               profiled_x_realtime=prof_run["stats"]["x_realtime"],
+               device_busy_s=busy / 1e6,
+               device_idle_share=1.0 - busy / 1e6 / wall if busy else None,
+               finals_equal=sum(r["final_equal"] for r in rows),
+               min_logp_margin=min(r["min_logp_margin"] for r in rows),
+               profiled_k3_launches=prof_run["stats"]["k3_launches"])
+    out["finals"] = {k: s["final"]["tokens"]
+                     for k, s in zip(keys, run["sessions"])}
+    print("serve " + json.dumps({k: v for k, v in out.items()
+                                 if k != "finals"}), flush=True)
+    bad = [r for r in rows if not (r["final_equal"] and r["partials_prefix"])]
+    if bad or not out["sessions_with_partials"]:
+        raise AssertionError(f"server vs direct StreamingBatch: {bad}")
+    out["rows"] = rows
+    return out
+
+
+def serve_endpoint(cfg_path: str, ckpt: str, manifest: str,
+                   dict_path: str) -> dict:
+    """One session on bin/serve --endpoint --endpoint_rule3_ms 2000, the
+    longest decode wav sent at its own pace and no "end": the final must
+    come with "endpoint": true once at most 2000 ms plus one chunk
+    (640 ms) of audio is decoded (read when the server calls finish),
+    before the wav is all sent."""
+    wavs = manifest_wavs(manifest)
+    wav = max(wavs.values(), key=len)
+    srv = build_served(cfg_path, ckpt, dict_path, "--endpoint",
+                       "--endpoint_rule3_ms", str(ENDPOINT_RULE3_MS))
+    decoded_ms = []
+    finish = srv.batch.finish
+
+    def noted(handle, **kw):
+        decoded_ms.append(int(srv.batch._offset_host[handle.slot])
+                          * FRAME_MS)
+        return finish(handle, **kw)
+
+    srv.batch.finish = noted
+    srv.start()
+    try:
+        s = client_session(srv.addr, wav, pace=True, send_end=False)
+    finally:
+        srv.shutdown()
+    out = {"wav_s": len(wav) / 16000, "sent_s": s["sent_s"],
+           "final_audio_s": s["final"]["audio_s"],
+           "endpoint": s["final"]["endpoint"], "decoded_ms": decoded_ms,
+           "tokens": len(s["final"]["tokens"]),
+           "open_to_final_s": s["t_final"] - s["t_open"]}
+    print("serve_endpoint " + json.dumps(out), flush=True)
+    if out["endpoint"] is not True or len(decoded_ms) != 1 \
+            or decoded_ms[0] > ENDPOINT_RULE3_MS + CHUNK * FRAME_MS \
+            or out["sent_s"] >= out["wav_s"]:
+        raise AssertionError(f"endpoint final: {out}")
+    return out
+
+
+def int8_checks(cfg_s32: str, ckpt_s: str, cfg32: str, ckpt: str,
+                manifest: str, dict_path: str, f32_finals: dict) -> dict:
+    """--quantize int8 on the card: bin/serve with the same 16 clients
+    (x-realtime; how many finals equal the float32 server's, reported
+    only: random weights decide nothing about quality) and
+    bin/recognize on the flagship, attention_rescoring, batch 8 (RTF,
+    agreement with the float32 run, reported only). The widened weights
+    on the card are bit-equal to the CPU's; on 4 wavs the int8 greedy
+    tokens on the card equal the CPU's."""
+    out = {}
+    cfg = json.load(open(cfg32))
+    gpu = recognize.load_model(cfg, ckpt, VOCAB, torch.device("cuda"), "int8")
+    cpu = recognize.load_model(cfg, ckpt, VOCAB, torch.device("cpu"), "int8")
+    now, fp32 = quantized_bytes(gpu)
+    out["weight_mb"], out["ratio_vs_fp32"] = now / 1e6, fp32 / now
+    print(f"int8 weight quantization: {now / 1e6:.1f} MB "
+          f"({fp32 / now:.2f}x vs fp32)", flush=True)
+    cpu_modules = dict(cpu.named_modules())
+    n_q = 0
+    with torch.inference_mode():
+        for name, m in gpu.named_modules():
+            if isinstance(m, Dense) and m.q is not None:
+                n_q += 1
+                if not torch.equal(m.dense_weight().cpu(),
+                                   cpu_modules[name].dense_weight()):
+                    raise AssertionError(f"int8 {name}: card != CPU")
+    out["dense_int8"] = n_q
+    del gpu, cpu
+
+    wavs = manifest_wavs(manifest)
+    keys = sorted(wavs)
+    srv = build_served(cfg_s32, ckpt_s, dict_path, "--quantize", "int8")
+    srv.start()
+    try:
+        run = serve_traffic(srv, [wavs[k] for k in keys])
+    finally:
+        srv.shutdown()
+    out["serve"] = dict(run["stats"], finals_equal_f32=sum(
+        s["final"]["tokens"] == f32_finals[k]
+        for k, s in zip(keys, run["sessions"])))
+
+    hyps, wall, launches, _ = run_recognize(
+        cfg32, ckpt, manifest, dict_path, "attention_rescoring", "int8",
+        ["--quantize", "int8"])
+    with open(os.path.join(WORK, "hyp_attention_rescoring.txt"),
+              encoding="utf-8") as f:
+        f32 = dict((line.rstrip("\n").split(" ", 1) + [""])[:2] for line in f)
+    audio_s = sum(len(w) for w in wavs.values()) / 16000
+    out["recognize"] = {"wall_s": wall, "rtf": wall / audio_s,
+                        "k3_launches": launches,
+                        "hyps_equal_f32": sum(hyps[k] == f32[k] for k in keys)}
+    if set(hyps) != set(keys) or launches % 12 or not launches:
+        raise AssertionError(f"recognize --quantize int8: {out['recognize']}")
+
+    small = os.path.join(WORK, "format4.data")
+    with open(manifest, encoding="utf-8") as f, \
+            open(small, "w", encoding="utf-8") as g:
+        g.writelines(f.readlines()[:4])
+    got = {}
+    for dev in ("cuda", "cpu"):
+        hyp = os.path.join(WORK, f"hyp_int8_{dev}.txt")
+        recognize.main(["--config", cfg32, "--checkpoint", ckpt, "--test_data",
+                        small, "--dict", dict_path, "--result_file", hyp,
+                        "--mode", "ctc_greedy_search", "--batch_size", "4",
+                        "--quantize", "int8", "--device", dev])
+        with open(hyp, encoding="utf-8") as f:
+            got[dev] = dict((line.rstrip("\n").split(" ", 1) + [""])[:2]
+                            for line in f)
+    out["greedy_gpu_equals_cpu"] = sum(got["cuda"][k] == got["cpu"][k]
+                                       for k in got["cpu"])
+    print("int8 " + json.dumps(out), flush=True)
+    if len(got["cpu"]) != 4 or out["greedy_gpu_equals_cpu"] != 4:
+        raise AssertionError(f"int8 greedy tokens, card vs CPU: {got}")
+    return out
+
+
 # ---------------------------------------------------------------- timing 2
 
 def event_ms(fn, reps: int = 5) -> float:
@@ -2121,6 +2492,22 @@ def main() -> None:
                                       for k, v in chunk_tally.items()}
         report["stream_idle"] = stream_idle(cfg_s32, ckpt_s, manifest)
         print("stream_idle " + json.dumps(report["stream_idle"]), flush=True)
+
+        # ---- slice 8: serving and int8 through their entry points
+        t0 = time.perf_counter()
+        report["serve"] = serve_checks(cfg_s32, ckpt_s, manifest, dict_path)
+        report["serve_endpoint"] = serve_endpoint(cfg_s32, ckpt_s, manifest,
+                                                  dict_path)
+        report["int8"] = int8_checks(cfg_s32, ckpt_s, cfg32, ckpt, manifest,
+                                     dict_path, report["serve"]["finals"])
+        report["serve_int8_wall_s"] = time.perf_counter() - t0
+        # K3's launches at the chunk-step shape while serving
+        serve_launches = (report["serve"]["k3_launches"]
+                          + report["serve"]["profiled_k3_launches"]
+                          + report["int8"]["serve"]["k3_launches"])
+        shape = f"{[SERVE_SLOTS, 14 + CHUNK, 256]} float32"
+        report["stream_k3_shapes"][shape] = \
+            report["stream_k3_shapes"].get(shape, 0) + serve_launches
         report["stream_training"] = stream_training(train_data, cv_data,
                                                     dict_path)
         print("stream_training " + json.dumps(
@@ -2161,7 +2548,9 @@ def main() -> None:
         _kernel_row("depthwise_conv1d", "openeat_torch/csrc/depthwise_conv.cu",
                     "openeat_tpu/ops/depthwise_conv.py:39",
                     decode_launches + n["depthwise_conv1d"]
-                    + report["recipe"]["k3_launches"] + stream_launches, k3),
+                    + report["recipe"]["k3_launches"] + stream_launches
+                    + serve_launches
+                    + report["int8"]["recognize"]["k3_launches"], k3),
         _kernel_row("depthwise_conv1d_dgrad",
                     "openeat_torch/csrc/depthwise_conv.cu",
                     "openeat_tpu/ops/depthwise_conv.py:114",
@@ -2181,7 +2570,7 @@ def main() -> None:
                       (kernels[4], train_ctc("global"))):
         row["chain_bound_ms"] = case["chain_bound_ms"]
     # K3 at the streaming chunk step's shapes: launches are those of the
-    # stream_recognize runs at that shape and dtype
+    # stream_recognize runs and the servers at that shape and dtype
     for case in chunk_rows:
         shape = f"{case['shape']} {case['dtype']}"
         kernels.append(dict(

@@ -15,11 +15,11 @@ With --lm_weight > 0, attention_rescoring fuses a Transformer LM
 (--lm_config, --lm_checkpoint; on the device) or an ARPA/binary n-gram
 (--ngram_lm; on the host). --timestamp_file writes JSONL {key, tokens,
 times_ms} of the CTC emission onsets (one encoder position = subsampling
-rate x 10 ms) in the CTC-alignment modes.
+rate x 10 ms) in the CTC-alignment modes. --quantize int8 decodes with
+int8 weight-only Dense weights (utils/quantize.py).
 
-Not ported yet, refused with NotImplementedError: --quantize int8, --dp
-other than 1, --bpe_model, --data_type feat/kaldi and WeNet-layout
-configs.
+Not ported yet, refused with NotImplementedError: --dp other than 1,
+--bpe_model, --data_type feat/kaldi and WeNet-layout configs.
 """
 
 from __future__ import annotations
@@ -49,6 +49,7 @@ from openeat_torch.ops.frontend import FrontendConfig
 from openeat_torch.pipeline import DeviceFeeder
 from openeat_torch.utils.common import init_logger, resolve_device
 from openeat_torch.utils.param_bridge import flax_to_state_dict
+from openeat_torch.utils.quantize import quantize_model, quantized_bytes
 
 MODES = ["ctc_greedy_search", "ctc_prefix_beam_search", "attention",
          "attention_rescoring"]
@@ -86,7 +87,9 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--ngram_lm", default=None)
     p.add_argument("--data_type", default="wav",
                    choices=["wav", "feat", "kaldi"])
-    p.add_argument("--quantize", default="none", choices=["none", "int8"])
+    p.add_argument("--quantize", default="none", choices=["none", "int8"],
+                   help="int8: per-channel weight-only quantization of "
+                        "the Dense weights (utils/quantize.py)")
     p.add_argument("--timestamp_file", default=None)
     p.add_argument("--dp", type=int, default=1)
     return p
@@ -95,7 +98,6 @@ def get_parser() -> argparse.ArgumentParser:
 def refuse_unported(args, cfg: dict) -> None:
     """Raise NotImplementedError for what this port does not do yet."""
     later = {
-        "--quantize int8": (args.quantize != "none", "the int8 slice"),
         "--dp": (args.dp != 1, "the parallel-layout slice"),
         "--bpe_model": (args.bpe_model is not None,
                         "a later slice (BPE tokenizer)"),
@@ -122,10 +124,12 @@ def _read_checkpoint(checkpoint: str) -> dict:
 
 
 def load_model(cfg: dict, checkpoint: str, vocab_size: int,
-               device: torch.device) -> ASRModel:
+               device: torch.device, quantize: str = "none") -> ASRModel:
     """Build the model from `cfg` and fill it from `checkpoint`. Whether
     the encoder has global CMVN is read from the checkpoint; a config
-    that says otherwise is an error."""
+    that says otherwise is an error. quantize="int8" quantizes the
+    weights on the host, before they move to `device`, and logs their
+    size."""
     state = _read_checkpoint(checkpoint)
     has_cmvn = ("params/encoder/global_cmvn/mean" if checkpoint.endswith(
         ".npz") else "encoder.global_cmvn.mean") in state
@@ -142,6 +146,11 @@ def load_model(cfg: dict, checkpoint: str, vocab_size: int,
     if checkpoint.endswith(".npz"):
         state = flax_to_state_dict(state, model)
     model.load_state_dict(state, strict=True)
+    if quantize == "int8":
+        quantize_model(model)
+        now, fp32 = quantized_bytes(model)
+        init_logger().info("int8 weight quantization: %.1f MB (%.2fx vs "
+                           "fp32)", now / 1e6, fp32 / max(now, 1))
     return model.to(device).eval()
 
 
@@ -171,7 +180,8 @@ def main(argv=None):
                          "attention_rescoring)")
     device = resolve_device(args.device)
     char_dict = load_dict(args.dict_path)
-    model = load_model(cfg, args.checkpoint, len(char_dict), device)
+    model = load_model(cfg, args.checkpoint, len(char_dict), device,
+                       args.quantize)
     id2tok = {v: k for k, v in char_dict.items()}
     collate_conf = dict(cfg.get("collate_conf", {}) or {})
     fe_conf = collate_conf.get("feature_extraction_conf", {}) or {}

@@ -14,9 +14,8 @@ the p50 and p99 of each utterance's longest piece latency; more slots,
 or attention_rescoring finals at any slot count, run StreamingBatch with
 the utterances as concurrent streams fed round-robin, and log the
 aggregate x-realtime. A model trained with per-utterance feature
-normalisation is fed the causal "running" normalisation.
-
-Not ported yet, refused with NotImplementedError: --quantize int8.
+normalisation is fed the causal "running" normalisation. --quantize
+int8 streams with int8 weight-only Dense weights (utils/quantize.py).
 """
 
 from __future__ import annotations
@@ -66,7 +65,8 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--max_hyp_len", type=int, default=64)
     p.add_argument("--enc_capacity", type=int, default=512,
                    help="encoder rows kept per stream for the rescoring")
-    p.add_argument("--quantize", default="none", choices=["none", "int8"])
+    p.add_argument("--quantize", default="none", choices=["none", "int8"],
+                   help="int8 weight-only quantization (utils/quantize.py)")
     p.add_argument("--timestamp_file", default=None)
     return p
 
@@ -92,14 +92,11 @@ def main(argv=None) -> dict:
     wall_s, and the piece latencies or the aggregate x-realtime)."""
     args = get_parser().parse_args(argv)
     logger = init_logger()
-    if args.quantize != "none":
-        raise NotImplementedError(
-            "--quantize int8 is not ported to openeat_torch yet; it comes "
-            "with the int8 slice")
     cfg = load_config(args.config)
     device = resolve_device(args.device)
     char_dict = load_dict(args.dict_path)
-    model = load_model(cfg, args.checkpoint, len(char_dict), device)
+    model = load_model(cfg, args.checkpoint, len(char_dict), device,
+                       args.quantize)
     id2tok = {v: k for k, v in char_dict.items()}
     utts = parse_manifest(args.test_data, char_dict, max_length=10 ** 9,
                           sort=False)

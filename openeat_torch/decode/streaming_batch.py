@@ -94,7 +94,8 @@ class StreamingBatch:
                  blank_id: int = 0, normalization: str = "none",
                  beam_size: int = 10, max_hyp_len: int = 64,
                  enc_capacity: int = 512,
-                 endpoint_config: EndpointConfig | None = None):
+                 endpoint_config: EndpointConfig | None = None,
+                 transfer_dtype: str = "float32"):
         check_streamable(model, num_left_chunks)
         self.model = model
         self.device = dev = next(model.parameters()).device
@@ -110,6 +111,11 @@ class StreamingBatch:
         self.cap = enc_capacity
         self.win_frames = 4 * chunk_size + 3
         self.endpoint_config = endpoint_config
+        # the feature windows' dtype on the way to the device: the server
+        # passes float16, which rounds each window as the JAX package's
+        # packed float16 upload does and halves the copy; the step widens
+        # it to float32 on the device
+        self.transfer_dtype = np.dtype(transfer_dtype)
         self.k, self.v, self.cnn = zero_caches(model, s, self.left, dev)
         self.cache_len = torch.zeros((s,), dtype=torch.long, device=dev)
         self.offset = torch.zeros((s,), dtype=torch.long, device=dev)
@@ -188,7 +194,7 @@ class StreamingBatch:
         """Advance the active slots by one chunk; returns the greedy
         frame tokens [S, c] (on the device)."""
         dev, c = self.device, self.chunk
-        win = torch.from_numpy(windows).to(dev)
+        win = torch.from_numpy(windows).to(dev).float()
         scal = torch.from_numpy(np.stack([valid, active.astype(np.int64)])
                                 ).to(dev)
         valid_d, act = scal[0], scal[1].bool()
@@ -239,7 +245,7 @@ class StreamingBatch:
             valid = np.zeros((self.S,), np.int64)
             active = np.zeros((self.S,), bool)
             windows = np.zeros((self.S, self.win_frames, self.mel),
-                               np.float32)
+                               self.transfer_dtype)
             for i in range(self.S):
                 run_full = self._ready(i)
                 if not (run_full or i in force):

@@ -15,15 +15,29 @@ from torch import nn
 
 
 class Dense(nn.Linear):
+    """nn.Linear in the compute dtype. After utils/quantize.py's
+    quantize_model, `weight` is None and the int8 `q` [out, in] with its
+    float32 per-output `scale` [out] stand in for it: each forward widens
+    them in float32 and casts once, as the JAX package's
+    maybe_dequantize does."""
+
     def __init__(self, in_features: int, out_features: int,
                  bias: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__(in_features, out_features, bias=bias)
         self.compute_dtype = dtype
+        self.register_buffer("q", None)
+        self.register_buffer("scale", None)
+
+    def dense_weight(self) -> torch.Tensor:
+        """The weight [out, in] in the compute dtype."""
+        if self.q is None:
+            return self.weight.to(self.compute_dtype)
+        return (self.q.float() * self.scale[:, None]).to(self.compute_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), bias)
+        return F.linear(x.to(dt), self.dense_weight(), bias)
 
 
 class LayerNorm(nn.LayerNorm):

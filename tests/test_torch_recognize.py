@@ -7,7 +7,9 @@ decode functions, given the same features batch by batch, must write
 the same text in every mode, with --adaptive_steps and --length_penalty
 in the attention mode, and with the host n-gram fused into rescoring.
 The --timestamp_file JSONL equals the JAX CLI's on the same weights, and
-both CLIs refuse --timestamp_file in the attention mode alike.
+both CLIs refuse --timestamp_file in the attention mode alike. With
+--quantize int8 the result and timestamp files equal the JAX CLI's in
+every mode.
 """
 
 import json
@@ -212,9 +214,28 @@ def test_pt_checkpoint_decodes_like_the_npz(setup):
         _run_port(setup, "attention_rescoring", setup["npz"], "npz")
 
 
+@pytest.mark.parametrize("mode", MODES + ["attention"])
+def test_int8_writes_the_jax_cli_files(setup, mode):
+    """--quantize int8 --device cpu writes the JAX CLI's --quantize int8
+    result file, and its timestamp file in the CTC-alignment modes."""
+    outs = []
+    for name, main, ckpt, device in (
+            ("port", recognize.main, setup["npz"], ["--device", "cpu"]),
+            ("jax", jax_recognize.main, setup["jax_ckpt"], [])):
+        paths = [str(setup["root"] / f"int8_{name}_{mode}.{ext}")
+                 for ext in ("txt", "jsonl")]
+        ts = [] if mode == "attention" else ["--timestamp_file", paths[1]]
+        main(_argv(setup, mode, ckpt, paths[0], ["--quantize", "int8", *ts])
+             + device)
+        outs.append([open(p, encoding="utf-8").read()
+                     for p in paths[:1 + bool(ts)]])
+    assert outs[0] == outs[1]
+    got = dict(line.split(" ", 1) for line in outs[0][0].splitlines())
+    assert set(got) == set(setup["data"]["texts"])
+
+
 @pytest.mark.parametrize("extra,match", [
     (["--dp", "-1"], "--dp"),
-    (["--quantize", "int8"], "int8"),
     (["--data_type", "kaldi"], "kaldi"),
     (["--dp", "2"], "--dp"),
     (["--config", "@wenet"], "WeNet"),
@@ -251,12 +272,14 @@ PORT_MODULES = [
     "openeat_torch.models.language_model", "openeat_torch.lm.ngram",
     "openeat_torch.utils.wer", "openeat_torch.decode.endpoint",
     "openeat_torch.decode.streaming", "openeat_torch.decode.streaming_batch",
-    "openeat_torch.bin.stream_recognize"]
+    "openeat_torch.bin.stream_recognize", "openeat_torch.runtime.server",
+    "openeat_torch.runtime.client", "openeat_torch.bin.serve",
+    "openeat_torch.utils.quantize"]
 
 
 def test_port_imports_no_jax():
     """Every openeat_torch module (the training, attention decode, LM,
-    recipe and streaming slices' among them) and chip_smoke.py import
+    recipe, streaming, serving and int8 slices' among them) and chip_smoke.py import
     with jax blocked, and no jax, flax, optax, orbax or openeat_tpu
     module loads."""
     code = (

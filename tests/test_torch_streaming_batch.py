@@ -16,9 +16,9 @@ decoders at reverse_weight 0.3, the same weights on both sides, float32:
   rescoring score exceeds 100x their measured gap);
 - a reused slot decodes as a fresh one, and under "running"
   normalisation the result does not depend on how the audio arrived;
-- the CLI writes JAX's result and timestamp files at --slots 1 greedy
-  and --slots 2 rescoring, and refuses --quantize int8 and --device cuda
-  without a card.
+- the CLI writes JAX's result and timestamp files at --slots 1 greedy,
+  --slots 2 rescoring and --slots 2 rescoring with --quantize int8, and
+  refuses --device cuda without a card.
 """
 
 import json
@@ -220,7 +220,9 @@ def _cli_args(s, ckpt, tag, extra):
     ["--final_mode", "ctc_greedy_search"],
     ["--slots", "2", "--final_mode", "attention_rescoring",
      "--reverse_weight", "0.3", "--beam_size", "5"],
-], ids=["slots1_greedy", "slots2_rescoring"])
+    ["--quantize", "int8", "--slots", "2", "--final_mode",
+     "attention_rescoring", "--reverse_weight", "0.3", "--beam_size", "5"],
+], ids=["slots1_greedy", "slots2_rescoring", "slots2_rescoring_int8"])
 def test_stream_recognize_writes_the_jax_files(cli_setup, extra):
     s = cli_setup
     tag = "_".join(extra[:2]).strip("-")
@@ -240,10 +242,8 @@ def test_stream_recognize_writes_the_jax_files(cli_setup, extra):
 
 
 @pytest.mark.parametrize("extra,exc,match", [
-    (["--quantize", "int8", "--device", "cpu"], NotImplementedError,
-     "int8"),
     ([], RuntimeError, "--device cpu"),
-], ids=["int8", "cuda_without_a_card"])
+], ids=["cuda_without_a_card"])
 def test_refusals(cli_setup, monkeypatch, extra, exc, match):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(exc, match=match):
