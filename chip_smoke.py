@@ -140,6 +140,33 @@
    bin/recognize --quantize int8 on the flagship (attention_rescoring,
    batch 8, RTF), and its greedy tokens on 4 wavs equal to a CPU run's.
 
+12. MoE (after 6), examples/aishell/conf/train_conformer_moe.yaml's
+   model_conf (the flagship's, with a top-2 mixture of 4 experts at
+   capacity factor 1.25 in every block's main FFN, bf16) through
+   openeat_torch.bin.train for one epoch of the training corpus with the
+   flagship phase's 10000-frame batches (the recipe's are 80000): finite
+   losses and a finite moe_aux in every step record, the launch counts of
+   5, then recognize (attention_rescoring) of the cv set from its
+   epoch_1.pt and each layer's share of routed (token, expert) pairs past
+   the capacity on three training batches. One float32 MoE FFN at full
+   width on the card against the CPU: output within MOE_TOL of max |y|,
+   aux within 1e-5, the same kept pairs, some dropped. After 9, the
+   training breakdown once more for the MoE model beside the dense one.
+13. Distributed paths, in child processes of this script: (b) runs
+   beside 12, (a) after it. (a) bin.train of the flagship in float32 with dropout 0 on 30
+   training utterances, alone and as a one-rank NCCL world (the loss
+   shares, the flat gradient all-reduce, the metric sums), with
+   deterministic algorithms: step metrics and epoch_1.pt bit-equal; then
+   the all-reduce of a float32 buffer of the model's gradients, and the
+   flatten, all-reduce and unflatten that apply_update does, timed. (b)
+   two ranks sharing the card over gloo (NCCL takes one rank a device):
+   one float32 SGD step at dp = 2, one at tp = 2 and one of the MoE
+   model at dp = 2 with capacity factor 0.5 (tokens drop), each held to
+   the one-rank step on the same 4-utterance batch within 7's
+   tolerances (losses STEP_LOSS_TOL, the norm and each tensor's update
+   STEP_GRAD_TOL). These check correctness; no multi-card speed is
+   measured.
+
 Any failed check raises. Before the last two stdout lines it prints the
 card's name and power limit again; then the kernels line (each kernel's
 launches on the main path, error, times and bounds; the CTC rows with
@@ -195,12 +222,14 @@ from openeat_torch.ops import depthwise_conv as dw
 from openeat_torch.ops import fbank as fbank_mod
 from openeat_torch.ops import nvcc
 from openeat_torch.ops.frontend import FrontendConfig, compute_features
+from openeat_torch.modules.feed_forward import MoEPositionwiseFeedForward
+from openeat_torch.parallel import mesh as mesh_lib
 from openeat_torch.parallel.train_step import (TrainState, apply_update,
-                                               build_train_step)
+                                               asr_loss, build_train_step)
 from openeat_torch.pipeline import DeviceFeeder
 from openeat_torch.runtime.client import AsrClient
 from openeat_torch.runtime.server import recv_frame, send_json
-from openeat_torch.utils.common import make_generator
+from openeat_torch.utils.common import get_activation, make_generator
 from openeat_torch.utils.optim import build_optimizer
 from openeat_torch.utils.quantize import quantized_bytes
 from openeat_torch.utils.wer import corpus_wer
@@ -2125,9 +2154,9 @@ def _features(host: dict, dev: torch.device, frontend: FrontendConfig,
             "targets": b["targets"], "targets_length": b["targets_length"]}
 
 
-def _flagship(dtype: str, dropout: float) -> torch.nn.Module:
+def _flagship(dtype: str, dropout: float, **overrides) -> torch.nn.Module:
     conf = dict(TRAIN_CONFIG["model_conf"], compute_dtype=dtype,
-                dropout_rate=dropout)
+                dropout_rate=dropout, **overrides)
     model = build_asr_model(conf, 80, VOCAB)
     init_parameters(model, make_generator(SEED))
     return model
@@ -2198,13 +2227,15 @@ def overfit(manifest: str, dict_path: str, steps: int = 30) -> dict:
     return {"losses": losses, "ratio_last5_over_first": ratio}
 
 
-def train_breakdown(manifest: str, dict_path: str, n_steps: int = 6) -> dict:
-    """Per step at the flagship bf16 setting (dropout 0.1, SpecAugment):
-    host collate, frontend, forward, backward, clip+optimizer from host
-    clocks around synchronized work (first step left out as warm-up),
-    then the device's idle share over 5 profiled steps."""
+def train_breakdown(manifest: str, dict_path: str, n_steps: int = 6,
+                    **overrides) -> dict:
+    """Per step at the flagship bf16 setting (dropout 0.1, SpecAugment;
+    `overrides` of its model_conf, e.g. the MoE keys): host collate,
+    frontend, forward, backward, clip+optimizer from host clocks around
+    synchronized work (first step left out as warm-up), then the
+    device's idle share over 5 profiled steps."""
     dev = torch.device("cuda")
-    model = _flagship("bfloat16", 0.1).to(dev).train()
+    model = _flagship("bfloat16", 0.1, **overrides).to(dev).train()
     dc = TRAIN_CONFIG["dataset_conf"]
     ds = AudioDataset(manifest, load_dict(dict_path),
                       max_length=dc["max_length"],
@@ -2223,7 +2254,7 @@ def train_breakdown(manifest: str, dict_path: str, n_steps: int = 6) -> dict:
     def one_step(host, lap):
         b = _features(host, dev, fe, True, gen)
         lap("frontend")
-        metrics = model(*b.values())
+        metrics = asr_loss(model, b)
         lap("forward")
         opt.zero_grad(set_to_none=True)
         metrics["loss"].backward()
@@ -2256,6 +2287,7 @@ def train_breakdown(manifest: str, dict_path: str, n_steps: int = 6) -> dict:
             stages.setdefault(k, []).append(v)
     out["stage_s_per_step"] = {k: statistics.median(v)
                                for k, v in stages.items()}
+    out["s_per_step"] = wall_s / (n_steps - 1)
     out["audio_s_per_s"] = audio_s / wall_s
     out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     from torch.profiler import ProfilerActivity, profile
@@ -2274,6 +2306,348 @@ def train_breakdown(manifest: str, dict_path: str, n_steps: int = 6) -> dict:
     out["device_idle_share"] = 1.0 - busy_us / wall_us if busy_us else None
     out["batches"] = [list(h["wav"].shape) for h in hosts]
     return out
+
+
+# ---------------------------------------------------------------- moe
+
+# examples/aishell/conf/train_conformer_moe.yaml's model_conf: the
+# flagship's, with a top-2 mixture of 4 experts in each block's main FFN;
+# trained like the flagship phase (10000-frame batches where the recipe
+# has 80000), one epoch
+MOE_KEYS = {"moe_experts": 4, "moe_top_k": 2, "moe_capacity_factor": 1.25,
+            "moe_aux_weight": 0.01}
+MOE_TRAIN_CONFIG = dict(TRAIN_CONFIG, max_epoch=1,
+                        model_conf=dict(TRAIN_CONFIG["model_conf"],
+                                        **MOE_KEYS))
+MOE_TOL = 1e-4    # float32 MoE layer, GPU vs CPU: relative to max |y|
+
+
+def moe_drop_fractions(model, batches: list) -> list:
+    """Per MoE layer, the share of routed (token, expert) pairs past the
+    capacity over `batches` (eval forward of the encoder)."""
+    stats = {}
+    hooks = []
+    for name, m in model.named_modules():
+        if isinstance(m, MoEPositionwiseFeedForward):
+            def hook(mod, args, name=name):
+                sel, keep = mod.route(*args)[1:3]
+                st = stats.setdefault(name, [0, 0])
+                st[0] += int((sel > 0).sum())
+                st[1] += int(keep.sum())
+            hooks.append(m.register_forward_pre_hook(hook))
+    with torch.inference_mode():
+        for b in batches:
+            model.encode(b["features"], b["features_length"])
+    for h in hooks:
+        h.remove()
+    return [1.0 - kept / routed for routed, kept in stats.values()]
+
+
+def moe_training(train_data: str, cv_data: str, dict_path: str) -> dict:
+    """bin.train on the MoE Conformer for one epoch and a rescoring
+    recognize of its checkpoint; launch counts of that run."""
+    cfg_path = os.path.join(WORK, "train_conformer_moe.json")
+    with open(cfg_path, "w") as f:
+        json.dump(MOE_TRAIN_CONFIG, f)
+    exp = os.path.join(WORK, "exp_moe")
+    _reset_counts()
+    t0 = time.perf_counter()
+    state = train_cli.main(["--config", cfg_path, "--train_data", train_data,
+                            "--cv_data", cv_data, "--dict", dict_path,
+                            "--exp_dir", exp, "--device", "cuda",
+                            "--num_workers", "4"])
+    torch.cuda.synchronize()
+    out = {"train_wall_s": time.perf_counter() - t0}
+    hyp = os.path.join(WORK, "moe_hyp.txt")
+    recognize.main(["--config", os.path.join(exp, "train.json"),
+                    "--checkpoint", os.path.join(exp, "epoch_1.pt"),
+                    "--test_data", cv_data, "--dict", dict_path,
+                    "--result_file", hyp, "--mode", "attention_rescoring",
+                    "--batch_size", str(N_CV), "--beam_size", str(BEAM),
+                    "--reverse_weight", "0.3", "--device", "cuda"])
+    out["launches"] = _counts()
+    with open(hyp, encoding="utf-8") as f:
+        out["decoded"] = sum(1 for _ in f)
+    if out["decoded"] != N_CV:
+        raise AssertionError(f"MoE recognize wrote {out['decoded']} lines")
+    with open(os.path.join(exp, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    steps = [r for r in records if r["kind"] == "train"]
+    out["step_losses"] = [r["loss"] for r in steps]
+    out["moe_aux"] = [r.get("moe_aux") for r in steps]
+    if len(steps) != state.step or not all(
+            math.isfinite(r["loss"]) and r.get("moe_aux") is not None
+            and math.isfinite(r["moe_aux"]) for r in steps):
+        raise AssertionError(f"MoE training records: {steps}")
+    out["epoch"] = next(r for r in records if r["kind"] == "epoch")
+    n_cv = len(AudioDataset(cv_data, load_dict(dict_path),
+                            batch_type="dynamic", max_frames_in_batch=10000))
+    out["n_train_steps"], out["n_cv_batches"] = state.step, n_cv
+    check_train_counts(out, out["launches"])
+    # the trained model's drops on the first training batches
+    model = recognize.load_model(
+        json.load(open(os.path.join(exp, "train.json"))),
+        os.path.join(exp, "epoch_1.pt"), VOCAB, torch.device("cuda"))
+    dc = TRAIN_CONFIG["dataset_conf"]
+    ds = AudioDataset(train_data, load_dict(dict_path),
+                      max_length=dc["max_length"], min_length=dc["min_length"],
+                      batch_type="dynamic",
+                      max_frames_in_batch=dc["max_frames_in_batch"])
+    batches = [_features(AudioCollate()(ds[i])[1], torch.device("cuda"),
+                         FrontendConfig()) for i in range(min(3, len(ds)))]
+    out["dropped_pair_share_per_layer"] = moe_drop_fractions(model, batches)
+    return out
+
+
+def moe_layer_gpu_vs_cpu(b: int, t: int) -> dict:
+    """One float32 MoE FFN at full width (d 256, 1024 hidden, 4 experts,
+    top-2, cf 1.25, swish) on a [b, t, 256] input with ragged padding:
+    the card against the CPU, output, aux and the kept pairs. The
+    router's bias favours expert 0, so it saturates and pairs drop."""
+    gen = torch.Generator().manual_seed(SEED)
+    cpu = MoEPositionwiseFeedForward(256, 1024, 4, 2, 1.25,
+                                     get_activation("swish"))
+    with torch.no_grad():
+        for p in cpu.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen)
+                    * (p.shape[-2] ** -0.5 if p.dim() > 1 else 0.1))
+        cpu.router.bias.copy_(torch.tensor([20.0, 0.0, 0.0, 0.0]))
+    x = torch.randn(b, t, 256, generator=gen)
+    lens = torch.randint(t // 2, t + 1, (b,), generator=gen)
+    mask = (torch.arange(t)[None, :] < lens[:, None])[:, None, :]
+    gpu = copy.deepcopy(cpu).cuda()
+    with torch.no_grad():
+        y, aux = cpu(x, mask)
+        keep = cpu.route(x, mask)[2]
+        y_g, aux_g = gpu(x.cuda(), mask.cuda())
+        keep_g = gpu.route(x.cuda(), mask.cuda())[2].cpu()
+    err = float((y_g.cpu() - y).abs().max())
+    out = {"shape": [b, t, 256], "max_abs_err": err,
+           "max_abs_y": float(y.abs().max()),
+           "aux_rel_err": abs(float(aux_g) - float(aux)) / float(aux),
+           "kept_pairs": int(keep.sum()),
+           "dropped_pairs": int(mask.sum()) * 2 - int(keep.sum()),
+           "kept_sets_equal": bool(torch.equal(keep, keep_g))}
+    if not out["kept_sets_equal"] or err > MOE_TOL * out["max_abs_y"] \
+            or out["aux_rel_err"] > 1e-5 or not out["dropped_pairs"]:
+        raise AssertionError(f"MoE layer GPU vs CPU: {out}")
+    return out
+
+
+# ---------------------------------------------------------------- dist
+
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _start_role(role: str, *args, env: dict | list | None = None) -> list:
+    """Start this script in `role`, one process per env in `env`."""
+    envs = env if isinstance(env, list) else [env or {}]
+    return [subprocess.Popen(
+        ["python3", os.path.abspath(__file__), role, *map(str, args)],
+        env=dict(os.environ, **e), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for e in envs]
+
+
+def _wait_role(role: str, procs: list, timeout: int = 420) -> None:
+    """Wait for every process of `role`; raises if one fails."""
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, o in zip(procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"{role} failed ({p.returncode}): "
+                                 f"{o[-3000:]}")
+
+
+def dist_world1(train_data: str, dict_path: str) -> dict:
+    """(a) bin.train of the flagship in float32 with dropout 0, once
+    alone and once as a one-rank NCCL world (the distributed path: the
+    loss shares, the flat all-reduce, the metric sums), deterministic
+    algorithms on: the step metrics and epoch_1.pt must be bit-equal.
+    Then one all-reduce of the model's gradient buffer, timed."""
+    with open(train_data, encoding="utf-8") as f:
+        lines = f.readlines()[:30]
+    manifest = os.path.join(WORK, "dist.data")
+    with open(manifest, "w", encoding="utf-8") as f:
+        f.writelines(lines)
+    _wait_role("dist_world1", _start_role(
+        "dist_world1", WORK, manifest, dict_path,
+        env={"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}))
+    with open(os.path.join(WORK, "dist_world1.json")) as f:
+        return json.load(f)
+
+
+def dist_world1_role(work: str, manifest: str, dict_path: str) -> None:
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.use_deterministic_algorithms(True)
+    cfg = dict(TRAIN_CONFIG, max_epoch=1, model_conf=dict(
+        TRAIN_CONFIG["model_conf"], compute_dtype="float32",
+        dropout_rate=0.0))
+    cfg_path = os.path.join(work, "dist_world1.json.cfg.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    runs = {}
+    port = _free_port()
+    for name in ("alone", "nccl"):
+        exp = os.path.join(work, f"exp_dist_{name}")
+        if name == "nccl":
+            os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                              LOCAL_WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
+                              MASTER_PORT=str(port))
+        t0 = time.perf_counter()
+        train_cli.main(["--config", cfg_path, "--train_data", manifest,
+                        "--cv_data", manifest, "--dict", dict_path,
+                        "--exp_dir", exp, "--device", "cuda",
+                        "--num_workers", "2"])
+        torch.cuda.synchronize()
+        with open(os.path.join(exp, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        runs[name] = {
+            "wall_s": time.perf_counter() - t0,
+            "steps": [{k: r[k] for k in ("loss", "acc", "grad_norm",
+                                         "skipped")}
+                      for r in recs if r["kind"] == "train"],
+            "epoch": next(r for r in recs if r["kind"] == "epoch"),
+            "params": torch.load(os.path.join(exp, "epoch_1.pt"),
+                                 weights_only=True)}
+    a, b = runs["alone"], runs["nccl"]
+    unequal = [k for k in a["params"]
+               if not torch.equal(a["params"][k], b["params"][k])]
+    out = {"steps": a["steps"], "steps_equal": a["steps"] == b["steps"],
+           "n_steps": len(a["steps"]), "params_unequal": unequal,
+           "train_loss_equal": (a["epoch"]["train_loss"]
+                                == b["epoch"]["train_loss"]),
+           "wall_s": {k: v["wall_s"] for k, v in runs.items()}}
+    if not out["steps_equal"] or unequal or not out["n_steps"]:
+        raise AssertionError(f"NCCL world 1 vs alone: {out}, "
+                             f"{b['steps']}")
+    # one flat all-reduce of a float32 buffer the size of the gradients
+    import torch.distributed as dist
+    from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
+    os.environ["MASTER_PORT"] = str(_free_port())
+    dist.init_process_group("nccl", rank=0, world_size=1)
+    try:
+        grads = [torch.randn(v.shape, device="cuda")
+                 for v in a["params"].values() if v.is_floating_point()]
+        flat = _flatten_dense_tensors(grads)
+        out["grad_numel"] = flat.numel()
+        out["all_reduce_ms"] = event_ms(lambda: dist.all_reduce(flat), 20)
+
+
+        def step_reduce():   # what apply_update does on a mesh
+            buf = _flatten_dense_tensors(grads)
+            dist.all_reduce(buf)
+            for g, r in zip(grads, _unflatten_dense_tensors(buf, grads)):
+                g.copy_(r)
+
+        out["flatten_all_reduce_unflatten_ms"] = event_ms(step_reduce, 10)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(work, "dist_world1.json"), "w") as f:
+        json.dump(out, f)
+
+
+def dist_two_ranks(train_data: str, dict_path: str) -> list:
+    """(b) two ranks sharing the card over gloo (NCCL takes one rank a
+    device): one float32 SGD step at dp = 2, one at tp = 2 and one of the
+    MoE Conformer at dp = 2 with capacity factor 0.5 (at most half the
+    routed pairs fit, so tokens drop), each against the one-rank step on
+    the same global batch of 4 utterances. Starts the two processes;
+    check_two_ranks waits for them."""
+    port = _free_port()
+    return _start_role("dist_rank", WORK, train_data, dict_path, env=[
+        {"RANK": str(r), "WORLD_SIZE": "2", "MASTER_ADDR": "127.0.0.1",
+         "MASTER_PORT": str(port)} for r in range(2)])
+
+
+def check_two_ranks(procs: list) -> dict:
+    _wait_role("dist_rank", procs)
+    with open(os.path.join(WORK, "dist_two_ranks.json")) as f:
+        out = json.load(f)
+    if sorted(out) != ["dp2", "moe_dp2", "tp2"] or not all(
+            v["ok"] for v in out.values()):
+        raise AssertionError(f"two ranks vs one: {out}")
+    return out
+
+
+def dist_rank_role(work: str, train_data: str, dict_path: str) -> None:
+    import torch.distributed as dist
+    from datetime import timedelta
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank = int(os.environ["RANK"])
+    dist.init_process_group("gloo", rank=rank, world_size=2,
+                            timeout=timedelta(seconds=300))
+    dev = torch.device("cuda", 0)
+    try:
+        batch = _features(_host_batches(train_data, dict_path, 4), dev,
+                          FrontendConfig())
+        out = {}
+        for name, dp, tp, overrides in (
+                ("dp2", 2, 1, {}), ("tp2", 1, 2, {}),
+                ("moe_dp2", 2, 1, dict(MOE_KEYS, moe_capacity_factor=0.5))):
+            ref = _flagship("float32", 0.0, **overrides).to(dev)
+            par = copy.deepcopy(ref)
+            mesh = mesh_lib.make_mesh(dp, tp)
+            mesh_lib.apply_mesh(par, mesh)
+            rows = mesh.rows(4)
+            t0 = time.perf_counter()
+            opt, sched = build_optimizer(par, 1.0, 1, "sgd")
+            m_par = build_train_step(sched, 1, 5.0, mesh=mesh)(
+                TrainState(par, opt), {k: v[rows] for k, v in batch.items()},
+                None)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            full = mesh_lib.full_state_dict(par, mesh)
+            if rank:
+                continue
+            start = {k: v.clone() for k, v in ref.state_dict().items()}
+            opt, sched = build_optimizer(ref, 1.0, 1, "sgd")
+            m_ref = build_train_step(sched, 1, 5.0)(TrainState(ref, opt),
+                                                     batch, None)
+            rel = {k: abs(float(m_par[k]) - float(m_ref[k]))
+                   / max(abs(float(m_ref[k])), 1e-30)
+                   for k in m_ref if k != "skipped"}
+            # the step's tolerances (the same arithmetic summed in another
+            # order): losses within STEP_LOSS_TOL, the norm within
+            # STEP_GRAD_TOL, each tensor's update (SGD at lr 1: the
+            # clipped gradient) within STEP_GRAD_TOL of its largest plus
+            # 1e-5 of the model's largest, as gpu_vs_cpu_step holds
+            # gradients
+            after = ref.state_dict()
+            steps = {k: float((after[k] - start[k]).abs().max())
+                     for k in start}
+            floor = 1e-5 * max(steps.values())
+            worst = max((float((full[k] - after[k]).abs().max())
+                         / (STEP_GRAD_TOL * steps[k] + floor), k)
+                        for k in start)
+            out[name] = {"metrics": {k: float(v) for k, v in m_ref.items()},
+                         "rel_err": rel, "worst_update_err_over_tol": worst,
+                         "step_wall_s": wall,
+                         "sharded": sum(hasattr(p, "tp_dim")
+                                        for p in par.parameters()),
+                         "ok": (max(v for k, v in rel.items()
+                                    if k != "grad_norm") <= STEP_LOSS_TOL
+                                and rel["grad_norm"] <= STEP_GRAD_TOL
+                                and worst[0] <= 1.0)}
+        if rank == 0:
+            with open(os.path.join(work, "dist_two_ranks.json"), "w") as f:
+                json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------- main
@@ -2302,6 +2676,15 @@ def main() -> None:
     os.makedirs(WORK)
     os.makedirs(OUT_DIR, exist_ok=True)
     t_start = time.perf_counter()
+    phase_s = report["phase_s"] = {}
+    clock = [t_start]
+
+    def lap(name: str) -> None:
+        """Seconds since the last lap, under `name`."""
+        now = time.perf_counter()
+        phase_s[name] = now - clock[0]
+        clock[0] = now
+
     try:
         t0 = time.perf_counter()
         sources = [dw.SOURCE, ctc.SOURCE]
@@ -2354,6 +2737,7 @@ def main() -> None:
             rows.append(row)
             print("K3 " + json.dumps(row), flush=True)
         report["k3_cases"] = rows
+        lap("k3_forward_cases")
 
         # ---- training kernels at the training run's shapes and beyond
         train_grad_shapes = sorted({(b, t + 14, 256, 15)
@@ -2375,6 +2759,7 @@ def main() -> None:
             grad_rows.append(row)
             print("K3 bwd " + json.dumps(row), flush=True)
         report["k3_backward_cases"] = grad_rows
+        lap("k3_backward_cases")
         report["k3_kernels_per_call"] = k3_kernels_per_call(
             [(8, 212, 256, 15, torch.float32),
              (8, 212, 256, 15, torch.bfloat16),
@@ -2400,6 +2785,7 @@ def main() -> None:
             ctc_rows.append(row)
             print("CTC " + json.dumps(row), flush=True)
         report["ctc_cases"] = ctc_rows
+        lap("ctc_cases")
 
         # ---- slice 1: the decode path through the entry point
         cfg32 = write_config("float32")
@@ -2439,6 +2825,7 @@ def main() -> None:
             runs.append(run)
             print("decode " + json.dumps(run), flush=True)
         report["decode_runs"] = runs
+        lap("decode_runs")
         report["audio_s"] = audio_s
         report["cpu_parity"] = compare_with_cpu(cfg32, ckpt, manifest,
                                                 dict_path)
@@ -2450,6 +2837,7 @@ def main() -> None:
         report["breakdown"] = stage_breakdown(cfg32, ckpt, manifest,
                                               dict_path, torch.device("cuda"))
         print("breakdown " + json.dumps(report["breakdown"]), flush=True)
+        lap("decode_checks_breakdown")
 
         # ---- slice 2: training through the entry point
         _reset_counts()
@@ -2459,12 +2847,36 @@ def main() -> None:
         train_run["launches"] = train_counts
         train_run["audio_s_per_epoch"] = train_audio_s
         report["train_run"] = train_run
+        lap("train_run")
         print("train " + json.dumps({k: v for k, v in train_run.items()
                                      if k != "epochs"}), flush=True)
         report["recipe"] = run_recipe(os.path.join(WORK, "exp"), train_data,
                                       cv_data, dict_path)
         print("recipe " + json.dumps({k: v for k, v in report["recipe"].items()
                                       if k != "decodes"}), flush=True)
+        lap("recipe")
+
+        # ---- slice 9: the MoE Conformer through bin/train and recognize,
+        # then the distributed paths (one NCCL rank; two gloo ranks)
+        t0 = time.perf_counter()
+        # the two-rank check runs in child processes beside the MoE
+        # phase (correctness only; the MoE times reported are the
+        # breakdown's, taken alone at the end)
+        two_ranks = dist_two_ranks(train_data, dict_path)
+        moe = moe_training(train_data, cv_data, dict_path)
+        print("moe " + json.dumps({k: v for k, v in moe.items()
+                                   if k not in ("step_losses", "moe_aux")}),
+              flush=True)
+        moe["layer_gpu_vs_cpu"] = moe_layer_gpu_vs_cpu(*tshapes[0][:2])
+        print("moe_layer " + json.dumps(moe["layer_gpu_vs_cpu"]), flush=True)
+        report["moe"] = moe
+        report["dist_two_ranks"] = check_two_ranks(two_ranks)
+        print("dist_two_ranks " + json.dumps(report["dist_two_ranks"]),
+              flush=True)
+        report["dist_world1"] = dist_world1(train_data, dict_path)
+        print("dist_world1 " + json.dumps(report["dist_world1"]), flush=True)
+        report["moe_dist_wall_s"] = time.perf_counter() - t0
+        lap("moe_dist")
 
         # ---- slice 7: streaming through its entry points
         cfg_s32 = write_stream_config("float32")
@@ -2476,6 +2888,7 @@ def main() -> None:
         t0 = time.perf_counter()
         report["stream"] = stream_checks(cfg_s32, ckpt_s, manifest)
         report["stream"]["checks_wall_s"] = time.perf_counter() - t0
+        lap("stream_checks")
         with K3Trace() as trace:
             report["stream_cli"] = stream_cli_runs(
                 cfg_s32, cfg_s16, ckpt_s, manifest, dict_path, t_enc)
@@ -2492,6 +2905,7 @@ def main() -> None:
                                       for k, v in chunk_tally.items()}
         report["stream_idle"] = stream_idle(cfg_s32, ckpt_s, manifest)
         print("stream_idle " + json.dumps(report["stream_idle"]), flush=True)
+        lap("stream_cli_idle")
 
         # ---- slice 8: serving and int8 through their entry points
         t0 = time.perf_counter()
@@ -2501,6 +2915,7 @@ def main() -> None:
         report["int8"] = int8_checks(cfg_s32, ckpt_s, cfg32, ckpt, manifest,
                                      dict_path, report["serve"]["finals"])
         report["serve_int8_wall_s"] = time.perf_counter() - t0
+        lap("serve_int8")
         # K3's launches at the chunk-step shape while serving
         serve_launches = (report["serve"]["k3_launches"]
                           + report["serve"]["profiled_k3_launches"]
@@ -2514,8 +2929,9 @@ def main() -> None:
             {k: v for k, v in report["stream_training"].items()
              if k != "cv"}), flush=True)
         stream_train_k3 = report["stream_training"]["launches"]
-        train_counts = {k: v + stream_train_k3[k]
+        train_counts = {k: v + stream_train_k3[k] + moe["launches"][k]
                         for k, v in train_counts.items()}
+        lap("stream_training")
 
         report["train_step_gpu_vs_cpu"] = gpu_vs_cpu_step(train_data,
                                                           dict_path)
@@ -2523,9 +2939,15 @@ def main() -> None:
               + json.dumps(report["train_step_gpu_vs_cpu"]), flush=True)
         report["overfit"] = overfit(train_data, dict_path)
         print("overfit " + json.dumps(report["overfit"]), flush=True)
+        lap("gpu_vs_cpu_overfit")
         report["train_breakdown"] = train_breakdown(train_data, dict_path)
         print("train_breakdown " + json.dumps(report["train_breakdown"]),
               flush=True)
+        report["moe_breakdown"] = train_breakdown(train_data, dict_path,
+                                                  **MOE_KEYS)
+        print("moe_breakdown " + json.dumps(report["moe_breakdown"]),
+              flush=True)
+        lap("train_breakdowns")
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     report["wall_s"] = time.perf_counter() - t_start
@@ -2583,6 +3005,7 @@ def main() -> None:
     report["kernels"] = kernels
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
+    print("phase_s " + json.dumps(phase_s), flush=True)
     print(f"wall {report['wall_s']:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}))
@@ -2591,5 +3014,11 @@ def main() -> None:
         "count": torch.cuda.device_count()}}))
 
 
+ROLES = {"dist_world1": dist_world1_role, "dist_rank": dist_rank_role}
+
 if __name__ == "__main__":
-    main()
+    import sys
+    if len(sys.argv) > 1:   # a child process of the dist phase
+        ROLES[sys.argv[1]](*sys.argv[2:])
+    else:
+        main()

@@ -18,8 +18,16 @@ times_ms} of the CTC emission onsets (one encoder position = subsampling
 rate x 10 ms) in the CTC-alignment modes. --quantize int8 decodes with
 int8 weight-only Dense weights (utils/quantize.py).
 
-Not ported yet, refused with NotImplementedError: --dp other than 1,
---bpe_model, --data_type feat/kaldi and WeNet-layout configs.
+--dp N (-1: every rank) decodes under torchrun, one process per rank
+(openeat_torch/parallel/mesh.py): every batch is padded to --batch_size,
+which must be a multiple of N, as the JAX entry point pads and shards
+it; rank r decodes rows [r*B/N, (r+1)*B/N), a mixture-of-experts
+encoder routing with the global batch's capacity, and the first rank
+gathers the rows and writes the result and timestamp files, the same
+bytes as --dp 1.
+
+Not ported yet, refused with NotImplementedError: --bpe_model,
+--data_type feat/kaldi and WeNet-layout configs.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from openeat_torch.config import load_config
 from openeat_torch.dataset.dataset import (AudioCollate, AudioDataset,
@@ -46,6 +55,7 @@ from openeat_torch.models.asr_model import ASRModel, build_asr_model
 from openeat_torch.models.language_model import (LanguageModel,
                                                  build_language_model)
 from openeat_torch.ops.frontend import FrontendConfig
+from openeat_torch.parallel.mesh import apply_mesh, close_mesh, init_mesh
 from openeat_torch.pipeline import DeviceFeeder
 from openeat_torch.utils.common import init_logger, resolve_device
 from openeat_torch.utils.param_bridge import flax_to_state_dict
@@ -98,7 +108,6 @@ def get_parser() -> argparse.ArgumentParser:
 def refuse_unported(args, cfg: dict) -> None:
     """Raise NotImplementedError for what this port does not do yet."""
     later = {
-        "--dp": (args.dp != 1, "the parallel-layout slice"),
         "--bpe_model": (args.bpe_model is not None,
                         "a later slice (BPE tokenizer)"),
         "--data_type feat/kaldi": (args.data_type != "wav",
@@ -179,9 +188,22 @@ def main(argv=None):
                          "ctc_greedy_search / ctc_prefix_beam_search / "
                          "attention_rescoring)")
     device = resolve_device(args.device)
+    mesh, device = init_mesh(args.dp, 1, device)
+    try:
+        if mesh is not None and args.batch_size % mesh.dp:
+            raise ValueError(f"--batch_size {args.batch_size} must be a "
+                             f"multiple of --dp {mesh.dp}")
+        _decode(args, cfg, device, mesh, logger)
+    finally:
+        close_mesh(mesh)
+
+
+def _decode(args, cfg: dict, device: torch.device, mesh, logger) -> None:
+    want_times = args.timestamp_file is not None
     char_dict = load_dict(args.dict_path)
     model = load_model(cfg, args.checkpoint, len(char_dict), device,
                        args.quantize)
+    apply_mesh(model, mesh)
     id2tok = {v: k for k, v in char_dict.items()}
     collate_conf = dict(cfg.get("collate_conf", {}) or {})
     fe_conf = collate_conf.get("feature_extraction_conf", {}) or {}
@@ -197,7 +219,7 @@ def main(argv=None):
         collate_conf).without_augmentation()
     feeder = DeviceFeeder(PrefetchLoader(test_ds, collate, num_workers=4),
                           frontend, device,
-                          pad_batch_multiple=args.batch_size)
+                          pad_batch_multiple=args.batch_size, mesh=mesh)
 
     lm_logp_fn, lm_style, ngram = None, "ar", None
     if args.lm_weight > 0 and args.lm_config and args.lm_checkpoint:
@@ -207,79 +229,99 @@ def main(argv=None):
         lm_logp_fn = lm.log_probs if lm.autoregressive else lm.mlm_log_probs
     elif args.lm_weight > 0 and args.ngram_lm:
         ngram = load_lm(args.ngram_lm)
-    ts_out = (open(args.timestamp_file, "w", encoding="utf-8")
-              if want_times else None)
 
+    writer = mesh is None or dist.get_rank() == 0
+    fout = ts_out = None
+    if writer:
+        os.makedirs(os.path.dirname(os.path.abspath(args.result_file)),
+                    exist_ok=True)
+        fout = open(args.result_file, "w", encoding="utf-8")
+        if want_times:
+            ts_out = open(args.timestamp_file, "w", encoding="utf-8")
     n_done = 0
-    os.makedirs(os.path.dirname(os.path.abspath(args.result_file)),
-                exist_ok=True)
-    with open(args.result_file, "w", encoding="utf-8") as fout, \
-            torch.inference_mode():
-        for keys, batch in feeder:
-            enc, enc_lens = model.encode(batch["features"],
-                                         batch["features_length"])
-            times = None
-            if args.mode == "attention":
-                max_steps = min(int(enc.shape[1]), args.max_hyp_len)
-                if args.adaptive_steps:
-                    _, glens = ctc_greedy_search(model.ctc_log_probs(enc),
-                                                 enc_lens)
-                    max_steps = adaptive_max_steps(glens, cap=max_steps)
-                hyps, hyp_lens, _ = attention_decode(
-                    model, enc, enc_lens, beam_size=args.beam_size,
-                    max_steps=max_steps, length_penalty=args.length_penalty)
-            elif args.mode == "ctc_greedy_search":
-                out = ctc_greedy_search(model.ctc_log_probs(enc), enc_lens,
-                                        return_times=want_times)
-                hyps, hyp_lens = out[:2]
-                if want_times:
-                    times = out[2]
-            else:
-                out = ctc_prefix_beam_search(
-                    model.ctc_log_probs(enc), enc_lens,
-                    beam_size=args.beam_size, max_hyp_len=args.max_hyp_len,
-                    return_times=want_times)
-                nbest, nbest_lens, nbest_scores = out[:3]
-                if args.mode == "ctc_prefix_beam_search":
-                    win = torch.zeros(len(nbest), dtype=torch.long)
-                    hyps, hyp_lens = nbest[:, 0], nbest_lens[:, 0]
-                elif ngram is not None:
-                    hyps, hyp_lens, win = _ngram_rescore(
-                        model, enc, enc_lens, nbest, nbest_lens,
-                        nbest_scores, ngram, id2tok, args)
-                else:
-                    hyps, hyp_lens, _, win = attention_rescoring(
-                        model, enc, enc_lens, nbest, nbest_lens,
-                        nbest_scores, ctc_weight=args.ctc_weight,
-                        reverse_weight=args.reverse_weight,
-                        lm_logp_fn=lm_logp_fn,
-                        lm_weight=args.lm_weight if lm_logp_fn else 0.0,
-                        lm_style=lm_style)
-                if want_times:
-                    times = out[3].cpu()[torch.arange(len(nbest)),
-                                         torch.as_tensor(win).cpu()]
-            hyps = torch.as_tensor(hyps).cpu().numpy()
-            hyp_lens = torch.as_tensor(hyp_lens).cpu().numpy()
-            if times is not None:
-                times = times.cpu().numpy()
-            for i, key in enumerate(keys):
-                text = token_ids_to_text(hyps[i][: hyp_lens[i]], id2tok,
-                                         eos_id=model.eos)
-                fout.write(f"{key} {text}\n")
-                if ts_out is not None:
-                    n = int(hyp_lens[i])
-                    toks = [id2tok.get(int(t), "<unk>") for t in hyps[i][:n]]
-                    ts_out.write(json.dumps(
-                        {"key": key, "tokens": toks,
-                         "times_ms": [float(t * POS_MS)
-                                      for t in times[i][:n]]},
-                        ensure_ascii=False) + "\n")
-            n_done += len(keys)
-            logger.info("decoded %d utts", n_done)
+    try:
+        with torch.inference_mode():
+            for keys, batch in feeder:
+                rows = _decode_rows(model, batch, args, lm_logp_fn,
+                                    lm_style, ngram, id2tok)
+                if mesh is not None:
+                    parts = [None] * mesh.dp
+                    dist.all_gather_object(parts, rows,
+                                           group=mesh.data_group)
+                    rows = [r for part in parts for r in part]
+                n_done += len(keys)
+                if not writer:
+                    continue
+                for key, (toks, times) in zip(keys, rows):
+                    text = token_ids_to_text(toks, id2tok, eos_id=model.eos)
+                    fout.write(f"{key} {text}\n")
+                    if ts_out is not None:
+                        ts_out.write(json.dumps(
+                            {"key": key,
+                             "tokens": [id2tok.get(t, "<unk>")
+                                        for t in toks],
+                             "times_ms": [float(t * POS_MS) for t in times]},
+                            ensure_ascii=False) + "\n")
+                logger.info("decoded %d utts", n_done)
+    finally:
+        for f in (fout, ts_out):
+            if f is not None:
+                f.close()
     if ts_out is not None:
-        ts_out.close()
         logger.info("wrote %s", args.timestamp_file)
-    logger.info("wrote %s", args.result_file)
+    if writer:
+        logger.info("wrote %s", args.result_file)
+
+
+def _decode_rows(model, batch, args, lm_logp_fn, lm_style, ngram,
+                 id2tok) -> list[tuple[list[int], list]]:
+    """Decode one batch; (token ids, CTC times or []) per row."""
+    want_times = args.timestamp_file is not None
+    enc, enc_lens = model.encode(batch["features"], batch["features_length"])
+    times = None
+    if args.mode == "attention":
+        max_steps = min(int(enc.shape[1]), args.max_hyp_len)
+        if args.adaptive_steps:
+            _, glens = ctc_greedy_search(model.ctc_log_probs(enc), enc_lens)
+            max_steps = adaptive_max_steps(glens, cap=max_steps)
+        hyps, hyp_lens, _ = attention_decode(
+            model, enc, enc_lens, beam_size=args.beam_size,
+            max_steps=max_steps, length_penalty=args.length_penalty)
+    elif args.mode == "ctc_greedy_search":
+        out = ctc_greedy_search(model.ctc_log_probs(enc), enc_lens,
+                                return_times=want_times)
+        hyps, hyp_lens = out[:2]
+        if want_times:
+            times = out[2]
+    else:
+        out = ctc_prefix_beam_search(
+            model.ctc_log_probs(enc), enc_lens, beam_size=args.beam_size,
+            max_hyp_len=args.max_hyp_len, return_times=want_times)
+        nbest, nbest_lens, nbest_scores = out[:3]
+        if args.mode == "ctc_prefix_beam_search":
+            win = torch.zeros(len(nbest), dtype=torch.long)
+            hyps, hyp_lens = nbest[:, 0], nbest_lens[:, 0]
+        elif ngram is not None:
+            hyps, hyp_lens, win = _ngram_rescore(
+                model, enc, enc_lens, nbest, nbest_lens, nbest_scores, ngram,
+                id2tok, args)
+        else:
+            hyps, hyp_lens, _, win = attention_rescoring(
+                model, enc, enc_lens, nbest, nbest_lens, nbest_scores,
+                ctc_weight=args.ctc_weight,
+                reverse_weight=args.reverse_weight, lm_logp_fn=lm_logp_fn,
+                lm_weight=args.lm_weight if lm_logp_fn else 0.0,
+                lm_style=lm_style)
+        if want_times:
+            times = out[3].cpu()[torch.arange(len(nbest)),
+                                 torch.as_tensor(win).cpu()]
+    hyps = torch.as_tensor(hyps).cpu().numpy()
+    hyp_lens = torch.as_tensor(hyp_lens).cpu().numpy()
+    if times is not None:
+        times = times.cpu().numpy()
+    return [([int(t) for t in hyps[i][: hyp_lens[i]]],
+             [] if times is None else times[i][: hyp_lens[i]].tolist())
+            for i in range(len(hyps))]
 
 
 def _ngram_rescore(model, enc, enc_lens, nbest, nbest_lens, nbest_scores,

@@ -1,4 +1,4 @@
-"""ASR training entry point (PyTorch, one device).
+"""ASR training entry point (PyTorch).
 
 Port of openeat_tpu/bin/train.py: the same flags, plus --device (default
 cuda; cpu must be asked for). Per epoch: train (dynamic batches in a
@@ -14,11 +14,21 @@ masks throughout, or with use_dynamic_chunk a chunk size drawn per
 batch from the epoch's dropout generator in training, the cv pass
 full-context.
 
+Data, tensor and expert parallelism: run one process per card under
+torchrun with --dp N --tp M (or mesh_conf data/model; N * M ranks, --dp
+-1 the rest), as openeat_torch/parallel/mesh.py describes. Every rank
+reads the same seeded batch order, pads each batch to a multiple of its
+data ranks and takes its rows; with --multihost the loader splits the
+batches by node instead, as the JAX trainer splits them by process.
+Each data rank's dropout generator folds its data rank into the seed.
+The first rank alone writes train.json, the checkpoints (gathered to
+full tensors), optimizer.pt, metrics.jsonl and train.log; the logged
+metrics are the global batch's.
+
 Refused with NotImplementedError, each naming the slice that brings it:
---bpe_model, --data_type feat/kaldi, --dp/--tp other than 1,
---multihost, --only_adapter, --cmvn_file (and checkpoints carrying
-global CMVN statistics), --profile_dir, speed perturbation and wav
-dither in the config.
+--bpe_model, --data_type feat/kaldi, --only_adapter, --cmvn_file (and
+checkpoints carrying global CMVN statistics), --profile_dir, speed
+perturbation and wav dither in the config.
 """
 
 from __future__ import annotations
@@ -30,13 +40,18 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from openeat_torch.config import TrainConfig, load_config
+from openeat_torch.config import TrainConfig, load_config, mesh_layout
 from openeat_torch.dataset.dataset import (AudioCollate, AudioDataset,
                                            PrefetchLoader)
 from openeat_torch.dataset.text import load_dict
 from openeat_torch.models.asr_model import build_asr_model, init_parameters
 from openeat_torch.ops.frontend import FrontendConfig
+from openeat_torch.parallel.mesh import (apply_mesh, close_mesh,
+                                         full_optimizer_state,
+                                         full_state_dict, init_mesh,
+                                         shard_optimizer_state)
 from openeat_torch.parallel.train_step import (TrainState, build_eval_step,
                                                build_train_step)
 from openeat_torch.pipeline import DeviceFeeder
@@ -91,9 +106,6 @@ def refuse_unported(args, cfg: dict) -> None:
                         "a later slice (BPE tokenizer)"),
         "--data_type feat/kaldi": (args.data_type != "wav",
                                    "a later slice (kaldi ark input)"),
-        "--dp/--tp": (args.dp not in (None, 1) or args.tp not in (None, 1),
-                      "the parallel-layout slice"),
-        "--multihost": (args.multihost, "the parallel-layout slice"),
         "--only_adapter": (args.only_adapter, "a later slice (adapters)"),
         "--cmvn_file": (args.cmvn_file is not None,
                         "a later slice (global CMVN)"),
@@ -113,11 +125,41 @@ def refuse_unported(args, cfg: dict) -> None:
                 f"with {where}")
 
 
-def dropout_seed(seed: int, epoch: int) -> int:
+def dropout_seed(seed: int, epoch: int, data_rank: int | None = None
+                 ) -> int:
     """Seed of an epoch's dropout generator: a stream apart from the
     frontend's and the loader's (seed + epoch), and the same on a
-    resumed run as on an uninterrupted one."""
-    return int(np.random.SeedSequence([seed, epoch]).generate_state(1)[0])
+    resumed run as on an uninterrupted one. Under data parallelism each
+    data rank folds its rank in, so the ranks draw different masks for
+    their different rows."""
+    entropy = [seed, epoch] + ([] if data_rank is None else [data_rank])
+    return int(np.random.SeedSequence(entropy).generate_state(1)[0])
+
+
+def frontend_seed(seed: int, epoch: int, mesh) -> int:
+    """Seed of an epoch's SpecAugment generator: seed + epoch, the JAX
+    feeder's; under --multihost each node draws for its own batches
+    from its own stream."""
+    if mesh is None or mesh.nodes == 1:
+        return seed + epoch
+    return int(np.random.SeedSequence(seed + epoch, spawn_key=(mesh.node,))
+               .generate_state(1)[0])
+
+
+def writes_files(mesh) -> bool:
+    """Whether this rank writes the run's files (the first rank)."""
+    return mesh is None or dist.get_rank() == 0
+
+
+def file_logger(exp_dir: str, mesh):
+    """(logger, handler) with train.log attached on the writing rank."""
+    logger = init_logger()
+    if not writes_files(mesh):
+        return logger, None
+    log_file = logging.FileHandler(os.path.join(exp_dir, "train.log"))
+    log_file.setFormatter(logging.Formatter(LOG_FORMAT))
+    logger.addHandler(log_file)
+    return logger, log_file
 
 
 def main(argv=None) -> TrainState:
@@ -125,20 +167,22 @@ def main(argv=None) -> TrainState:
     cfg = load_config(args.config)
     refuse_unported(args, cfg)
     device = resolve_device(args.device)
-    os.makedirs(args.exp_dir, exist_ok=True)
-    logger = init_logger()
-    log_file = logging.FileHandler(os.path.join(args.exp_dir, "train.log"))
-    log_file.setFormatter(logging.Formatter(LOG_FORMAT))
-    logger.addHandler(log_file)
+    mesh, device = init_mesh(*mesh_layout(cfg, args.dp, args.tp), device,
+                             args.multihost)
+    log_file = None
     try:
-        return _train(args, cfg, device, logger)
+        os.makedirs(args.exp_dir, exist_ok=True)
+        logger, log_file = file_logger(args.exp_dir, mesh)
+        return _train(args, cfg, device, logger, mesh)
     finally:
-        logger.removeHandler(log_file)
-        log_file.close()
+        if log_file is not None:
+            logger.removeHandler(log_file)
+            log_file.close()
+        close_mesh(mesh)
 
 
-def _train(args, cfg: dict, device: torch.device,
-           logger: logging.Logger) -> TrainState:
+def _train(args, cfg: dict, device: torch.device, logger: logging.Logger,
+           mesh) -> TrainState:
     train_cfg = TrainConfig.from_dict(cfg)
     if args.max_epoch is not None:
         train_cfg.max_epoch = args.max_epoch
@@ -177,12 +221,25 @@ def _train(args, cfg: dict, device: torch.device,
     model_conf = dict(cfg.get("model_conf", {}) or {})
     model = build_asr_model(model_conf, input_size, vocab_size)
     init_parameters(model, make_generator(seed))
+    if ckpt_src is not None:
+        mods = args.init_mods.split(",")
+        new, copied = ckpt_lib.load_trained_modules(model.state_dict(),
+                                                    ckpt_src, mods)
+        model.load_state_dict(new)
+        logger.info("initialized %d tensors from %s", len(copied),
+                    args.checkpoint)
     model.to(device)
+    apply_mesh(model, mesh)
+    if mesh is not None:
+        logger.info("mesh data %d x model %d (%d nodes), rank %d on %s",
+                    mesh.dp, mesh.tp, mesh.nodes, dist.get_rank(), device)
+    writer = writes_files(mesh)
 
     resolved = dict(cfg, input_size=input_size, vocab_size=vocab_size,
                     use_global_cmvn=False)
-    with open(os.path.join(args.exp_dir, "train.json"), "w") as f:
-        json.dump(resolved, f, indent=1)
+    if writer:
+        with open(os.path.join(args.exp_dir, "train.json"), "w") as f:
+            json.dump(resolved, f, indent=1)
 
     steps_per_epoch = max(len(train_ds), 1)
     warmup_steps = (train_cfg.warmup_steps if train_cfg.warmup_steps
@@ -192,53 +249,62 @@ def _train(args, cfg: dict, device: torch.device,
     state = TrainState(model, optimizer)
 
     start_epoch = 0
-    if ckpt_src is not None:
-        mods = args.init_mods.split(",")
-        new, copied = ckpt_lib.load_trained_modules(model.state_dict(),
-                                                    ckpt_src, mods)
-        model.load_state_dict(new)
-        logger.info("initialized %d tensors from %s", len(copied),
-                    args.checkpoint)
-        if ckpt_info.get("epoch") is not None:
-            start_epoch = int(ckpt_info["epoch"])
-            state.step = int(ckpt_info.get("step", 0))
-            opt_path = os.path.join(
-                os.path.dirname(os.path.abspath(args.checkpoint)),
-                "optimizer.pt")
-            if os.path.exists(opt_path):
-                saved = ckpt_lib.load_optimizer(opt_path)
-                if int(saved.get("epoch", -1)) == start_epoch:
-                    optimizer.load_state_dict(saved["optimizer"])
-                    state.n_applied = int(saved["n_applied"])
-                    logger.info("restored optimizer state (epoch %d)",
-                                start_epoch)
+    if ckpt_src is not None and ckpt_info.get("epoch") is not None:
+        start_epoch = int(ckpt_info["epoch"])
+        state.step = int(ckpt_info.get("step", 0))
+        opt_path = os.path.join(
+            os.path.dirname(os.path.abspath(args.checkpoint)),
+            "optimizer.pt")
+        if os.path.exists(opt_path):
+            saved = ckpt_lib.load_optimizer(opt_path)
+            if int(saved.get("epoch", -1)) == start_epoch:
+                optimizer.load_state_dict(shard_optimizer_state(
+                    saved["optimizer"], optimizer, mesh))
+                state.n_applied = int(saved["n_applied"])
+                logger.info("restored optimizer state (epoch %d)",
+                            start_epoch)
 
     executor = Executor(
-        build_train_step(schedule, train_cfg.accum_grad, train_cfg.grad_clip),
-        build_eval_step(model), schedule, train_cfg.log_interval, logger,
-        metrics_file=os.path.join(args.exp_dir, "metrics.jsonl"))
+        build_train_step(schedule, train_cfg.accum_grad, train_cfg.grad_clip,
+                         mesh=mesh),
+        build_eval_step(model, mesh=mesh), schedule, train_cfg.log_interval,
+        logger, metrics_file=os.path.join(args.exp_dir, "metrics.jsonl"),
+        mesh=mesh)
+    shard = ({} if mesh is None or mesh.nodes == 1 else
+             {"shard_id": mesh.node, "num_shards": mesh.nodes})
+    feed = {} if mesh is None else {"mesh": mesh,
+                                    "pad_batch_multiple": mesh.local_dp}
+    data_rank = None if mesh is None or mesh.dp == 1 else mesh.data_rank
     for epoch in range(start_epoch, train_cfg.max_epoch):
         train_feed = DeviceFeeder(
             PrefetchLoader(train_ds, collate, args.num_workers,
-                           shuffle_batches=True, seed=seed + epoch),
-            frontend, device, train=True, seed=seed + epoch,
-            accum_grad=train_cfg.accum_grad)
-        dropout_gen = make_generator(dropout_seed(seed, epoch), device)
+                           shuffle_batches=True, seed=seed + epoch, **shard),
+            frontend, device, train=True,
+            seed=frontend_seed(seed, epoch, mesh),
+            accum_grad=train_cfg.accum_grad, **feed)
+        dropout_gen = make_generator(dropout_seed(seed, epoch, data_rank),
+                                     device)
         summary = executor.train(state, (b for _, b in train_feed),
                                  dropout_gen, epoch)
         cv_feed = DeviceFeeder(PrefetchLoader(cv_ds, collate,
-                                              args.num_workers),
-                               frontend.without_augmentation(), device)
+                                              args.num_workers, **shard),
+                               frontend.without_augmentation(), device,
+                               **feed)
         cv_metrics = executor.cv((b for _, b in cv_feed), epoch)
         info = {"epoch": epoch + 1, "step": state.step,
                 "n_applied": state.n_applied,
                 "lr": schedule(state.n_applied), **cv_metrics, **summary}
         logger.info("epoch %d done: %s", epoch, info)
-        ckpt_lib.save_checkpoint(args.exp_dir, f"epoch_{epoch + 1}",
-                                 model.state_dict(), info)
-        if args.save_optimizer:
-            ckpt_lib.save_optimizer(args.exp_dir, optimizer, state.n_applied,
-                                    epoch + 1, state.step)
+        weights = full_state_dict(model, mesh)
+        opt_state = (full_optimizer_state(optimizer, mesh)
+                     if args.save_optimizer else None)
+        if writer:
+            ckpt_lib.save_checkpoint(args.exp_dir, f"epoch_{epoch + 1}",
+                                     weights, info)
+            if opt_state is not None:
+                ckpt_lib.save_optimizer(args.exp_dir, opt_state,
+                                        state.n_applied, epoch + 1,
+                                        state.step)
     logger.info("training finished")
     return state
 

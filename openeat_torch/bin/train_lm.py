@@ -1,4 +1,4 @@
-"""Language-model training entry point (PyTorch, one device). Port of
+"""Language-model training entry point (PyTorch). Port of
 openeat_tpu/bin/train_lm.py, with its flags plus --device (default
 cuda; cpu must be asked for).
 
@@ -16,8 +16,15 @@ and accuracy weighted by batch size, then `epoch_N.pt` with its info
 recognize's --lm_config reads. --checkpoint initializes the weights from
 a .pt and starts at epoch 0, as the JAX trainer does.
 
-Refused with NotImplementedError: --dp/--tp other than 1 (the
-parallel-layout slice) and --bpe_model (BPE).
+--dp N --tp M (or mesh_conf) run under torchrun, one process per rank,
+as openeat_torch/parallel/mesh.py describes: each batch is wrapped
+around to a multiple of dp x accum_grad, as the JAX trainer's
+shard_batch does, and each data rank takes its rows (of each
+micro-batch); the TP rules reach the LM's embed, attention, FFN and
+output layer by the ASR model's names. The first rank alone writes the
+files.
+
+Refused with NotImplementedError: --bpe_model (BPE).
 """
 
 from __future__ import annotations
@@ -32,18 +39,20 @@ import time
 import numpy as np
 import torch
 
-from openeat_torch.bin.train import dropout_seed
-from openeat_torch.config import TrainConfig, load_config
+from openeat_torch.bin.train import dropout_seed, file_logger, writes_files
+from openeat_torch.config import TrainConfig, load_config, mesh_layout
 from openeat_torch.dataset.dataset import (PrefetchLoader, TextCollate,
                                            TextDataset)
 from openeat_torch.dataset.text import load_dict
 from openeat_torch.models.asr_model import init_parameters
 from openeat_torch.models.language_model import build_language_model
+from openeat_torch.parallel.mesh import (apply_mesh, close_mesh,
+                                         full_state_dict, init_mesh)
 from openeat_torch.parallel.train_step import (TrainState, build_eval_step,
                                                build_train_step)
+from openeat_torch.pipeline import pad_rows
 from openeat_torch.utils import checkpoint as ckpt_lib
-from openeat_torch.utils.common import (LOG_FORMAT, init_logger,
-                                        make_generator, resolve_device)
+from openeat_torch.utils.common import make_generator, resolve_device
 from openeat_torch.utils.optim import build_optimizer
 
 
@@ -70,17 +79,10 @@ def get_parser() -> argparse.ArgumentParser:
 
 
 def refuse_unported(args) -> None:
-    later = {
-        "--dp/--tp": (args.dp not in (None, 1) or args.tp not in (None, 1),
-                      "the parallel-layout slice"),
-        "--bpe_model": (args.bpe_model is not None,
-                        "a later slice (BPE tokenizer)"),
-    }
-    for what, (asked, where) in later.items():
-        if asked:
-            raise NotImplementedError(
-                f"{what} is not ported to openeat_torch yet; it comes "
-                f"with {where}")
+    if args.bpe_model is not None:
+        raise NotImplementedError(
+            "--bpe_model is not ported to openeat_torch yet; it comes "
+            "with a later slice (BPE tokenizer)")
 
 
 def lm_loss(model, batch: dict) -> dict[str, torch.Tensor]:
@@ -88,19 +90,21 @@ def lm_loss(model, batch: dict) -> dict[str, torch.Tensor]:
                  batch.get("masked_targets"))
 
 
-def to_device(batch: dict, device: torch.device, accum: int = 1) -> dict:
-    """Host batch -> int64 tensors on `device`; with accum > 1 the rows
-    are wrapped around up to a multiple of accum and laid out [accum,
-    micro, ...], as the JAX trainer's shard_batch does."""
-    b = batch["tokens"].shape[0]
-    target = -(-b // accum) * accum
-    if target != b:
-        idx = np.arange(target) % b
-        batch = {k: v[idx] for k, v in batch.items()}
+def to_device(batch: dict, device: torch.device, accum: int = 1,
+              mesh=None) -> dict:
+    """Host batch -> int64 tensors on `device`, as the JAX trainer's
+    shard_batch lays it out: the rows wrapped around up to a multiple
+    of dp x accum, [accum, micro, ...] with accum > 1, and on a mesh
+    this data rank's rows (of each micro-batch)."""
+    batch = pad_rows(batch, (1 if mesh is None else mesh.dp) * accum)
     out = {k: torch.from_numpy(np.asarray(v, np.int64)).to(device)
            for k, v in batch.items()}
     if accum > 1:
         out = {k: v.reshape((accum, -1) + v.shape[1:])
+               for k, v in out.items()}
+    if mesh is not None:
+        rows = mesh.rows(out["tokens"].shape[accum > 1])
+        out = {k: v[:, rows] if accum > 1 else v[rows]
                for k, v in out.items()}
     return out
 
@@ -110,20 +114,21 @@ def main(argv=None):
     refuse_unported(args)
     cfg = load_config(args.config)
     device = resolve_device(args.device)
-    os.makedirs(args.exp_dir, exist_ok=True)
-    logger = init_logger()
-    log_file = logging.FileHandler(os.path.join(args.exp_dir, "train.log"))
-    log_file.setFormatter(logging.Formatter(LOG_FORMAT))
-    logger.addHandler(log_file)
+    mesh, device = init_mesh(*mesh_layout(cfg, args.dp, args.tp), device)
+    log_file = None
     try:
-        return _train(args, cfg, device, logger)
+        os.makedirs(args.exp_dir, exist_ok=True)
+        logger, log_file = file_logger(args.exp_dir, mesh)
+        return _train(args, cfg, device, logger, mesh)
     finally:
-        logger.removeHandler(log_file)
-        log_file.close()
+        if log_file is not None:
+            logger.removeHandler(log_file)
+            log_file.close()
+        close_mesh(mesh)
 
 
-def _train(args, cfg: dict, device: torch.device,
-           logger: logging.Logger) -> TrainState:
+def _train(args, cfg: dict, device: torch.device, logger: logging.Logger,
+           mesh) -> TrainState:
     train_cfg = TrainConfig.from_dict(cfg)
     if args.max_epoch is not None:
         train_cfg.max_epoch = args.max_epoch
@@ -147,8 +152,11 @@ def _train(args, cfg: dict, device: torch.device,
     if args.checkpoint:
         model.load_state_dict(ckpt_lib.load_checkpoint(args.checkpoint)[0])
     model.to(device)
-    with open(os.path.join(args.exp_dir, "train.json"), "w") as f:
-        json.dump(dict(cfg, vocab_size=len(char_dict)), f, indent=1)
+    apply_mesh(model, mesh)
+    writer = writes_files(mesh)
+    if writer:
+        with open(os.path.join(args.exp_dir, "train.json"), "w") as f:
+            json.dump(dict(cfg, vocab_size=len(char_dict)), f, indent=1)
 
     steps_per_epoch = max(len(train_ds), 1)
     warmup = (train_cfg.warmup_steps if train_cfg.warmup_steps
@@ -158,18 +166,19 @@ def _train(args, cfg: dict, device: torch.device,
     state = TrainState(model, optimizer)
     accum = train_cfg.accum_grad
     train_step = build_train_step(schedule, accum, train_cfg.grad_clip,
-                                  loss_fn=lm_loss)
-    eval_step = build_eval_step(model, loss_fn=lm_loss)
+                                  loss_fn=lm_loss, mesh=mesh)
+    eval_step = build_eval_step(model, loss_fn=lm_loss, mesh=mesh)
     metrics_path = os.path.join(args.exp_dir, "metrics.jsonl")
+    data_rank = None if mesh is None or mesh.dp == 1 else mesh.data_rank
 
     for epoch in range(train_cfg.max_epoch):
         loader = PrefetchLoader(train_ds, collate, args.num_workers,
                                 shuffle_batches=True, seed=seed + epoch)
-        gen = make_generator(dropout_seed(seed, epoch), device)
+        gen = make_generator(dropout_seed(seed, epoch, data_rank), device)
         t0 = time.time()
         for i, batch in enumerate(loader):
-            m = train_step(state, to_device(batch, device, accum), gen)
-            if (i + 1) % train_cfg.log_interval == 0:
+            m = train_step(state, to_device(batch, device, accum, mesh), gen)
+            if writer and (i + 1) % train_cfg.log_interval == 0:
                 rec = {"kind": "train", "epoch": epoch, "batch": i + 1,
                        "step": state.step, "loss": float(m["loss"]),
                        "acc": float(m["acc"]),
@@ -182,7 +191,7 @@ def _train(args, cfg: dict, device: torch.device,
         n = 0
         for batch in PrefetchLoader(cv_ds, collate, args.num_workers):
             b = len(batch["tokens"])
-            m = eval_step(to_device(batch, device))
+            m = eval_step(to_device(batch, device, mesh=mesh))
             if math.isfinite(float(m["loss"])):
                 cv_loss += float(m["loss"]) * b
                 cv_acc += float(m["acc"]) * b
@@ -193,10 +202,12 @@ def _train(args, cfg: dict, device: torch.device,
                 "cv_loss": cv_loss / max(n, 1), "cv_acc": cv_acc / max(n, 1),
                 "epoch_time_s": time.time() - t0}
         logger.info("epoch %d done: %s", epoch, info)
-        with open(metrics_path, "a") as f:
-            f.write(json.dumps({"kind": "epoch", **info}) + "\n")
-        ckpt_lib.save_checkpoint(args.exp_dir, f"epoch_{epoch + 1}",
-                                 model.state_dict(), info)
+        weights = full_state_dict(model, mesh)
+        if writer:
+            with open(metrics_path, "a") as f:
+                f.write(json.dumps({"kind": "epoch", **info}) + "\n")
+            ckpt_lib.save_checkpoint(args.exp_dir, f"epoch_{epoch + 1}",
+                                     weights, info)
     logger.info("training finished")
     return state
 

@@ -1,5 +1,5 @@
-"""Config loading and the scalar training keys. Port of
-openeat_tpu/config.py:load_config and TrainConfig.
+"""Config loading, the mesh defaults and the scalar training keys. Port
+of openeat_tpu/config.py:load_config, resolve_mesh_conf and TrainConfig.
 
 JSON is read with the standard library. YAML needs PyYAML, which is
 imported only when a `.yaml`/`.yml` file is given, so a host without it
@@ -11,6 +11,9 @@ from __future__ import annotations
 import json
 from dataclasses import dataclass
 
+# mesh_conf defaults: data -1 takes the ranks the model axis leaves
+_MESH_DEFAULTS = {"data": -1, "model": 1}
+
 
 def load_config(path: str) -> dict:
     """Load a JSON or YAML config file into a plain nested dict."""
@@ -21,6 +24,19 @@ def load_config(path: str) -> dict:
             import yaml
             return yaml.safe_load(f) or {}
     raise ValueError(f"{path}: config must be .json, .yaml or .yml")
+
+
+def resolve_mesh_conf(cfg: dict) -> dict:
+    """`mesh_conf` over its defaults (unknown keys are kept)."""
+    return {**_MESH_DEFAULTS, **(cfg.get("mesh_conf", {}) or {})}
+
+
+def mesh_layout(cfg: dict, dp: int | None, tp: int | None
+                ) -> tuple[int, int]:
+    """(dp, tp) asked for: the --dp/--tp flags over mesh_conf."""
+    mesh_conf = resolve_mesh_conf(cfg)
+    return (mesh_conf["data"] if dp is None else dp,
+            mesh_conf["model"] if tp is None else tp)
 
 
 @dataclass

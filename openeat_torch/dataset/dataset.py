@@ -174,26 +174,37 @@ class PrefetchLoader:
     """Collates batches on a thread pool, `prefetch` ahead, in order or,
     with shuffle_batches, in an order drawn from seed + the number of
     passes already made (the trainer builds one loader per epoch with
-    seed + epoch, as the JAX trainer does)."""
+    seed + epoch, as the JAX trainer does).
+
+    shard_id / num_shards split the batches between the nodes of a
+    --multihost run, as the JAX loader splits them between processes:
+    every shard draws the same order, wraps it around to a multiple of
+    num_shards, and takes every num_shards-th batch from shard_id, so
+    every shard yields the same number of batches."""
 
     def __init__(self, dataset, collate, num_workers: int = 4,
                  prefetch: int = 4, shuffle_batches: bool = False,
-                 seed: int = 777):
+                 seed: int = 777, shard_id: int = 0, num_shards: int = 1):
         self.dataset = dataset
         self.collate = collate
         self.num_workers = max(1, num_workers)
         self.prefetch = max(1, prefetch)
         self.shuffle_batches = shuffle_batches
         self.seed = seed
+        self.shard_id = shard_id
+        self.num_shards = max(1, num_shards)
         self.epoch = 0
 
     def __len__(self):
-        return len(self.dataset)
+        return -(-len(self.dataset) // self.num_shards)
 
     def order(self) -> np.ndarray:
         order = np.arange(len(self.dataset))
         if self.shuffle_batches:
             np.random.default_rng(self.seed + self.epoch).shuffle(order)
+        if self.num_shards > 1:
+            order = np.resize(order, len(self) * self.num_shards)
+            order = order[self.shard_id::self.num_shards]
         return order
 
     def __iter__(self) -> Iterator:

@@ -8,6 +8,16 @@ decoder_init_cache / decoder_step; sos = eos = vocab_size - 1. The
 encoder's chunk masks (static_chunk_size, num_left_chunks,
 use_dynamic_chunk) are those of the JAX model.
 
+With moe_experts > 0 every encoder block's main FFN is a mixture of
+experts (modules/feed_forward.py); the training forward returns the
+mean of the layers' aux losses as `moe_aux`, which the train step adds
+to the loss at moe_aux_weight (the eval loss leaves it out, as the JAX
+eval step does).
+
+Under a mesh's data group (`data_group`, set by openeat_torch/parallel/
+mesh.py) every metric the forward returns is this rank's share of the
+global batch's value (openeat_torch/parallel/tensor_parallel.py).
+
 `compute_dtype` sets the activations' dtype; parameters stay float32 and
 are cast at use, as flax does, so bfloat16 compute trains float32
 parameters. Dropout acts only in ``model.train()`` and only in the
@@ -28,8 +38,10 @@ from openeat_torch.modules.convolution import DepthwiseConv1d
 from openeat_torch.modules.ctc import CTCHead
 from openeat_torch.modules.decoder import BiTransformerDecoder
 from openeat_torch.modules.encoder import TransformerEncoder
+from openeat_torch.modules.feed_forward import MoEPositionwiseFeedForward
 from openeat_torch.modules.label_smoothing import label_smoothing_loss
 from openeat_torch.modules.layers import Conv2d, Dense, Embed
+from openeat_torch.parallel.tensor_parallel import share
 from openeat_torch.utils.common import (IGNORE_ID, add_sos_eos,
                                         get_activation, reverse_pad_list,
                                         th_accuracy)
@@ -46,7 +58,7 @@ _NOT_PORTED = {
                            "a later slice (no_pos)"),
     "encoder_use_adapter": (False, "a later slice (adapters)"),
     "decoder_use_adapter": (False, "a later slice (adapters)"),
-    "moe_experts": (0, "the parallel-layout slice (mixture of experts)"),
+    "sequence_sharding": (False, "a later slice (sequence parallelism)"),
 }
 
 
@@ -83,7 +95,9 @@ class ASRModel(nn.Module):
                  reverse_weight: float = 0.0,
                  length_normalized_loss: bool = False,
                  static_chunk_size: int = 0, num_left_chunks: int = -1,
-                 use_dynamic_chunk: bool = False):
+                 use_dynamic_chunk: bool = False, moe_experts: int = 0,
+                 moe_top_k: int = 2, moe_capacity_factor: float = 1.25,
+                 moe_aux_weight: float = 0.01):
         super().__init__()
         act = get_activation(activation_type)
         self.input_size = input_size
@@ -98,13 +112,17 @@ class ASRModel(nn.Module):
         self.lsm_weight = lsm_weight
         self.reverse_weight = reverse_weight
         self.length_normalized_loss = length_normalized_loss
+        self.moe_experts = moe_experts
+        self.moe_aux_weight = moe_aux_weight
+        self.data_group = None
         self.encoder = TransformerEncoder(
             input_size, d_model, attention_heads, linear_units, act,
             pos_enc_layer_type, macaron_style, use_cnn_module,
             cnn_module_kernel, causal, encoder_num_blocks,
             encoder_num_blocks_share, use_global_cmvn, compute_dtype,
             dropout_rate, positional_dropout_rate, static_chunk_size,
-            num_left_chunks, use_dynamic_chunk)
+            num_left_chunks, use_dynamic_chunk, moe_experts, moe_top_k,
+            moe_capacity_factor)
         self.ctc = CTCHead(d_model, vocab_size, compute_dtype,
                            length_normalized_loss)
         self.decoder = BiTransformerDecoder(
@@ -128,17 +146,22 @@ class ASRModel(nn.Module):
                 chunk_size: int | torch.Tensor | None = None
                 ) -> dict[str, torch.Tensor]:
         """Joint loss. Returns the metrics dict: loss, loss_ctc, and
-        loss_att and acc when ctc_weight < 1 (acc 0 otherwise).
-        `chunk_size` replaces the dynamic chunk draw of a
-        use_dynamic_chunk model in training."""
+        loss_att and acc when ctc_weight < 1 (acc 0 otherwise), and
+        moe_aux with mixture-of-experts layers. `chunk_size` replaces the
+        dynamic chunk draw of a use_dynamic_chunk model in training."""
+        aux = [] if self.moe_experts else None
         encoder_out, out_lens, _ = self.encoder(features, features_length,
-                                                chunk_size)
-        return self._joint_loss(encoder_out, out_lens, targets,
-                                targets_length)
+                                                chunk_size, aux)
+        metrics = self._joint_loss(encoder_out, out_lens, targets,
+                                   targets_length)
+        if aux:
+            moe_aux = torch.stack(aux).sum() / len(aux)
+            metrics["moe_aux"] = share(moe_aux, self.data_group)
+        return metrics
 
     def _joint_loss(self, encoder_out, out_lens, targets, targets_length):
         loss_ctc = self.ctc.loss(encoder_out, out_lens, targets,
-                                 targets_length)
+                                 targets_length, self.data_group)
         metrics = {"loss_ctc": loss_ctc}
         if self.ctc_weight < 1.0:
             loss_att, acc = self._calc_att_loss(encoder_out, out_lens,
@@ -171,14 +194,17 @@ class ASRModel(nn.Module):
                                    tgt_mask)
         loss_att = label_smoothing_loss(left, ys_out, self.lsm_weight,
                                         IGNORE_ID,
-                                        self.length_normalized_loss)
+                                        self.length_normalized_loss,
+                                        self.data_group)
         if self.reverse_weight > 0:
             r_loss = label_smoothing_loss(right, r_ys_out, self.lsm_weight,
                                           IGNORE_ID,
-                                          self.length_normalized_loss)
+                                          self.length_normalized_loss,
+                                          self.data_group)
             loss_att = (1 - self.reverse_weight) * loss_att \
                 + self.reverse_weight * r_loss
-        return loss_att, th_accuracy(left, ys_out, IGNORE_ID)
+        return loss_att, th_accuracy(left, ys_out, IGNORE_ID,
+                                     self.data_group)
 
     # ---- decode ----
 
@@ -277,6 +303,10 @@ def build_asr_model(model_conf: dict, input_size: int, vocab_size: int,
         static_chunk_size=mc.get("static_chunk_size", 0),
         num_left_chunks=mc.get("num_left_chunks", -1),
         use_dynamic_chunk=mc.get("use_dynamic_chunk", False),
+        moe_experts=mc.get("moe_experts", 0),
+        moe_top_k=mc.get("moe_top_k", 2),
+        moe_capacity_factor=mc.get("moe_capacity_factor", 1.25),
+        moe_aux_weight=mc.get("moe_aux_weight", 0.01),
     )
 
 
@@ -294,7 +324,9 @@ def init_parameters(model: ASRModel, generator: torch.Generator) -> None:
     initializers, so a port run starts where a JAX run of the same
     config would (not from the same bits): Dense and Conv kernels
     lecun_normal over their fan-in, biases 0, LayerNorm 1 and 0,
-    embeddings normal with variance 1/d, rel-pos biases xavier_uniform."""
+    embeddings normal with variance 1/d, rel-pos biases xavier_uniform,
+    expert banks lecun_normal over their per-expert fan-in (the expert
+    axis is a batch axis) with zero biases."""
     for module in model.modules():
         if isinstance(module, (Dense, Conv2d)):
             w = module.weight
@@ -313,3 +345,8 @@ def init_parameters(model: ASRModel, generator: torch.Generator) -> None:
         elif isinstance(module, RelPositionMultiHeadedAttention):
             for p in (module.pos_bias_u, module.pos_bias_v):
                 nn.init.xavier_uniform_(p, generator=generator)
+        elif isinstance(module, MoEPositionwiseFeedForward):
+            for w in (module.w_in, module.w_out):
+                _trunc_normal_(w, w.shape[1], generator)
+            module.b_in.zero_()
+            module.b_out.zero_()

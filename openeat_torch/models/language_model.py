@@ -9,7 +9,10 @@ next-token prediction on sos-prefixed inputs against eos-terminated
 targets; False trains a masked LM on TextCollate's masked inputs with
 targets only at the masked positions. The loss is label-smoothed KL.
 log_probs (causal) and mlm_log_probs (bidirectional) are the shallow-
-fusion scores that attention rescoring reads. Modules are named
+fusion scores that attention rescoring reads. Under a mesh's data group
+(`data_group`) the loss and accuracy are this rank's shares of the
+global batch's (openeat_torch/parallel/tensor_parallel.py). Modules are
+named
 `embed`, `pos_enc`, `encoder` and `output_layer`, as in the flax tree,
 so openeat_torch/utils/param_bridge.py carries a flax LM across.
 """
@@ -48,6 +51,7 @@ class LanguageModel(nn.Module):
         self.length_normalized_loss = length_normalized_loss
         self.tie_word_embedding = tie_word_embedding
         self.compute_dtype = compute_dtype
+        self.data_group = None
         self.embed = Embed(vocab_size, d_model, compute_dtype)
         self.pos_enc = PositionalEncoding(d_model, positional_dropout_rate)
         self.encoder = Encoder(
@@ -95,8 +99,10 @@ class LanguageModel(nn.Module):
             logits = self.encode(inputs, lengths, causal=False)
             targets = masked_targets
         loss = label_smoothing_loss(logits, targets, self.lsm_weight,
-                                    IGNORE_ID, self.length_normalized_loss)
-        return {"loss": loss, "acc": th_accuracy(logits, targets, IGNORE_ID)}
+                                    IGNORE_ID, self.length_normalized_loss,
+                                    self.data_group)
+        return {"loss": loss, "acc": th_accuracy(logits, targets, IGNORE_ID,
+                                                 self.data_group)}
 
     @deterministic
     def log_probs(self, tokens: torch.Tensor,

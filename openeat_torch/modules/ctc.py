@@ -15,6 +15,7 @@ from torch import nn
 
 from openeat_torch.modules.layers import Dense
 from openeat_torch.ops.ctc_loss import ctc_loss
+from openeat_torch.parallel.tensor_parallel import global_count
 
 
 class CTCHead(nn.Module):
@@ -31,14 +32,16 @@ class CTCHead(nn.Module):
         return torch.log_softmax(self.ctc_lo(hs).float(), dim=-1)
 
     def loss(self, hs: torch.Tensor, hlens: torch.Tensor, ys: torch.Tensor,
-             ys_lens: torch.Tensor) -> torch.Tensor:
+             ys_lens: torch.Tensor, group=None) -> torch.Tensor:
         """Scalar CTC loss. hs [B, T, D]; hlens [B]; ys [B, L] (any pad);
         ys_lens [B].
 
         zero_infinity semantics: a sequence with fewer frames than labels
         plus the blanks its repeats need contributes 0. Normalised per
         token (mean of per_seq / max(ys_lens, 1)) when
-        length_normalized_loss, else sum / B."""
+        length_normalized_loss, else sum / B. With a data `group`, B is
+        the group's global batch and the result this rank's share
+        (openeat_torch/parallel/tensor_parallel.py)."""
         log_probs = self.log_softmax(hs)
         b = log_probs.shape[0]
         l = ys.shape[1]
@@ -51,5 +54,7 @@ class CTCHead(nn.Module):
         per_seq = torch.where(feasible & torch.isfinite(per_seq), per_seq,
                               0.0)
         if self.length_normalized_loss:
-            return (per_seq / ys_lens.clamp(min=1)).mean()
-        return per_seq.sum() / b
+            per_seq = per_seq / ys_lens.clamp(min=1)
+            if group is None:
+                return per_seq.mean()
+        return per_seq.sum() / global_count(b, group)

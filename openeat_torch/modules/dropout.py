@@ -7,6 +7,12 @@ byte per element and so realises a keep probability rounded to q/256
 the ``torch.Generator`` that :func:`set_generator` hands every Dropout
 of a model (and the encoder's dynamic chunk draw); training without one
 raises rather than touching the global RNG.
+
+A Dropout on an activation that tensor parallelism shards (`shard` =
+(dim, n, i): this rank holds slice i of n along dim) draws the whole
+activation's mask and keeps its slice. Every rank of a model group then
+draws the same numbers in the same order, so their generators stay in
+step and the replicated activations get the same masks on every rank.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ class Dropout(nn.Module):
             raise ValueError(f"dropout rate {rate} not in [0, 1)")
         self.rate = float(rate)
         self.generator: torch.Generator | None = None
+        self.shard: tuple[int, int, int] | None = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
@@ -30,8 +37,14 @@ class Dropout(nn.Module):
             raise RuntimeError("Dropout in training mode needs a generator; "
                                "call openeat_torch.modules.dropout."
                                "set_generator(model, generator)")
-        keep = torch.rand(x.shape, generator=self.generator,
-                          device=x.device) >= self.rate
+        shape = list(x.shape)
+        if self.shard is not None:
+            dim, n, i = self.shard
+            shape[dim] *= n
+        u = torch.rand(shape, generator=self.generator, device=x.device)
+        if self.shard is not None:
+            u = u.narrow(dim, i * x.shape[dim], x.shape[dim])
+        keep = u >= self.rate
         scale = 1.0 / (1.0 - self.rate)
         return torch.where(keep, x * scale, torch.zeros((), dtype=x.dtype,
                                                         device=x.device))

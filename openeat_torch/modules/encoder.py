@@ -38,7 +38,8 @@ class Encoder(nn.Module):
                  activation: Callable, macaron_style: bool,
                  use_cnn_module: bool, cnn_module_kernel: int, causal: bool,
                  num_blocks: int, num_blocks_share: int, dtype: torch.dtype,
-                 dropout_rate: float = 0.0):
+                 dropout_rate: float = 0.0, moe_experts: int = 0,
+                 moe_top_k: int = 2, moe_capacity_factor: float = 1.25):
         super().__init__()
         self.num_blocks_share = num_blocks_share
         self.num_layers = num_blocks // num_blocks_share
@@ -46,7 +47,9 @@ class Encoder(nn.Module):
             self.add_module(f"layer_{i}", EncoderLayer(
                 d_model, attention_heads, linear_units, activation,
                 macaron_style, use_cnn_module, cnn_module_kernel, causal,
-                dtype, dropout_rate))
+                dtype, dropout_rate, moe_experts=moe_experts,
+                moe_top_k=moe_top_k,
+                moe_capacity_factor=moe_capacity_factor))
         self.after_norm = LayerNorm(d_model, 1e-5, dtype)
 
     def applications(self) -> list[EncoderLayer]:
@@ -54,9 +57,9 @@ class Encoder(nn.Module):
         return [getattr(self, f"layer_{i}") for i in range(self.num_layers)
                 for _ in range(self.num_blocks_share)]
 
-    def forward(self, xs, mask, pos_emb, mask_pad=None):
+    def forward(self, xs, mask, pos_emb, mask_pad=None, moe_aux=None):
         for layer in self.applications():
-            xs = layer(xs, mask, pos_emb, mask_pad)
+            xs = layer(xs, mask, pos_emb, mask_pad, moe_aux)
         return self.after_norm(xs)
 
     def forward_chunk(self, xs, k_caches, v_caches, kv_mask, cnn_caches,
@@ -88,7 +91,8 @@ class TransformerEncoder(nn.Module):
                  dropout_rate: float = 0.0,
                  positional_dropout_rate: float = 0.0,
                  static_chunk_size: int = 0, num_left_chunks: int = -1,
-                 use_dynamic_chunk: bool = False):
+                 use_dynamic_chunk: bool = False, moe_experts: int = 0,
+                 moe_top_k: int = 2, moe_capacity_factor: float = 1.25):
         super().__init__()
         self.dtype = dtype
         self.d_model = d_model
@@ -108,7 +112,8 @@ class TransformerEncoder(nn.Module):
         self.encoders = Encoder(
             d_model, attention_heads, linear_units, activation,
             macaron_style, use_cnn_module, cnn_module_kernel, causal,
-            num_blocks, num_blocks_share, dtype, dropout_rate)
+            num_blocks, num_blocks_share, dtype, dropout_rate, moe_experts,
+            moe_top_k, moe_capacity_factor)
 
     def _chunk_mask(self, t: int, device: torch.device,
                     chunk_size: int | None) -> torch.Tensor | None:
@@ -137,9 +142,11 @@ class TransformerEncoder(nn.Module):
         return None
 
     def forward(self, xs: torch.Tensor, xs_lens: torch.Tensor,
-                chunk_size: int | torch.Tensor | None = None):
+                chunk_size: int | torch.Tensor | None = None,
+                moe_aux: list | None = None):
         """xs: [B, T, F] features; xs_lens: [B]; chunk_size: the dynamic
-        chunk size to use in place of the training draw.
+        chunk size to use in place of the training draw; moe_aux: a list
+        that each MoE layer application appends its aux loss to.
         Returns (encoder_out [B, T', D], out_lens [B], pos_emb [1, T', D])."""
         if self.use_global_cmvn:
             xs = self.global_cmvn(xs)
@@ -149,7 +156,7 @@ class TransformerEncoder(nn.Module):
         cm = self._chunk_mask(xs.shape[1], xs.device, chunk_size)
         if cm is not None:
             mask = mask & cm[None]
-        xs = self.encoders(xs, mask, pos_emb, mask_pad)
+        xs = self.encoders(xs, mask, pos_emb, mask_pad, moe_aux)
         return xs, out_lens, pos_emb
 
     def forward_chunk(self, feat_window: torch.Tensor,

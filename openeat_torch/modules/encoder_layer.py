@@ -8,6 +8,12 @@ Each branch's output passes dropout at dropout_rate before the residual
 add; attention probabilities drop at attention_dropout_rate (0.0 in the
 JAX modules). `forward_chunk` runs the same order on one chunk, with
 the attention's K/V history and the conv cache, and no dropout.
+
+With moe_experts > 0 the main FFN is MoEPositionwiseFeedForward (the
+macaron FFN stays dense): `forward` routes with the padding mask and
+appends the layer's aux loss to `moe_aux` when given one;
+`forward_chunk` routes each row's chunk on its own with no pad mask, so
+a chunk has its own capacity, as the JAX layer's streaming step has.
 """
 
 from __future__ import annotations
@@ -21,7 +27,8 @@ from openeat_torch.modules.attention import (MultiHeadedAttention,
                                              RelPositionMultiHeadedAttention)
 from openeat_torch.modules.convolution import ConvolutionModule
 from openeat_torch.modules.dropout import Dropout
-from openeat_torch.modules.feed_forward import PositionwiseFeedForward
+from openeat_torch.modules.feed_forward import (MoEPositionwiseFeedForward,
+                                                PositionwiseFeedForward)
 from openeat_torch.modules.layers import LayerNorm
 
 
@@ -31,7 +38,8 @@ class EncoderLayer(nn.Module):
                  use_cnn_module: bool = True, cnn_module_kernel: int = 15,
                  causal: bool = False, dtype: torch.dtype = torch.float32,
                  dropout_rate: float = 0.0,
-                 attention_dropout_rate: float = 0.0):
+                 attention_dropout_rate: float = 0.0, moe_experts: int = 0,
+                 moe_top_k: int = 2, moe_capacity_factor: float = 1.25):
         super().__init__()
         ln = lambda: LayerNorm(d_model, 1e-12, dtype)  # noqa: E731
         ffn = lambda: PositionwiseFeedForward(  # noqa: E731
@@ -53,15 +61,23 @@ class EncoderLayer(nn.Module):
                 d_model, cnn_module_kernel, activation, causal, dtype)
             self.norm_final = ln()
         self.norm_ff = ln()
-        self.feed_forward = ffn()
+        self.moe = moe_experts > 0
+        if self.moe:
+            self.feed_forward = MoEPositionwiseFeedForward(
+                d_model, linear_units, moe_experts, moe_top_k,
+                moe_capacity_factor, activation, dtype, dropout_rate)
+        else:
+            self.feed_forward = ffn()
         self.drop = Dropout(dropout_rate)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor,
                 pos_emb: torch.Tensor,
-                mask_pad: torch.Tensor | None = None) -> torch.Tensor:
+                mask_pad: torch.Tensor | None = None,
+                moe_aux: list | None = None) -> torch.Tensor:
         """x: [B, T, D]; mask: bool [B, 1, T] attention mask (True =
-        attend); mask_pad: bool [B, 1, T] for the conv module (defaults
-        to mask); pos_emb: [1, T, D]."""
+        attend); mask_pad: bool [B, 1, T] for the conv module and the
+        MoE router (defaults to mask); pos_emb: [1, T, D]; moe_aux: a
+        list that an MoE layer appends its aux loss to."""
         if mask_pad is None:
             mask_pad = mask
         if self.macaron_style:
@@ -71,7 +87,13 @@ class EncoderLayer(nn.Module):
         x = x + self.drop(self.self_attn(h, h, h, mask, pos_emb))
         if self.use_cnn_module:
             x = x + self.drop(self.conv_module(self.norm_conv(x), mask_pad))
-        x = x + self.ff_scale * self.drop(self.feed_forward(self.norm_ff(x)))
+        if self.moe:
+            h, aux = self.feed_forward(self.norm_ff(x), mask_pad)
+            if moe_aux is not None:
+                moe_aux.append(aux)
+        else:
+            h = self.feed_forward(self.norm_ff(x))
+        x = x + self.ff_scale * self.drop(h)
         if self.use_cnn_module:
             x = self.norm_final(x)
         return x
@@ -93,5 +115,13 @@ class EncoderLayer(nn.Module):
         x = x + h
         h, new_cnn = self.conv_module(self.norm_conv(x), None, cnn_cache)
         x = x + h
-        x = x + self.ff_scale * self.feed_forward(self.norm_ff(x))
+        h = self.norm_ff(x)
+        if self.moe:
+            # each row is a stream: it routes its chunk alone, with the
+            # chunk's capacity, as the JAX runtimes' single-stream step
+            # (vmapped over the slots) does
+            h = torch.cat([self.feed_forward(row[None])[0] for row in h])
+        else:
+            h = self.feed_forward(h)
+        x = x + self.ff_scale * h
         return self.norm_final(x), k_new, v_new, new_cnn

@@ -5,20 +5,24 @@ KL(smoothed one-hot || softmax(logits)) with the off-target mass
 smoothing / (V-1), padding positions dropped, normalised by the batch
 size or by the valid token count. The entropy term is a constant but is
 kept, computed in float32 as the JAX module does, so that the values
-match.
+match. With a data `group`, the denominator is the group's global one
+and the result this rank's share
+(openeat_torch/parallel/tensor_parallel.py).
 """
 
 from __future__ import annotations
 
 import torch
 
+from openeat_torch.parallel.tensor_parallel import global_count, global_sum
 from openeat_torch.utils.common import IGNORE_ID
 
 
 def label_smoothing_loss(logits: torch.Tensor, target: torch.Tensor,
                          smoothing: float = 0.1,
                          padding_idx: int = IGNORE_ID,
-                         normalize_length: bool = False) -> torch.Tensor:
+                         normalize_length: bool = False,
+                         group=None) -> torch.Tensor:
     """logits: [B, L, V] float32; target: [B, L] with padding_idx pads."""
     b, _, v = logits.shape
     logp = torch.log_softmax(logits.float(), dim=-1)
@@ -32,5 +36,6 @@ def label_smoothing_loss(logits: torch.Tensor, target: torch.Tensor,
              + (v - 1) * off * torch.log(torch.tensor(off + 1e-38, **f32)))
     cross = confidence * onehot_logp + off * (logp.sum(dim=-1) - onehot_logp)
     kl = torch.where(valid, p_ent - cross, 0.0)
-    denom = valid.sum().clamp(min=1) if normalize_length else b
+    denom = (global_sum(valid.sum(), group).clamp(min=1) if normalize_length
+             else global_count(b, group))
     return kl.sum() / denom

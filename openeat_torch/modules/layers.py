@@ -4,7 +4,9 @@ and cast, together with the input, to the compute dtype at use.
 These stand in for flax.linen's Dense, LayerNorm, Conv and Embed in the
 ported modules. Weights are in PyTorch's layout (Linear [out, in], Conv2d
 [out, in, kh, kw]); openeat_torch/utils/param_bridge.py converts from
-flax's.
+flax's. A Dense or Embed that openeat_torch/parallel/mesh.py shards over
+the mesh's model group holds its shard and runs the sharded forward of
+openeat_torch/parallel/tensor_parallel.py; unsharded, tp_mode is None.
 """
 
 from __future__ import annotations
@@ -12,6 +14,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from openeat_torch.parallel import tensor_parallel as tp
 
 
 class Dense(nn.Linear):
@@ -27,6 +31,8 @@ class Dense(nn.Linear):
         self.compute_dtype = dtype
         self.register_buffer("q", None)
         self.register_buffer("scale", None)
+        self.tp_mode: str | None = None   # "column", "gather" or "row"
+        self.tp_group = None
 
     def dense_weight(self) -> torch.Tensor:
         """The weight [out, in] in the compute dtype."""
@@ -35,6 +41,8 @@ class Dense(nn.Linear):
         return (self.q.float() * self.scale[:, None]).to(self.compute_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp_mode is not None:
+            return tp.dense_forward(self, x)
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
         return F.linear(x.to(dt), self.dense_weight(), bias)
@@ -71,11 +79,16 @@ class Embed(nn.Embedding):
                  dtype: torch.dtype = torch.float32):
         super().__init__(num, dim)
         self.compute_dtype = dtype
+        self.tp_group = None   # set when the table is vocab-sharded
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        if self.tp_group is not None:
+            return tp.embed_forward(self, ids)
         return F.embedding(ids, self.weight).to(self.compute_dtype)
 
     def attend(self, x: torch.Tensor) -> torch.Tensor:
         """Tied output head: x @ embedding^T in the compute dtype."""
+        if self.tp_group is not None:
+            return tp.embed_attend(self, x)
         dt = self.compute_dtype
         return F.linear(x.to(dt), self.weight.to(dt))

@@ -6,6 +6,11 @@ dither, spec-substitute and SpecAugment, drawn from a generator the
 caller owns, with padded frames zeroed again. Waveform dither
 (``wav_dither``) needs the fbank's dither path and is refused until a
 later slice brings it.
+
+A data-parallel rank computes the features of its rows only (`rows` of
+a batch whose lengths are `batch_lens`) but draws the augmentation for
+the whole batch and keeps its rows' draws, so that its rows equal the
+single-process run's rows of that batch.
 """
 
 from __future__ import annotations
@@ -68,13 +73,23 @@ class FrontendConfig:
             normalization=self.normalization)
 
 
+def feature_lengths(wav_lens: torch.Tensor,
+                    cfg: FrontendConfig) -> torch.Tensor:
+    """The fbank frame count of each waveform length."""
+    return fbank_mod.num_frames(
+        wav_lens, int(cfg.sample_rate * cfg.frame_length_ms / 1000.0),
+        int(cfg.sample_rate * cfg.frame_shift_ms / 1000.0))
+
+
 def augment_features(feats: torch.Tensor, flens: torch.Tensor,
                      cfg: FrontendConfig, train: bool = False,
-                     generator: torch.Generator | None = None
-                     ) -> torch.Tensor:
+                     generator: torch.Generator | None = None,
+                     batch_flens: torch.Tensor | None = None,
+                     rows: slice = slice(None)) -> torch.Tensor:
     """Feature-level tail, in the JAX order: per-utterance
     normalization, then (train only) dither, spec-sub and SpecAugment,
-    padded frames zeroed."""
+    padded frames zeroed. feats are `rows` of a batch with frame counts
+    `batch_flens` (default: feats is the whole batch)."""
     t = feats.shape[1]
     valid = (torch.arange(t, device=feats.device)[None, :]
              < flens[:, None])[..., None]
@@ -86,27 +101,38 @@ def augment_features(feats: torch.Tensor, flens: torch.Tensor,
         return feats
     if generator is None:
         raise ValueError("training-time augmentation needs a generator")
+    lens = flens if batch_flens is None else batch_flens
     if cfg.feature_dither:
-        feats = specaug.feature_dither(feats, cfg.feature_dither, generator)
+        feats = feats + specaug.draw_feature_dither(
+            (lens.shape[0],) + feats.shape[1:], cfg.feature_dither,
+            generator, feats.device)[rows]
     if cfg.spec_sub:
-        feats = specaug.spec_substitute(feats, flens, generator,
-                                        cfg.spec_sub_max_t, cfg.spec_sub_num)
+        spans = specaug.draw_spec_substitute(lens, generator,
+                                             cfg.spec_sub_max_t,
+                                             cfg.spec_sub_num)
+        feats = specaug.apply_spec_substitute(
+            feats, *(x[:, rows] for x in spans))
     if cfg.spec_aug:
-        feats = specaug.spec_augment(feats, flens, generator,
-                                     cfg.spec_aug_num_t, cfg.spec_aug_num_f,
-                                     cfg.spec_aug_max_t, cfg.spec_aug_max_f)
+        spans = specaug.draw_spec_augment(
+            lens, feats.shape[2], generator, cfg.spec_aug_num_t,
+            cfg.spec_aug_num_f, cfg.spec_aug_max_t, cfg.spec_aug_max_f)
+        feats = specaug.apply_spec_augment(feats,
+                                           *(x[rows] for x in spans))
         feats = torch.where(valid, feats, 0.0)
     return feats
 
 
 def compute_features(wav: torch.Tensor, wav_lens: torch.Tensor,
                      cfg: FrontendConfig, train: bool = False,
-                     generator: torch.Generator | None = None
+                     generator: torch.Generator | None = None,
+                     batch_lens: torch.Tensor | None = None,
+                     rows: slice = slice(None)
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """[B, N] waveforms (x32768 scaled, float32 or int16) -> ([B, T, M]
     features, [B] lengths). With train=False every augmentation of `cfg`
     is skipped, as the JAX frontend does; train=True draws them from
-    `generator`."""
+    `generator`, for the whole batch of waveform lengths `batch_lens`
+    whose `rows` wav holds (default: wav is the whole batch)."""
     if train and cfg.wav_dither:
         raise NotImplementedError(
             "wav_dither is not ported to openeat_torch yet; it comes with "
@@ -116,4 +142,7 @@ def compute_features(wav: torch.Tensor, wav_lens: torch.Tensor,
         num_mel_bins=cfg.num_mel_bins,
         frame_length_ms=cfg.frame_length_ms,
         frame_shift_ms=cfg.frame_shift_ms)
-    return augment_features(feats, flens, cfg, train, generator), flens
+    batch_flens = (None if batch_lens is None
+                   else feature_lengths(batch_lens, cfg))
+    return augment_features(feats, flens, cfg, train, generator,
+                            batch_flens, rows), flens

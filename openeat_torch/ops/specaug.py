@@ -5,7 +5,9 @@ random spans drawn against each utterance's own length.
 
 Each augmentation is split into drawing its random spans (from a
 ``torch.Generator`` on the features' device) and applying given spans,
-so that a test can hand the port the spans that JAX drew.
+so that a data-parallel rank applies its rows of the whole batch's
+draw (ops/frontend.py) and a test can hand the port the spans that JAX
+drew.
 """
 
 from __future__ import annotations
@@ -35,12 +37,6 @@ def draw_feature_dither(shape, max_dither: float, generator: torch.Generator,
     batch (reference dataset.py:199-201)."""
     a = torch.rand((), generator=generator, device=device) * max_dither
     return (torch.rand(shape, generator=generator, device=device) - 0.5) * a
-
-
-def feature_dither(feats: torch.Tensor, max_dither: float,
-                   generator: torch.Generator) -> torch.Tensor:
-    return feats + draw_feature_dither(feats.shape, max_dither, generator,
-                                       feats.device)
 
 
 def _rand_span(upper: torch.Tensor, max_len: int, shape: tuple,
@@ -80,16 +76,6 @@ def apply_spec_augment(feats: torch.Tensor, ts, tl, fs, fl) -> torch.Tensor:
     return torch.where(masked, SPEC_MASK_VALUE, feats)
 
 
-def spec_augment(feats: torch.Tensor, feat_lens: torch.Tensor,
-                 generator: torch.Generator, num_t_mask: int = 2,
-                 num_f_mask: int = 2, max_t: int = 50,
-                 max_f: int = 10) -> torch.Tensor:
-    """SpecAugment time and frequency zero-masks, batched."""
-    spans = draw_spec_augment(feat_lens, feats.shape[2], generator,
-                              num_t_mask, num_f_mask, max_t, max_f)
-    return apply_spec_augment(feats, *spans)
-
-
 def draw_spec_substitute(feat_lens: torch.Tensor, generator: torch.Generator,
                          max_t: int = 20, num_t_sub: int = 3):
     """(start, length, pos), each [num_t_sub, B]: start ~ U[0, len-1],
@@ -122,11 +108,3 @@ def apply_spec_substitute(feats: torch.Tensor, start, length,
         src = torch.where(in_span, idx - ps[:, None], idx).clamp(0, t - 1)
         y = y.gather(1, src[..., None].expand(-1, -1, f))
     return y
-
-
-def spec_substitute(feats: torch.Tensor, feat_lens: torch.Tensor,
-                    generator: torch.Generator, max_t: int = 20,
-                    num_t_sub: int = 3) -> torch.Tensor:
-    """Copy an earlier time span over a later one, num_t_sub times."""
-    return apply_spec_substitute(
-        feats, *draw_spec_substitute(feat_lens, generator, max_t, num_t_sub))

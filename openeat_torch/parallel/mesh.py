@@ -1,0 +1,349 @@
+"""The ('data', 'model') mesh over torch.distributed ranks, the
+tensor-parallel rules, and gathering a sharded model back. Port of
+openeat_tpu/parallel/mesh.py.
+
+Process model. The JAX package drives every chip of a host from one
+process and lets GSPMD place the collectives. The port runs one process
+per card, as PyTorch does: the entry points run under torchrun
+
+    python -m torch.distributed.run --nproc_per_node N \\
+        -m openeat_torch.bin.train --dp N ...
+
+which sets RANK, WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE, MASTER_ADDR
+and MASTER_PORT. `init_mesh` reads them and starts the process group:
+NCCL on --device cuda (each rank on cuda:LOCAL_RANK), gloo on --device
+cpu, with no fallback from one to the other. --dp N --tp M must give
+N * M == WORLD_SIZE (ValueError otherwise); --dp -1 takes WORLD_SIZE //
+M, the JAX remainder rule. Without a torchrun environment, dp = tp = 1
+is the single-process path, unchanged, with no mesh at all; any other
+layout raises rather than training one rank alone.
+
+World rank = data_rank * tp + model_rank, the row-major device grid of
+the JAX mesh, so a model group is tp consecutive ranks. The data group
+(the ranks of one model rank) sums the gradients once per optimizer
+step and the loss denominators; the model group shards the layers the
+TP rules reach:
+
+- FFN w_1 column-parallel and w_2 row-parallel, when the hidden width
+  divides by tp;
+- attention q/k/v/pos column-parallel over the heads and linear_out
+  row-parallel, with pos_bias_u/v split by heads, when d_model and the
+  head count divide by tp (JAX splits the columns whatever the heads;
+  the port splits whole heads);
+- embed vocab-parallel, ctc_lo and output_layer column-parallel with
+  the logits gathered, when the vocab divides by tp. At the AIShell
+  vocab of 4233 they stay replicated, as in JAX, and the vocab is not
+  padded;
+- the MoE expert banks by experts, when E divides by tp (the router
+  stays replicated).
+
+Everything else is replicated. Dropout masks: the trainer seeds one
+generator per data rank, so the ranks of a model group draw the same
+masks, and a dropout inside a sharded region draws the whole mask and
+keeps its slice (modules/dropout.py).
+
+With --multihost (the JAX package's one process per host) the ranks of
+a node form one "process" of the JAX CLI: the loader shards batches by
+node, each node pads its batch to a multiple of its data ranks, and the
+global batch is node 0's rows, then node 1's, and so on.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+from dataclasses import dataclass
+from typing import Any
+
+import torch
+import torch.distributed as dist
+from torch import nn
+
+from openeat_torch.modules.attention import (MultiHeadedAttention,
+                                             RelPositionMultiHeadedAttention)
+from openeat_torch.modules.feed_forward import (MoEPositionwiseFeedForward,
+                                                PositionwiseFeedForward)
+from openeat_torch.modules.layers import Dense, Embed
+from openeat_torch.parallel.tensor_parallel import all_gather_rows
+
+COL, ROW = (None, "model"), ("model", None)
+# openeat_tpu/parallel/mesh.py:TP_RULES: (regex over the flax parameter
+# path 'a/b/c', partition spec); the first match wins
+TP_RULES: list[tuple[str, tuple]] = [
+    (r".*(feed_forward|feed_forward_macaron)/w_1/kernel$", COL),
+    (r".*(feed_forward|feed_forward_macaron)/w_2/kernel$", ROW),
+    (r".*(linear_q|linear_k|linear_v|linear_pos)/kernel$", COL),
+    (r".*linear_out/kernel$", ROW),
+    (r".*embed/embedding$", ROW),
+    (r".*output_layer/kernel$", COL),
+    (r".*ctc_lo/kernel$", COL),
+    (r".*(down_proj)/kernel$", COL),
+    (r".*(up_proj)/kernel$", ROW),
+    (r".*feed_forward/w_in$", ("model", None, None)),
+    (r".*feed_forward/w_out$", ("model", None, None)),
+    (r".*feed_forward/b_in$", ("model", None)),
+    (r".*feed_forward/b_out$", ("model", None)),
+]
+
+
+def param_spec(path: str) -> tuple:
+    """The partition spec of a flax parameter path; () = replicated."""
+    for pattern, spec in TP_RULES:
+        if re.match(pattern, path):
+            return spec
+    return ()
+
+
+@dataclass
+class Mesh:
+    dp: int
+    tp: int
+    data_rank: int
+    model_rank: int
+    data_group: Any
+    model_group: Any     # None when tp == 1
+    nodes: int = 1       # > 1 under --multihost
+
+    @property
+    def local_dp(self) -> int:
+        """Data ranks on one node: the multiple a node's batch pads to."""
+        return self.dp // self.nodes
+
+    @property
+    def node(self) -> int:
+        return self.data_rank // self.local_dp
+
+    def rows(self, n: int) -> slice:
+        """This rank's rows of its node's batch of n rows (n a multiple
+        of local_dp)."""
+        k = n // self.local_dp
+        j = self.data_rank % self.local_dp
+        return slice(j * k, (j + 1) * k)
+
+
+def resolve_layout(dp: int, tp: int, world: int) -> tuple[int, int]:
+    """(dp, tp) for `world` ranks; dp -1 takes world // tp."""
+    tp = max(1, tp)
+    if dp == -1:
+        dp = world // tp
+    if dp < 1 or dp * tp != world:
+        raise ValueError(f"--dp {dp} x --tp {tp} must equal the "
+                         f"{world} ranks of WORLD_SIZE")
+    return dp, tp
+
+
+def make_mesh(dp: int, tp: int, nodes: int = 1) -> Mesh:
+    """The mesh over the initialised process group's ranks; every rank
+    calls it, and every rank creates every group in the same order."""
+    world, rank = dist.get_world_size(), dist.get_rank()
+    dp, tp = resolve_layout(dp, tp, world)
+    if dp % nodes:
+        raise ValueError(f"{dp} data ranks do not split over {nodes} nodes")
+    data_rank, model_rank = divmod(rank, tp)
+    data_group = model_group = None
+    for m in range(tp):
+        g = dist.new_group([d * tp + m for d in range(dp)])
+        if m == model_rank:
+            data_group = g
+    if tp > 1:
+        for d in range(dp):
+            g = dist.new_group([d * tp + m for m in range(tp)])
+            if d == data_rank:
+                model_group = g
+    return Mesh(dp, tp, data_rank, model_rank, data_group, model_group,
+                nodes)
+
+
+def init_mesh(dp: int | None, tp: int | None, device: torch.device,
+              multihost: bool = False
+              ) -> tuple[Mesh | None, torch.device]:
+    """Start the process group from torchrun's environment and build the
+    mesh; returns (mesh, this rank's device). Outside torchrun, dp = tp
+    = 1 gives (None, device) and anything else raises ValueError."""
+    dp = 1 if dp is None else dp
+    tp = 1 if tp is None else tp
+    if "WORLD_SIZE" not in os.environ:
+        if multihost or dp not in (1, -1) or tp != 1:
+            raise ValueError(
+                f"--dp {dp} --tp {tp}{' --multihost' if multihost else ''}"
+                " needs one process per rank: launch with python -m "
+                "torch.distributed.run --nproc_per_node N ...")
+        return None, device
+    world = int(os.environ["WORLD_SIZE"])
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    resolve_layout(dp, tp, world)   # refuse it before the rendezvous
+    nodes = world // local_world if multihost else 1
+    if multihost and local_world % max(1, tp):
+        raise ValueError(f"--tp {tp} must divide the {local_world} ranks "
+                         "of a node")
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(device)
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            rank=int(os.environ["RANK"]), world_size=world)
+    return make_mesh(dp, tp, nodes), device
+
+
+def close_mesh(mesh: Mesh | None) -> None:
+    if mesh is not None and dist.is_initialized():
+        dist.destroy_process_group()
+
+
+# ---- the model on the mesh
+
+def tp_plan(model: nn.Module, tp: int) -> dict[str, str]:
+    """{module path: how it shards} for the layers the TP rules reach at
+    tp ranks: "ffn", "attention", "gather" (a column-parallel output
+    layer), "vocab" (an embedding) or "experts"."""
+    if tp <= 1:
+        return {}
+    plan, units = {}, []
+    for name, m in model.named_modules():
+        path = name.replace(".", "/")
+        if isinstance(m, (PositionwiseFeedForward, MultiHeadedAttention,
+                          MoEPositionwiseFeedForward)):
+            units.append(name + ".")
+        if isinstance(m, PositionwiseFeedForward):
+            if (param_spec(f"{path}/w_1/kernel") == COL
+                    and param_spec(f"{path}/w_2/kernel") == ROW
+                    and m.w_1.out_features % tp == 0):
+                plan[name] = "ffn"
+        elif isinstance(m, MultiHeadedAttention):
+            if (param_spec(f"{path}/linear_q/kernel") == COL
+                    and param_spec(f"{path}/linear_out/kernel") == ROW
+                    and m.h % tp == 0):
+                plan[name] = "attention"
+        elif isinstance(m, MoEPositionwiseFeedForward):
+            if (param_spec(f"{path}/w_in")[:1] == ("model",)
+                    and m.num_experts % tp == 0):
+                plan[name] = "experts"
+        elif isinstance(m, Embed):
+            if (param_spec(f"{path}/embedding") == ROW
+                    and m.num_embeddings % tp == 0):
+                plan[name] = "vocab"
+        elif isinstance(m, Dense) and not name.startswith(tuple(units)):
+            if (param_spec(f"{path}/kernel") == COL
+                    and m.out_features % tp == 0):
+                plan[name] = "gather"
+    return plan
+
+
+def _shard(module: nn.Module, name: str, dim: int, n: int, i: int) -> None:
+    p = getattr(module, name)
+    k = p.shape[dim] // n
+    new = nn.Parameter(p.detach().narrow(dim, i * k, k).clone(),
+                       requires_grad=p.requires_grad)
+    new.tp_dim = dim
+    setattr(module, name, new)
+
+
+def _shard_dense(dense: Dense, mode: str, mesh: Mesh) -> None:
+    n, i = mesh.tp, mesh.model_rank
+    if mode == "row":
+        _shard(dense, "weight", 1, n, i)
+    else:
+        _shard(dense, "weight", 0, n, i)
+        if dense.bias is not None:
+            _shard(dense, "bias", 0, n, i)
+    dense.tp_mode, dense.tp_group = mode, mesh.model_group
+
+
+def shard_model(model: nn.Module, mesh: Mesh) -> dict[str, str]:
+    """Replace, in place, the parameters of every layer of
+    tp_plan(model, mesh.tp) by this rank's shards (each marked with its
+    `tp_dim`) and switch those layers to their sharded forwards. Run
+    before the optimizer is built. Returns the plan."""
+    n, i, group = mesh.tp, mesh.model_rank, mesh.model_group
+    plan = tp_plan(model, n)
+    for name, kind in plan.items():
+        m = model.get_submodule(name)
+        if kind == "ffn":
+            _shard_dense(m.w_1, "column", mesh)
+            _shard_dense(m.w_2, "row", mesh)
+            m.dropout.shard = (-1, n, i)
+        elif kind == "attention":
+            for lin in ("linear_q", "linear_k", "linear_v", "linear_pos"):
+                if hasattr(m, lin):
+                    _shard_dense(getattr(m, lin), "column", mesh)
+            _shard_dense(m.linear_out, "row", mesh)
+            if isinstance(m, RelPositionMultiHeadedAttention):
+                _shard(m, "pos_bias_u", 0, n, i)
+                _shard(m, "pos_bias_v", 0, n, i)
+            m.h //= n
+            m.attn_dropout.shard = (1, n, i)
+        elif kind == "experts":
+            for p in ("w_in", "b_in", "w_out", "b_out"):
+                _shard(m, p, 0, n, i)
+            m.tp_group = group
+            m.expert_offset = i * (m.num_experts // n)
+            m.dropout.shard = (0, n, i)
+        elif kind == "vocab":
+            _shard(m, "weight", 0, n, i)
+            m.tp_group = group
+        else:
+            _shard_dense(m, "gather", mesh)
+    return plan
+
+
+def apply_mesh(model: nn.Module, mesh: Mesh | None) -> None:
+    """Point every module that keeps a `data_group` (the loss
+    denominators, the MoE statistics) at the mesh's, and shard the model
+    over the model group."""
+    if mesh is None:
+        return
+    for m in model.modules():
+        if hasattr(m, "data_group"):
+            m.data_group = mesh.data_group
+    if mesh.tp > 1:
+        shard_model(model, mesh)
+
+
+def _gather(t: torch.Tensor, dim: int, mesh: Mesh) -> torch.Tensor:
+    return torch.cat(list(all_gather_rows(t.detach(), mesh.model_group)),
+                     dim=dim)
+
+
+def full_state_dict(model: nn.Module, mesh: Mesh | None) -> dict:
+    """The model's state_dict with every shard gathered back to the full
+    tensor: the checkpoint of a sharded model is the unsharded one's."""
+    state = model.state_dict()
+    if mesh is None or mesh.tp == 1:
+        return state
+    for name, p in model.named_parameters():
+        if hasattr(p, "tp_dim"):
+            state[name] = _gather(p, p.tp_dim, mesh)
+    return state
+
+
+def _optimizer_params(optimizer: torch.optim.Optimizer) -> list:
+    return [p for g in optimizer.param_groups for p in g["params"]]
+
+
+def full_optimizer_state(optimizer: torch.optim.Optimizer,
+                         mesh: Mesh | None) -> dict:
+    """optimizer.state_dict() with each sharded parameter's state tensors
+    gathered to the full shape, so that a resume is exact at any tp."""
+    state = optimizer.state_dict()
+    if mesh is None or mesh.tp == 1:
+        return state
+    for idx, p in enumerate(_optimizer_params(optimizer)):
+        if hasattr(p, "tp_dim") and idx in state["state"]:
+            state["state"][idx] = {
+                k: _gather(v, p.tp_dim, mesh) if v.shape == p.shape else v
+                for k, v in state["state"][idx].items()}
+    return state
+
+
+def shard_optimizer_state(state: dict, optimizer: torch.optim.Optimizer,
+                          mesh: Mesh | None) -> dict:
+    """The inverse of full_optimizer_state for this rank's shards."""
+    if mesh is None or mesh.tp == 1:
+        return state
+    for idx, p in enumerate(_optimizer_params(optimizer)):
+        if hasattr(p, "tp_dim") and idx in state["state"]:
+            d, k = p.tp_dim, p.shape[p.tp_dim]
+            state["state"][idx] = {
+                key: v.narrow(d, mesh.model_rank * k, k).clone()
+                if v.dim() == p.dim() and v.shape[d] == k * mesh.tp else v
+                for key, v in state["state"][idx].items()}
+    return state

@@ -1,5 +1,6 @@
-"""Training and evaluation steps (PyTorch, one device). Port of
-openeat_tpu/parallel/train_step.py:build_train_step and build_eval_step.
+"""Training and evaluation steps (PyTorch). Port of
+openeat_tpu/parallel/train_step.py:make_loss_fn, build_train_step and
+build_eval_step.
 
 One step, in the JAX order:
 - gradient accumulation over a batch laid out [accum, micro, ...]: each
@@ -15,7 +16,19 @@ One step, in the JAX order:
 
 A parameter that no loss term reaches gets a zero gradient, as jax.grad
 gives, so that Adam treats it as optax does. Whether the norm is finite
-is read on the host, one sync per step.
+is read on the host, one sync per step. A mixture-of-experts model's
+`moe_aux` enters the training loss at moe_aux_weight (make_loss_fn's
+rule); the eval step leaves it out.
+
+On a mesh (openeat_torch/parallel/mesh.py) each rank's loss is its share
+of the global batch's (tensor_parallel.py), and after accumulation one
+flat sum all-reduce of every gradient over the data group gives every
+rank the global batch's gradient: the JAX step's one psum a step, with
+no no_sync. The global norm counts each sharded tensor's shards once
+(one all-reduce of the sharded and replicated square sums over the
+model group) and each replicated tensor once, so every rank reads the
+same norm and skips the same steps. The metrics are summed over the
+data group: every rank returns the global batch's.
 """
 
 from __future__ import annotations
@@ -24,7 +37,9 @@ from dataclasses import dataclass
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 from openeat_torch.modules.dropout import set_generator
 
@@ -37,10 +52,29 @@ class TrainState:
     n_applied: int = 0   # updates applied; drives the learning rate
 
 
-def asr_loss(model: nn.Module, batch: dict) -> dict[str, torch.Tensor]:
+def asr_metrics(model: nn.Module, batch: dict) -> dict[str, torch.Tensor]:
     """The ASR model's metrics on a batch of its four keys."""
     return model(batch["features"], batch["features_length"],
                  batch["targets"], batch["targets_length"])
+
+
+def asr_loss(model: nn.Module, batch: dict) -> dict[str, torch.Tensor]:
+    """asr_metrics with the MoE aux loss added at moe_aux_weight."""
+    metrics = asr_metrics(model, batch)
+    if "moe_aux" in metrics:
+        metrics["loss"] = metrics["loss"] \
+            + model.moe_aux_weight * metrics["moe_aux"]
+    return metrics
+
+
+def reduce_metrics(metrics: dict, mesh) -> dict:
+    """Sum each metric over the data group (one all-reduce)."""
+    if mesh is None:
+        return metrics
+    keys = sorted(metrics)
+    flat = torch.stack([metrics[k].detach().float() for k in keys])
+    dist.all_reduce(flat, group=mesh.data_group)
+    return dict(zip(keys, flat.unbind()))
 
 
 def _loss_and_grads(model: nn.Module, batch: dict, accum_grad: int,
@@ -62,17 +96,36 @@ def _loss_and_grads(model: nn.Module, batch: dict, accum_grad: int,
     return {k: v / accum_grad for k, v in sums.items()}
 
 
+def _global_norm(params: list, mesh) -> torch.Tensor:
+    sq = [p.grad.float().square().sum() for p in params]
+    if mesh is None or mesh.tp == 1:
+        return torch.stack(sq).sum().sqrt()
+    zero = sq[0].new_zeros(())
+    sharded = sum((q for q, p in zip(sq, params) if hasattr(p, "tp_dim")),
+                  zero)
+    replicated = sum((q for q, p in zip(sq, params)
+                      if not hasattr(p, "tp_dim")), zero)
+    both = torch.stack([sharded, replicated / mesh.tp])
+    dist.all_reduce(both, group=mesh.model_group)
+    return both.sum().sqrt()
+
+
 def apply_update(state: TrainState, schedule: Callable[[int], float],
-                 grad_clip: float) -> tuple[torch.Tensor, bool]:
-    """Clip the gradients the parameters hold and take the optimizer
-    step, or skip it on a non-finite norm. Returns (norm, applied)."""
+                 grad_clip: float, mesh=None) -> tuple[torch.Tensor, bool]:
+    """Sum the gradients the parameters hold over the mesh's data group,
+    clip them and take the optimizer step, or skip it on a non-finite
+    norm. Returns (norm, applied)."""
     params = [p for p in state.model.parameters() if p.requires_grad]
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
     grads = [p.grad for p in params]
-    gnorm = torch.stack([g.float().square().sum()
-                         for g in grads]).sum().sqrt()
+    if mesh is not None:
+        flat = _flatten_dense_tensors(grads)
+        dist.all_reduce(flat, group=mesh.data_group)
+        for g, r in zip(grads, _unflatten_dense_tensors(flat, grads)):
+            g.copy_(r)
+    gnorm = _global_norm(params, mesh)
     finite = bool(torch.isfinite(gnorm))
     if finite:
         scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-12),
@@ -88,14 +141,16 @@ def apply_update(state: TrainState, schedule: Callable[[int], float],
 
 def build_train_step(schedule: Callable[[int], float], accum_grad: int = 1,
                      grad_clip: float = 5.0,
-                     loss_fn: Callable | None = None) -> Callable:
+                     loss_fn: Callable | None = None,
+                     mesh=None) -> Callable:
     """Returns train_step(state, batch, generator) -> metrics dict.
 
     With accum_grad > 1 every batch array has a leading [accum_grad,
     micro, ...] layout. `generator` feeds the model's dropout.
     `loss_fn(model, batch) -> metrics with "loss"` replaces the ASR loss
     (asr_loss), as the LM trainer does, like the JAX
-    build_train_step(..., loss_fn=)."""
+    build_train_step(..., loss_fn=). On a `mesh` the batch holds this
+    rank's rows and the model is the mesh's (apply_mesh)."""
     loss_fn = asr_loss if loss_fn is None else loss_fn
 
     def train_step(state: TrainState, batch: dict,
@@ -105,7 +160,8 @@ def build_train_step(schedule: Callable[[int], float], accum_grad: int = 1,
         set_generator(model, generator)
         state.optimizer.zero_grad(set_to_none=True)
         metrics = _loss_and_grads(model, batch, accum_grad, loss_fn)
-        gnorm, applied = apply_update(state, schedule, grad_clip)
+        gnorm, applied = apply_update(state, schedule, grad_clip, mesh)
+        metrics = reduce_metrics(metrics, mesh)
         metrics["grad_norm"] = gnorm
         metrics["skipped"] = torch.tensor(0.0 if applied else 1.0)
         return metrics
@@ -113,12 +169,14 @@ def build_train_step(schedule: Callable[[int], float], accum_grad: int = 1,
     return train_step
 
 
-def build_eval_step(model: nn.Module,
-                    loss_fn: Callable | None = None) -> Callable:
-    loss_fn = asr_loss if loss_fn is None else loss_fn
+def build_eval_step(model: nn.Module, loss_fn: Callable | None = None,
+                    mesh=None) -> Callable:
+    """The deterministic forward's metrics (asr_metrics unless loss_fn is
+    given), summed over the mesh's data group."""
+    loss_fn = asr_metrics if loss_fn is None else loss_fn
 
     @torch.no_grad()
     def eval_step(batch: dict) -> dict:
         model.eval()
-        return loss_fn(model, batch)
+        return reduce_metrics(loss_fn(model, batch), mesh)
     return eval_step

@@ -1,5 +1,5 @@
 """Host -> device feeding with on-device feature extraction (PyTorch).
-Port of openeat_tpu/pipeline.py:DeviceFeeder for one device.
+Port of openeat_tpu/pipeline.py:DeviceFeeder.
 
 Each host batch of padded waveforms (and targets) is copied to the
 device and run through the frontend. In training (train=True) the
@@ -8,6 +8,13 @@ seed + the number of passes already made, as the JAX feeder keys its
 PRNG. With accum_grad > 1 every array is reshaped to [accum_grad, micro,
 ...] for the train step's gradient accumulation, and the features of each
 micro-batch are computed in turn.
+
+On a mesh (openeat_torch/parallel/mesh.py) the batch is padded to a
+multiple of the node's data ranks (pad_batch_multiple) and only this
+rank's rows (of each micro-batch) go to the device, as the JAX feeder
+shards the batch axis on 'data': data rank r of d takes rows
+[r*B/d, (r+1)*B/d). The augmentation is drawn for the whole batch and
+sliced, so a rank's features are the single-process run's rows.
 """
 
 from __future__ import annotations
@@ -21,10 +28,23 @@ from openeat_torch.ops.frontend import FrontendConfig, compute_features
 from openeat_torch.utils.common import make_generator
 
 
+def pad_rows(batch: dict, multiple: int) -> dict:
+    """Round the batch up to a multiple of rows by repeating rows from
+    the first (wrap-around), as the JAX feeder and train_lm's
+    shard_batch do."""
+    b = next(iter(batch.values())).shape[0]
+    target = -(-b // multiple) * multiple
+    if target == b:
+        return batch
+    idx = np.arange(target) % b
+    return {k: v[idx] for k, v in batch.items()}
+
+
 class DeviceFeeder:
     """Wraps a loader yielding (keys, {"wav", "wav_lens"[, "targets",
     "targets_length"]}) into (keys, {"features", "features_length"[,
-    "targets", "targets_length"]}) on `device`.
+    "targets", "targets_length"]}) on `device`; on a mesh the arrays
+    hold this rank's rows and keys stay the whole batch's.
 
     pad_batch_multiple (times accum_grad) rounds the batch up by
     repeating utterances (the keys are not padded, so the extra rows are
@@ -32,8 +52,10 @@ class DeviceFeeder:
 
     def __init__(self, loader: Iterable, frontend: FrontendConfig,
                  device: torch.device, pad_batch_multiple: int = 1,
-                 train: bool = False, seed: int = 0, accum_grad: int = 1):
+                 train: bool = False, seed: int = 0, accum_grad: int = 1,
+                 mesh=None):
         self.loader = loader
+        self.mesh = mesh
         self.frontend = frontend
         self.device = device
         self.pad_batch_multiple = max(1, pad_batch_multiple)
@@ -45,14 +67,6 @@ class DeviceFeeder:
     def __len__(self):
         return len(self.loader)
 
-    def _pad_batch_dim(self, batch: dict) -> dict:
-        m = self.pad_batch_multiple * self.accum_grad
-        b = next(iter(batch.values())).shape[0]
-        if m <= 1 or b % m == 0:
-            return batch
-        idx = np.concatenate([np.arange(b), np.arange(m - b % m) % b])
-        return {k: v[idx] for k, v in batch.items()}
-
     def _split_accum(self, batch: dict) -> dict:
         """[accum * micro, ...] -> [accum, micro, ...]."""
         a = self.accum_grad
@@ -63,22 +77,33 @@ class DeviceFeeder:
         gen = (make_generator(self.seed + self.epoch, self.device)
                if self.train else None)
         self.epoch += 1
+        accum = self.accum_grad > 1
         for keys, batch in self.loader:
-            batch = self._pad_batch_dim(batch)
-            if self.accum_grad > 1:
+            batch = pad_rows(batch, self.pad_batch_multiple
+                             * self.accum_grad)
+            if accum:
                 batch = self._split_accum(batch)
+            batch_lens, rows = None, slice(None)
+            if self.mesh is not None:
+                batch_lens = torch.from_numpy(batch["wav_lens"]).to(
+                    self.device)
+                rows = self.mesh.rows(batch["wav_lens"].shape[-1])
+                batch = {k: v[:, rows] if accum else v[rows]
+                         for k, v in batch.items()}
             dev = {k: torch.from_numpy(v).to(self.device)
                    for k, v in batch.items()}
-            if self.accum_grad > 1:
-                parts = [compute_features(w, l, self.frontend, self.train,
-                                          gen)
-                         for w, l in zip(dev["wav"], dev["wav_lens"])]
+            if accum:
+                parts = [compute_features(
+                    w, l, self.frontend, self.train, gen,
+                    None if batch_lens is None else batch_lens[i], rows)
+                    for i, (w, l) in enumerate(zip(dev["wav"],
+                                                   dev["wav_lens"]))]
                 feats = torch.stack([p[0] for p in parts])
                 flens = torch.stack([p[1] for p in parts])
             else:
                 feats, flens = compute_features(dev["wav"], dev["wav_lens"],
                                                 self.frontend, self.train,
-                                                gen)
+                                                gen, batch_lens, rows)
             out = {"features": feats, "features_length": flens}
             if "targets" in dev:
                 out["targets"] = dev["targets"]

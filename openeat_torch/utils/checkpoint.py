@@ -6,7 +6,9 @@
   JSON because PyYAML is not a dependency of the port.
 - save_optimizer / load_optimizer: the rolling ``optimizer.pt`` (Adam's
   state, the applied-update count, epoch and step) that makes a resume
-  exact.
+  exact. On a mesh the first rank writes both files, with every shard
+  gathered back (openeat_torch/parallel/mesh.py: full_state_dict and
+  full_optimizer_state), so the files are the same at any layout.
 - load_trained_modules: partial init from another checkpoint, copying
   the entries whose key starts with one of the module prefixes
   (``--init_mods``, e.g. "encoder.,ctc.,decoder.") and whose shape
@@ -50,10 +52,11 @@ def load_checkpoint(path: str) -> tuple[dict, dict]:
     return state, info
 
 
-def save_optimizer(exp_dir: str, optimizer: torch.optim.Optimizer,
-                   n_applied: int, epoch: int, step: int) -> str:
+def save_optimizer(exp_dir: str, optimizer_state: dict, n_applied: int,
+                   epoch: int, step: int) -> str:
+    """Write optimizer.pt from an optimizer's state_dict()."""
     path = os.path.join(exp_dir, "optimizer.pt")
-    torch.save({"optimizer": optimizer.state_dict(), "n_applied": n_applied,
+    torch.save({"optimizer": optimizer_state, "n_applied": n_applied,
                 "epoch": epoch, "step": step}, path)
     return path
 

@@ -16,6 +16,8 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
+from openeat_torch.parallel.tensor_parallel import global_sum
+
 IGNORE_ID = -1
 
 
@@ -89,13 +91,16 @@ def reverse_pad_list(ys_pad: torch.Tensor, ys_lens: torch.Tensor,
 
 
 def th_accuracy(logits: torch.Tensor, target: torch.Tensor,
-                ignore_label: int = IGNORE_ID) -> torch.Tensor:
-    """Padding-masked token accuracy. logits [B, L, V]; target [B, L]."""
+                ignore_label: int = IGNORE_ID, group=None) -> torch.Tensor:
+    """Padding-masked token accuracy. logits [B, L, V]; target [B, L].
+    With a data `group`: this rank's correct tokens over the group's
+    total, its share of the global accuracy."""
     pred = logits.reshape(-1, logits.shape[-1]).argmax(dim=-1)
     target = target.reshape(-1)
     mask = target != ignore_label
     correct = (mask & (pred == target)).sum()
-    return correct.float() / mask.sum().clamp(min=1).float()
+    return correct.float() / global_sum(mask.sum(), group).clamp(
+        min=1).float()
 
 
 def get_activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:

@@ -15,7 +15,9 @@ import time
 from typing import Callable, Iterable
 
 import torch
+import torch.distributed as dist
 
+from openeat_torch.parallel.tensor_parallel import global_count, global_sum
 from openeat_torch.parallel.train_step import TrainState
 
 
@@ -24,13 +26,16 @@ class Executor:
                  schedule: Callable[[int], float] | None = None,
                  log_interval: int = 100,
                  logger: logging.Logger | None = None,
-                 metrics_file: str | None = None):
+                 metrics_file: str | None = None, mesh=None):
         self.train_step = train_step
         self.eval_step = eval_step
         self.schedule = schedule
         self.log_interval = log_interval
         self.logger = logger or logging.getLogger("openeat_torch")
         self.metrics_file = metrics_file
+        self.group = None if mesh is None else mesh.data_group
+        if mesh is not None and dist.get_rank() != 0:
+            self.metrics_file = None
 
     def _emit(self, record: dict) -> None:
         if self.metrics_file:
@@ -61,6 +66,8 @@ class Executor:
                        "grad_norm": float(metrics["grad_norm"]),
                        "skipped": float(metrics["skipped"]),
                        "time": time.time()}
+                if "moe_aux" in metrics:
+                    rec["moe_aux"] = float(metrics["moe_aux"])
                 self.logger.info(
                     "epoch %d batch %d loss %.4f acc %.4f lr %.6g gnorm "
                     "%.2f", epoch, i + 1, rec["loss"], rec["acc"], lr,
@@ -68,7 +75,7 @@ class Executor:
                 self._emit(rec)
         n_seen = float(run_ok)
         dt = time.time() - t0
-        frames = float(frames)
+        frames = float(global_sum(torch.as_tensor(frames), self.group))
         summary = {
             "train_loss": float(run_loss) / max(n_seen, 1),
             "train_acc": float(run_acc) / max(n_seen, 1),
@@ -86,7 +93,7 @@ class Executor:
         run_loss = run_acc = n_utts = 0.0
         for i, batch in enumerate(batches):
             metrics = self.eval_step(batch)
-            bsz = batch["features_length"].numel()
+            bsz = global_count(batch["features_length"].numel(), self.group)
             loss = metrics["loss"]
             ok = torch.isfinite(loss)
             run_loss = run_loss + torch.where(ok, loss, 0.0) * bsz

@@ -9,7 +9,13 @@ is the torch module path; this file owns every layout change:
 - Dense kernel [in, out] -> Linear weight [out, in];
 - Conv kernel [kh, kw, in, out] -> Conv2d weight [out, in, kh, kw];
 - depthwise Conv kernel [K, 1, C] -> K3 taps [K, C];
-- LayerNorm scale -> weight; Embed embedding -> weight.
+- LayerNorm scale -> weight; Embed embedding -> weight;
+- the MoE FFN's expert banks w_in [E, D, F], b_in [E, F], w_out
+  [E, F, D], b_out [E, D] as they are (its router is a Dense).
+
+A model sharded over a mesh's model group is gathered back to these
+full tensors by openeat_torch/parallel/mesh.py:full_state_dict, so a
+checkpoint does not depend on the layout that wrote it.
 
 A leaf that maps to no parameter of the model, and a parameter that no
 leaf fills, both raise.
@@ -24,6 +30,7 @@ from torch import nn
 from openeat_torch.modules.attention import RelPositionMultiHeadedAttention
 from openeat_torch.modules.cmvn import GlobalCMVN
 from openeat_torch.modules.convolution import DepthwiseConv1d
+from openeat_torch.modules.feed_forward import MoEPositionwiseFeedForward
 from openeat_torch.modules.layers import Conv2d, Dense, Embed, LayerNorm
 
 # (module class, flax leaf) -> (torch parameter, layout change)
@@ -42,6 +49,10 @@ _RULES = {
     (RelPositionMultiHeadedAttention, "pos_bias_v"): ("pos_bias_v", None),
     (GlobalCMVN, "mean"): ("mean", None),
     (GlobalCMVN, "istd"): ("istd", None),
+    (MoEPositionwiseFeedForward, "w_in"): ("w_in", None),
+    (MoEPositionwiseFeedForward, "b_in"): ("b_in", None),
+    (MoEPositionwiseFeedForward, "w_out"): ("w_out", None),
+    (MoEPositionwiseFeedForward, "b_out"): ("b_out", None),
 }
 
 
@@ -65,7 +76,7 @@ def flax_to_state_dict(flat: dict[str, np.ndarray],
             raise KeyError(f"flax leaf {key!r}: no rule for leaf {leaf!r} "
                            f"of {type(module).__name__}")
         name, change = rule
-        tname = f"{mod_path}.{name}"
+        tname = f"{mod_path}.{name}" if mod_path else name
         arr = np.asarray(value)
         if change is not None:
             arr = change(arr)

@@ -100,8 +100,9 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="adapters"):
         build_asr_model(dict(TINY_CONF, encoder_use_adapter=True), FEAT_DIM,
                         VOCAB)
-    with pytest.raises(NotImplementedError, match="parallel"):
-        build_asr_model(dict(TINY_CONF, moe_experts=4), FEAT_DIM, VOCAB)
+    with pytest.raises(NotImplementedError, match="sequence parallel"):
+        build_asr_model(dict(TINY_CONF, sequence_sharding=True), FEAT_DIM,
+                        VOCAB)
 
 
 def test_bfloat16_compute_keeps_float32_parameters():

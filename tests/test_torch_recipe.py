@@ -84,9 +84,8 @@ def test_train_lm_two_epochs(corpus, autoregressive, accum_grad):
     assert resolved["model_conf"]["autoregressive"] is autoregressive
 
 
-@pytest.mark.parametrize("extra,match", [(["--dp", "2"], "--dp"),
-                                         (["--tp", "2"], "--tp"),
-                                         (["--bpe_model", "b.model"], "bpe")])
+@pytest.mark.parametrize("extra,match", [(["--bpe_model", "b.model"],
+                                          "bpe")])
 def test_train_lm_refuses_unported_flags(corpus, extra, match):
     with pytest.raises(NotImplementedError, match=match):
         _train_lm(corpus, corpus["root"] / "refused", LM_CONF, extra)

@@ -235,9 +235,7 @@ def test_int8_writes_the_jax_cli_files(setup, mode):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--dp", "-1"], "--dp"),
     (["--data_type", "kaldi"], "kaldi"),
-    (["--dp", "2"], "--dp"),
     (["--config", "@wenet"], "WeNet"),
     (["--bpe_model", "bpe.model"], "bpe"),
     (["--data_type", "feat"], "feat"),
@@ -274,12 +272,14 @@ PORT_MODULES = [
     "openeat_torch.decode.streaming", "openeat_torch.decode.streaming_batch",
     "openeat_torch.bin.stream_recognize", "openeat_torch.runtime.server",
     "openeat_torch.runtime.client", "openeat_torch.bin.serve",
-    "openeat_torch.utils.quantize"]
+    "openeat_torch.utils.quantize", "openeat_torch.parallel.mesh",
+    "openeat_torch.parallel.tensor_parallel"]
 
 
 def test_port_imports_no_jax():
     """Every openeat_torch module (the training, attention decode, LM,
-    recipe, streaming, serving and int8 slices' among them) and chip_smoke.py import
+    recipe, streaming, serving, int8 and parallel slices' among them)
+    and chip_smoke.py import
     with jax blocked, and no jax, flax, optax, orbax or openeat_tpu
     module loads."""
     code = (

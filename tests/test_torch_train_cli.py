@@ -99,9 +99,6 @@ def test_train_resume_and_decode(corpus):
 @pytest.mark.parametrize("extra,cfg_extra,match", [
     (["--bpe_model", "bpe.model"], {}, "bpe"),
     (["--data_type", "feat"], {}, "feat"),
-    (["--dp", "2"], {}, "--dp"),
-    (["--tp", "2"], {}, "--tp"),
-    (["--multihost"], {}, "multihost"),
     (["--only_adapter"], {}, "adapter"),
     (["--cmvn_file", "cmvn.json"], {}, "cmvn"),
     (["--profile_dir", "prof"], {}, "profile"),
