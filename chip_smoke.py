@@ -166,6 +166,20 @@
    tolerances (losses STEP_LOSS_TOL, the norm and each tensor's update
    STEP_GRAD_TOL). These check correctness; no multi-card speed is
    measured.
+14. Pipeline and sequence parallelism, in 13's child processes: (b)
+   also runs the GPipe step of openeat_torch/parallel/pipeline.py at
+   pipe = 2 with 4 microbatches (pp2: the loss tail on both pipe ranks;
+   pp2_tail: on the last stage only) and the tp = 2 step with
+   sequence_sharding (sp_tp2) on the batch cut to an even T', each held
+   to the one-rank step by 13's rules. Each case records its step's
+   wall time, each rank's launches of K3 forward, dgrad and wgrad and of
+   the CTC kernels (their sum over the ranks must be non-zero), each
+   pipe rank's parameter bytes against the whole model's (smaller), and
+   the K3 inputs sp_tp2 saw, which must be [4, T'/2 + 14, 256]: the
+   shard with its halo. (a) runs one step of the schedule at pipe = 1
+   with 4 microbatches on NCCL against the plain step (not bit-equal:
+   another summation order), its kernels launched. These steps'
+   launches join the kernels line.
 
 Any failed check raises. Before the last two stdout lines it prints the
 card's name and power limit again; then the kernels line (each kernel's
@@ -224,6 +238,7 @@ from openeat_torch.ops import nvcc
 from openeat_torch.ops.frontend import FrontendConfig, compute_features
 from openeat_torch.modules.feed_forward import MoEPositionwiseFeedForward
 from openeat_torch.parallel import mesh as mesh_lib
+from openeat_torch.parallel.pipeline import make_pp_loss_fn
 from openeat_torch.parallel.train_step import (TrainState, apply_update,
                                                asr_loss, build_train_step)
 from openeat_torch.pipeline import DeviceFeeder
@@ -2554,6 +2569,24 @@ def dist_world1_role(work: str, manifest: str, dict_path: str) -> None:
                 g.copy_(r)
 
         out["flatten_all_reduce_unflatten_ms"] = event_ms(step_reduce, 10)
+        # the GPipe schedule at pipe = 1, four microbatches, on NCCL
+        # against the plain step (another summation order: tolerances)
+        batch = _features(_host_batches(manifest, dict_path, 4),
+                          torch.device("cuda"), FrontendConfig())
+        mesh = mesh_lib.make_pipe_mesh(1, 1)
+        ref = _flagship("float32", 0.0).cuda()
+        par = copy.deepcopy(ref)
+        mesh_lib.apply_mesh(par, mesh)
+        out["pp1"] = _case_step(par, mesh, make_pp_loss_fn(par, mesh, 4),
+                                batch)
+        out["pp1"].update(_hold_to_one_rank(ref, batch, out["pp1"].pop(
+            "metrics"), mesh_lib.full_state_dict(par, mesh)))
+        launched = out["pp1"]["launches"]
+        if not out["pp1"]["ok"] or not all(launched[k] for k in (
+                "depthwise_conv1d", "depthwise_conv1d_dgrad",
+                "depthwise_conv1d_wgrad")) or not (
+                launched["ctc_dp_shared"] + launched["ctc_dp_global"]):
+            raise AssertionError(f"pp1 vs the plain step: {out['pp1']}")
     finally:
         dist.destroy_process_group()
     with open(os.path.join(work, "dist_world1.json"), "w") as f:
@@ -2562,10 +2595,13 @@ def dist_world1_role(work: str, manifest: str, dict_path: str) -> None:
 
 def dist_two_ranks(train_data: str, dict_path: str) -> list:
     """(b) two ranks sharing the card over gloo (NCCL takes one rank a
-    device): one float32 SGD step at dp = 2, one at tp = 2 and one of the
+    device): one float32 SGD step at dp = 2, one at tp = 2, one of the
     MoE Conformer at dp = 2 with capacity factor 0.5 (at most half the
-    routed pairs fit, so tokens drop), each against the one-rank step on
-    the same global batch of 4 utterances. Starts the two processes;
+    routed pairs fit, so tokens drop), the GPipe step at pipe = 2 with 4
+    microbatches (pp2; pp2_tail with the tail on the last stage) and
+    the step at tp = 2 with sequence_sharding (sp_tp2, on the batch cut
+    to an even T' so that time shards), each against the one-rank step
+    on the same global batch of 4 utterances. Starts the two processes;
     check_two_ranks waits for them."""
     port = _free_port()
     return _start_role("dist_rank", WORK, train_data, dict_path, env=[
@@ -2577,10 +2613,83 @@ def check_two_ranks(procs: list) -> dict:
     _wait_role("dist_rank", procs)
     with open(os.path.join(WORK, "dist_two_ranks.json")) as f:
         out = json.load(f)
-    if sorted(out) != ["dp2", "moe_dp2", "tp2"] or not all(
+    if sorted(out) != sorted(TWO_RANK_CASES) or not all(
             v["ok"] for v in out.values()):
         raise AssertionError(f"two ranks vs one: {out}")
     return out
+
+
+def _hold_to_one_rank(ref: torch.nn.Module, batch: dict, m_par: dict,
+                      full: dict) -> dict:
+    """One SGD step (lr 1, clip 5) of `ref` on the whole batch, against a
+    distributed step's metrics and gathered parameters `full`."""
+    start = {k: v.clone() for k, v in ref.state_dict().items()}
+    opt, sched = build_optimizer(ref, 1.0, 1, "sgd")
+    m_ref = build_train_step(sched, 1, 5.0)(TrainState(ref, opt), batch,
+                                             None)
+    rel = {k: abs(m_par[k] - float(m_ref[k]))
+           / max(abs(float(m_ref[k])), 1e-30)
+           for k in m_ref if k != "skipped"}
+    # the step's tolerances (the same arithmetic summed in another
+    # order): losses within STEP_LOSS_TOL, the norm within STEP_GRAD_TOL,
+    # each tensor's update (SGD at lr 1: the clipped gradient) within
+    # STEP_GRAD_TOL of its largest plus 1e-5 of the model's largest, as
+    # gpu_vs_cpu_step holds gradients
+    after = ref.state_dict()
+    steps = {k: float((after[k] - start[k]).abs().max()) for k in start}
+    floor = 1e-5 * max(steps.values())
+    worst = max((float((full[k] - after[k]).abs().max())
+                 / (STEP_GRAD_TOL * steps[k] + floor), k) for k in start)
+    return {"metrics": {k: float(v) for k, v in m_ref.items()},
+            "rel_err": rel, "worst_update_err_over_tol": worst,
+            "ok": (max(v for k, v in rel.items() if k != "grad_norm")
+                   <= STEP_LOSS_TOL and rel["grad_norm"] <= STEP_GRAD_TOL
+                   and worst[0] <= 1.0)}
+
+
+def _case_step(par: torch.nn.Module, mesh, loss_fn, batch: dict) -> dict:
+    """One SGD step (lr 1, clip 5) of the distributed `par` on its rows
+    of `batch`, its kernels' launches counted from 0 and K3's inputs
+    traced: metrics, wall time, launches, K3 shapes, parameter bytes."""
+    rows = mesh.rows(len(batch["features"]))
+    opt, sched = build_optimizer(par, 1.0, 1, "sgd")
+    step = build_train_step(sched, 1, 5.0, loss_fn=loss_fn, mesh=mesh)
+    _reset_counts()
+    with K3Trace() as trace:
+        t0 = time.perf_counter()
+        m_par = step(TrainState(par, opt),
+                     {k: v[rows] for k, v in batch.items()}, None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return {"metrics": {k: float(v) for k, v in m_par.items()},
+            "step_wall_s": wall, "launches": _counts(),
+            "k3_inputs": sorted({f"{list(c[0])} {c[1]}"
+                                 for c in trace.calls}),
+            "param_bytes": sum(p.numel() * p.element_size()
+                               for p in par.parameters())}
+
+
+def _even_time(batch: dict) -> dict:
+    """The batch cut by 4 frames when its T' = ((T-1)//2 - 1)//2 is odd,
+    so that sequence parallelism shards time over two ranks."""
+    t = batch["features"].shape[1]
+    if ((t - 1) // 2 - 1) // 2 % 2 == 0:
+        return batch
+    return dict(batch, features=batch["features"][:, :t - 4].contiguous(),
+                features_length=batch["features_length"].clamp(max=t - 4))
+
+
+# name: (mesh layout, data, model or pipe ranks, model_conf overrides)
+TWO_RANK_CASES = {
+    "dp2": ("mesh", 2, 1, {}),
+    "tp2": ("mesh", 1, 2, {}),
+    "moe_dp2": ("mesh", 2, 1, dict(MOE_KEYS, moe_capacity_factor=0.5)),
+    "pp2": ("pipe", 1, 2, {}),
+    "pp2_tail": ("pipe_tail", 1, 2, {}),
+    "sp_tp2": ("mesh", 1, 2, {"sequence_sharding": True}),
+}
+NEW_DIST_CASES = ("pp2", "pp2_tail", "sp_tp2")   # this slice's paths
+PP_MICRO = 4
 
 
 def dist_rank_role(work: str, train_data: str, dict_path: str) -> None:
@@ -2596,53 +2705,52 @@ def dist_rank_role(work: str, train_data: str, dict_path: str) -> None:
         batch = _features(_host_batches(train_data, dict_path, 4), dev,
                           FrontendConfig())
         out = {}
-        for name, dp, tp, overrides in (
-                ("dp2", 2, 1, {}), ("tp2", 1, 2, {}),
-                ("moe_dp2", 2, 1, dict(MOE_KEYS, moe_capacity_factor=0.5))):
+        for name, (layout, dp, n, overrides) in TWO_RANK_CASES.items():
             ref = _flagship("float32", 0.0, **overrides).to(dev)
             par = copy.deepcopy(ref)
-            mesh = mesh_lib.make_mesh(dp, tp)
+            if layout == "mesh":
+                mesh, loss_fn = mesh_lib.make_mesh(dp, n), None
+            else:
+                mesh = mesh_lib.make_pipe_mesh(dp, n)
             mesh_lib.apply_mesh(par, mesh)
-            rows = mesh.rows(4)
-            t0 = time.perf_counter()
-            opt, sched = build_optimizer(par, 1.0, 1, "sgd")
-            m_par = build_train_step(sched, 1, 5.0, mesh=mesh)(
-                TrainState(par, opt), {k: v[rows] for k, v in batch.items()},
-                None)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+            if layout != "mesh":
+                loss_fn = make_pp_loss_fn(par, mesh, PP_MICRO,
+                                          layout == "pipe_tail")
+            b = _even_time(batch) if name == "sp_tp2" else batch
+            case = _case_step(par, mesh, loss_fn, b)
             full = mesh_lib.full_state_dict(par, mesh)
+            ranks = [None, None]
+            dist.all_gather_object(ranks, {k: case[k] for k in (
+                "launches", "k3_inputs", "param_bytes")})
             if rank:
                 continue
-            start = {k: v.clone() for k, v in ref.state_dict().items()}
-            opt, sched = build_optimizer(ref, 1.0, 1, "sgd")
-            m_ref = build_train_step(sched, 1, 5.0)(TrainState(ref, opt),
-                                                     batch, None)
-            rel = {k: abs(float(m_par[k]) - float(m_ref[k]))
-                   / max(abs(float(m_ref[k])), 1e-30)
-                   for k in m_ref if k != "skipped"}
-            # the step's tolerances (the same arithmetic summed in another
-            # order): losses within STEP_LOSS_TOL, the norm within
-            # STEP_GRAD_TOL, each tensor's update (SGD at lr 1: the
-            # clipped gradient) within STEP_GRAD_TOL of its largest plus
-            # 1e-5 of the model's largest, as gpu_vs_cpu_step holds
-            # gradients
-            after = ref.state_dict()
-            steps = {k: float((after[k] - start[k]).abs().max())
-                     for k in start}
-            floor = 1e-5 * max(steps.values())
-            worst = max((float((full[k] - after[k]).abs().max())
-                         / (STEP_GRAD_TOL * steps[k] + floor), k)
-                        for k in start)
-            out[name] = {"metrics": {k: float(v) for k, v in m_ref.items()},
-                         "rel_err": rel, "worst_update_err_over_tol": worst,
-                         "step_wall_s": wall,
-                         "sharded": sum(hasattr(p, "tp_dim")
-                                        for p in par.parameters()),
-                         "ok": (max(v for k, v in rel.items()
-                                    if k != "grad_norm") <= STEP_LOSS_TOL
-                                and rel["grad_norm"] <= STEP_GRAD_TOL
-                                and worst[0] <= 1.0)}
+            res = _hold_to_one_rank(ref, b, case["metrics"], full)
+            res.update(step_wall_s=case["step_wall_s"], ranks=ranks,
+                       sharded=sum(hasattr(p, "tp_dim")
+                                   for p in par.parameters()),
+                       whole_param_bytes=sum(
+                           p.numel() * p.element_size()
+                           for p in ref.parameters()))
+            if name in NEW_DIST_CASES:
+                total = Counter()
+                for r in ranks:
+                    total.update(r["launches"])
+                res["launches"] = dict(total)
+                res["ok"] &= all(total[k] > 0 for k in (
+                    "depthwise_conv1d", "depthwise_conv1d_dgrad",
+                    "depthwise_conv1d_wgrad")) and (
+                    total["ctc_dp_shared"] + total["ctc_dp_global"] > 0)
+            if layout != "mesh":
+                res["ok"] &= all(r["param_bytes"] < res["whole_param_bytes"]
+                                 for r in ranks)
+            if name == "sp_tp2":
+                t_sub = ((b["features"].shape[1] - 1) // 2 - 1) // 2
+                mc = TRAIN_CONFIG["model_conf"]
+                want = (f"{[4, t_sub // 2 + mc['cnn_module_kernel'] - 1,
+                            mc['d_model']]} float32")
+                res["t_sub"] = t_sub
+                res["ok"] &= all(r["k3_inputs"] == [want] for r in ranks)
+            out[name] = res
         if rank == 0:
             with open(os.path.join(work, "dist_two_ranks.json"), "w") as f:
                 json.dump(out, f)
@@ -2965,7 +3073,12 @@ def main() -> None:
                  if r["variant"] == variant]
         return max(cands, key=lambda r: math.prod(r["shape"]))
 
-    n = train_counts
+    # this slice's distributed steps: pp2, pp2_tail and sp_tp2 over their
+    # two ranks, and the pipe = 1 step on NCCL
+    n = Counter(train_counts)
+    for name in NEW_DIST_CASES:
+        n.update(report["dist_two_ranks"][name]["launches"])
+    n.update(report["dist_world1"]["pp1"]["launches"])
     kernels = [
         _kernel_row("depthwise_conv1d", "openeat_torch/csrc/depthwise_conv.cu",
                     "openeat_tpu/ops/depthwise_conv.py:39",

@@ -20,7 +20,14 @@ torchrun with --dp N --tp M (or mesh_conf data/model; N * M ranks, --dp
 reads the same seeded batch order, pads each batch to a multiple of its
 data ranks and takes its rows; with --multihost the loader splits the
 batches by node instead, as the JAX trainer splits them by process.
-Each data rank's dropout generator folds its data rank into the seed.
+Each data rank's dropout generator folds its data rank into the seed;
+the dynamic chunk draw comes from one more generator, seeded alike on
+every data rank (dropout_seed without the rank), so that the data group
+trains one chunk size a step, as the JAX trainer draws one a global
+batch. With model_conf.sequence_sharding and --tp M the encoder's block
+stack shards time over the model group (openeat_torch/modules/
+encoder.py); pipeline parallelism has no flag, as in JAX
+(openeat_torch/parallel/pipeline.py is a library).
 The first rank alone writes train.json, the checkpoints (gathered to
 full tensors), optimizer.pt, metrics.jsonl and train.log; the logged
 metrics are the global batch's.
@@ -284,8 +291,10 @@ def _train(args, cfg: dict, device: torch.device, logger: logging.Logger,
             accum_grad=train_cfg.accum_grad, **feed)
         dropout_gen = make_generator(dropout_seed(seed, epoch, data_rank),
                                      device)
+        chunk_gen = (None if data_rank is None else
+                     make_generator(dropout_seed(seed, epoch), device))
         summary = executor.train(state, (b for _, b in train_feed),
-                                 dropout_gen, epoch)
+                                 dropout_gen, epoch, chunk_gen)
         cv_feed = DeviceFeeder(PrefetchLoader(cv_ds, collate,
                                               args.num_workers, **shard),
                                frontend.without_augmentation(), device,

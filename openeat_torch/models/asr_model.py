@@ -17,6 +17,10 @@ eval step does).
 Under a mesh's data group (`data_group`, set by openeat_torch/parallel/
 mesh.py) every metric the forward returns is this rank's share of the
 global batch's value (openeat_torch/parallel/tensor_parallel.py).
+`sequence_sharding` shards the encoder block stack's time axis over the
+mesh's model group (modules/encoder.py); `pipeline_head` and
+`pipeline_tail` are the split points of the pipeline-parallel loss
+(openeat_torch/parallel/pipeline.py).
 
 `compute_dtype` sets the activations' dtype; parameters stay float32 and
 are cast at use, as flax does, so bfloat16 compute trains float32
@@ -58,7 +62,6 @@ _NOT_PORTED = {
                            "a later slice (no_pos)"),
     "encoder_use_adapter": (False, "a later slice (adapters)"),
     "decoder_use_adapter": (False, "a later slice (adapters)"),
-    "sequence_sharding": (False, "a later slice (sequence parallelism)"),
 }
 
 
@@ -97,7 +100,8 @@ class ASRModel(nn.Module):
                  static_chunk_size: int = 0, num_left_chunks: int = -1,
                  use_dynamic_chunk: bool = False, moe_experts: int = 0,
                  moe_top_k: int = 2, moe_capacity_factor: float = 1.25,
-                 moe_aux_weight: float = 0.01):
+                 moe_aux_weight: float = 0.01,
+                 sequence_sharding: bool = False):
         super().__init__()
         act = get_activation(activation_type)
         self.input_size = input_size
@@ -114,7 +118,10 @@ class ASRModel(nn.Module):
         self.length_normalized_loss = length_normalized_loss
         self.moe_experts = moe_experts
         self.moe_aux_weight = moe_aux_weight
+        self.sequence_sharding = sequence_sharding
         self.data_group = None
+        # the step's dropout generator (set_generator sets it)
+        self.generator: torch.Generator | None = None
         self.encoder = TransformerEncoder(
             input_size, d_model, attention_heads, linear_units, act,
             pos_enc_layer_type, macaron_style, use_cnn_module,
@@ -205,6 +212,25 @@ class ASRModel(nn.Module):
                 + self.reverse_weight * r_loss
         return loss_att, th_accuracy(left, ys_out, IGNORE_ID,
                                      self.data_group)
+
+    # ---- pipeline-parallel split points (parallel/pipeline.py) ----
+
+    def pipeline_head(self, features: torch.Tensor,
+                      features_length: torch.Tensor):
+        """The encoder's frontend (CMVN and the subsampling embed):
+        (xs [B, T', D], pos_emb [1, T', D], out_lens [B])."""
+        enc = self.encoder
+        if enc.use_global_cmvn:
+            features = enc.global_cmvn(features)
+        return enc.embed(features.to(enc.dtype), features_length)
+
+    def pipeline_tail(self, xs: torch.Tensor, out_lens: torch.Tensor,
+                      targets: torch.Tensor, targets_length: torch.Tensor
+                      ) -> dict[str, torch.Tensor]:
+        """after_norm on the block stack's output, then the joint loss's
+        metrics."""
+        return self._joint_loss(self.encoder.encoders.after_norm(xs),
+                                out_lens, targets, targets_length)
 
     # ---- decode ----
 
@@ -307,6 +333,7 @@ def build_asr_model(model_conf: dict, input_size: int, vocab_size: int,
         moe_top_k=mc.get("moe_top_k", 2),
         moe_capacity_factor=mc.get("moe_capacity_factor", 1.25),
         moe_aux_weight=mc.get("moe_aux_weight", 0.01),
+        sequence_sharding=mc.get("sequence_sharding", False),
     )
 
 

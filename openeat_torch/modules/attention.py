@@ -10,6 +10,16 @@ WeNet convention the JAX package keeps). Its `forward_chunk` is the
 streaming step: the chunk's queries attend over a right-aligned K/V
 history and the chunk's own keys and values. These are plain matmuls:
 no Pallas kernel stands behind them in the JAX package.
+
+Under sequence parallelism (`sp`, a TimeShard of
+openeat_torch/parallel/tensor_parallel.py) self-attention takes its
+rank's frames [B, T/n, D] and gives its rank's outputs. With the heads
+sharded over the model group (mesh.py's TP rules) it gathers time once,
+runs its heads over all T queries and reduce-scatters after the
+row-parallel linear_out, as Megatron-LM's sequence parallelism does.
+With the heads replicated it runs its own queries against the gathered
+keys and values; a [B, T, T] mask then gives the queries' rows. The
+rel-pos term takes the whole pos_emb either way (one row per key).
 """
 
 from __future__ import annotations
@@ -19,15 +29,17 @@ from torch import nn
 
 from openeat_torch.modules.dropout import Dropout
 from openeat_torch.modules.layers import Dense
+from openeat_torch.parallel import tensor_parallel as tp
 from openeat_torch.utils.mask import NEG_INF
 
 
 def _softmax_context(scores: torch.Tensor, v: torch.Tensor,
                      mask: torch.Tensor | None,
-                     dropout: Dropout | None) -> torch.Tensor:
+                     dropout: Dropout | None, shard=None) -> torch.Tensor:
     """scores [B, H, Tq, Tk] f32 (already scaled); v [B, H, Tk, D];
     mask bool [B, 1, Tk] or [B, Tq, Tk], True = attend; dropout None
-    for none. Returns ctx [B, Tq, H*D] in v's dtype."""
+    for none, `shard` its per-call shard. Returns ctx [B, Tq, H*D] in
+    v's dtype."""
     if mask is not None:
         m = mask[:, None]
         scores = scores.masked_fill(~m, NEG_INF)
@@ -35,7 +47,9 @@ def _softmax_context(scores: torch.Tensor, v: torch.Tensor,
     if mask is not None:
         attn = attn.masked_fill(~m, 0.0)
     attn = attn.to(v.dtype)
-    ctx = torch.matmul(attn if dropout is None else dropout(attn), v)
+    if dropout is not None:
+        attn = dropout(attn, shard)
+    ctx = torch.matmul(attn, v)
     b, h, t, d = ctx.shape
     return ctx.transpose(1, 2).reshape(b, t, h * d)
 
@@ -59,13 +73,41 @@ class MultiHeadedAttention(nn.Module):
         """[B, T, H*D] -> [B, H, T, D]."""
         return x.view(x.shape[0], x.shape[1], self.h, self.d_k).transpose(1, 2)
 
-    def forward(self, query, key, value, mask=None, pos_emb=None):
-        q = self._split(self.linear_q(query))
+    def forward(self, query, key, value, mask=None, pos_emb=None,
+                sp: tp.TimeShard | None = None):
+        """sp: self-attention on this rank's time shard (query, key and
+        value are one tensor [B, T/n, D])."""
+        if sp is not None:
+            return self._forward_sharded(query, mask, pos_emb, sp)
         k = self._split(self.linear_k(key))
         v = self._split(self.linear_v(value))
-        scores = torch.matmul(q, k.transpose(-1, -2)).float() * self.d_k ** -0.5
-        return self.linear_out(_softmax_context(scores, v, mask,
-                                                self.attn_dropout))
+        return self.linear_out(_softmax_context(
+            self._scores(query, k, pos_emb), v, mask, self.attn_dropout))
+
+    def _scores(self, query: torch.Tensor, k: torch.Tensor, pos_emb,
+                proj=Dense.__call__) -> torch.Tensor:
+        """Scaled float32 scores [B, H, Tq, Tk] of query [B, Tq, D]
+        against k [B, H, Tk, Dk]; `proj` applies a Dense."""
+        q = self._split(proj(self.linear_q, query))
+        return torch.matmul(q, k.transpose(-1, -2)).float() \
+            * self.d_k ** -0.5
+
+    def _forward_sharded(self, h: torch.Tensor, mask, pos_emb,
+                         sp: tp.TimeShard) -> torch.Tensor:
+        whole = tp.gather_time(h, sp)
+        k = self._split(self.linear_k.local(whole))
+        v = self._split(self.linear_v.local(whole))
+        if self.linear_out.tp_mode is not None:     # heads sharded
+            ctx = _softmax_context(
+                self._scores(whole, k, pos_emb, Dense.local), v, mask,
+                self.attn_dropout)
+            y = tp.scatter_time(self.linear_out.local(ctx), sp)
+            return y + self.linear_out.bias.to(y.dtype)
+        if mask is not None and mask.shape[1] > 1:
+            mask = sp.local(mask)
+        ctx = _softmax_context(self._scores(h, k, pos_emb, Dense.local), v,
+                               mask, self.attn_dropout, (2, sp.n, sp.i))
+        return self.linear_out(ctx)
 
     # ---- incremental decode (KV caching); layouts [B, L, H, Dk] ----
 
@@ -105,22 +147,20 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
         self.pos_bias_u = nn.Parameter(torch.zeros(num_heads, self.d_k))
         self.pos_bias_v = nn.Parameter(torch.zeros(num_heads, self.d_k))
 
-    def forward(self, query, key, value, mask=None, pos_emb=None):
+    def forward(self, query, key, value, mask=None, pos_emb=None,
+                sp: tp.TimeShard | None = None):
         if pos_emb is None:
             raise ValueError("rel-pos attention needs pos_emb")
-        k = self._split(self.linear_k(key))
-        v = self._split(self.linear_v(value))
-        return self.linear_out(_softmax_context(
-            self._scores(query, k, pos_emb), v, mask, self.attn_dropout))
+        return super().forward(query, key, value, mask, pos_emb, sp)
 
     def _scores(self, query: torch.Tensor, k: torch.Tensor,
-                pos_emb: torch.Tensor) -> torch.Tensor:
+                pos_emb: torch.Tensor, proj=Dense.__call__) -> torch.Tensor:
         """Scaled float32 scores [B, H, Tq, Tk] of query [B, Tq, D]
         against k [B, H, Tk, Dk] and pos_emb [1|B, Tk, D]."""
-        q = self.linear_q(query)
+        q = proj(self.linear_q, query)
         b, t, _ = q.shape
         q = q.view(b, t, self.h, self.d_k)
-        p = self._split(self.linear_pos(pos_emb.to(q.dtype)))  # [1|B,H,T,D]
+        p = self._split(proj(self.linear_pos, pos_emb.to(q.dtype)))
         u = self.pos_bias_u.to(q.dtype)
         vb = self.pos_bias_v.to(q.dtype)
         q2 = torch.cat([q + u, q + vb], dim=-1).transpose(1, 2)

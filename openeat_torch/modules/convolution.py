@@ -9,7 +9,11 @@ rows: they take the place of the left padding, and the call returns the
 chunk's own last K-1 rows as the next cache. The depthwise conv runs
 through kernel K3 (openeat_torch/ops/depthwise_conv.py) on the padded
 (or cache-led) [B, T+K-1, C] input with taps w [K, C]; its bias is added
-outside the kernel.
+outside the kernel. Under sequence parallelism (`sp`) x is the rank's
+frames and the halo exchange of openeat_torch/parallel/
+tensor_parallel.py takes the padding's place after the GLU: the
+neighbours' GLU rows, zeros at the ends, so K3 runs on [B, T/n + K-1,
+C] and sees what the unsharded pad gives those rows.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from torch import nn
 
 from openeat_torch.modules.layers import Dense, LayerNorm
 from openeat_torch.ops.depthwise_conv import depthwise_conv1d
+from openeat_torch.parallel import tensor_parallel as tp
 
 
 class DepthwiseConv1d(nn.Module):
@@ -56,12 +61,22 @@ class ConvolutionModule(nn.Module):
         self.norm = LayerNorm(channels, 1e-5, dtype)
         self.pointwise_conv2 = Dense(channels, channels, dtype=dtype)
 
+    @property
+    def padding(self) -> tuple[int, int]:
+        """Frames of zeros (before, after) the depthwise conv needs."""
+        if self.causal:
+            return self.kernel_size - 1, 0
+        half = (self.kernel_size - 1) // 2
+        return half, half
+
     def forward(self, x: torch.Tensor,
                 mask_pad: torch.Tensor | None = None,
-                cache: torch.Tensor | None = None):
-        """x: [B, T, C]; mask_pad: bool [B, 1, T] or [B, T], True = valid.
-        Returns y [B, T, C], or (y, new_cache [B, K-1, C]) when `cache`
-        is given (causal modules only)."""
+                cache: torch.Tensor | None = None,
+                sp: tp.TimeShard | None = None):
+        """x: [B, T, C]; mask_pad: bool [B, 1, T] or [B, T], True = valid
+        (under `sp`: this rank's frames of both). Returns y [B, T, C], or
+        (y, new_cache [B, K-1, C]) when `cache` is given (causal modules
+        only)."""
         if mask_pad is not None:
             valid = mask_pad.reshape(x.shape[0], -1)[..., None]
             x = torch.where(valid, x, 0.0)
@@ -73,13 +88,10 @@ class ConvolutionModule(nn.Module):
             x = torch.cat([cache.to(x.dtype), x], dim=1)
             # its own tensor: a view would keep the whole chunk alive
             new_cache = x[:, x.shape[1] - (self.kernel_size - 1):].clone()
+        elif sp is not None:
+            x = tp.halo_exchange(x, *self.padding, sp)
         else:
-            if self.causal:
-                pad = (self.kernel_size - 1, 0)
-            else:
-                half = (self.kernel_size - 1) // 2
-                pad = (half, half)
-            x = F.pad(x, (0, 0) + pad)
+            x = F.pad(x, (0, 0) + self.padding)
         x = self.depthwise_conv(x)
         x = self.pointwise_conv2(self.activation(self.norm(x)))
         if mask_pad is not None:

@@ -8,11 +8,12 @@ the ``torch.Generator`` that :func:`set_generator` hands every Dropout
 of a model (and the encoder's dynamic chunk draw); training without one
 raises rather than touching the global RNG.
 
-A Dropout on an activation that tensor parallelism shards (`shard` =
-(dim, n, i): this rank holds slice i of n along dim) draws the whole
-activation's mask and keeps its slice. Every rank of a model group then
-draws the same numbers in the same order, so their generators stay in
-step and the replicated activations get the same masks on every rank.
+A Dropout on an activation that tensor or sequence parallelism shards
+(`shard` = (dim, n, i): this rank holds slice i of n along dim) draws
+the whole activation's mask and keeps its slice. Every rank of a model
+group then draws the same numbers in the same order, so their
+generators stay in step and the replicated activations get the same
+masks on every rank.
 """
 
 from __future__ import annotations
@@ -30,19 +31,23 @@ class Dropout(nn.Module):
         self.generator: torch.Generator | None = None
         self.shard: tuple[int, int, int] | None = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                shard: tuple[int, int, int] | None = None) -> torch.Tensor:
+        """`shard` (dim, n, i) stands for the module's own for one call:
+        sequence parallelism shards time only in some calls."""
         if not self.training or self.rate == 0.0:
             return x
         if self.generator is None:
             raise RuntimeError("Dropout in training mode needs a generator; "
                                "call openeat_torch.modules.dropout."
                                "set_generator(model, generator)")
+        shard = self.shard if shard is None else shard
         shape = list(x.shape)
-        if self.shard is not None:
-            dim, n, i = self.shard
+        if shard is not None:
+            dim, n, i = shard
             shape[dim] *= n
         u = torch.rand(shape, generator=self.generator, device=x.device)
-        if self.shard is not None:
+        if shard is not None:
             u = u.narrow(dim, i * x.shape[dim], x.shape[dim])
         keep = u >= self.rate
         scale = 1.0 / (1.0 - self.rate)
@@ -50,10 +55,18 @@ class Dropout(nn.Module):
                                                         device=x.device))
 
 
-def set_generator(model: nn.Module, generator: torch.Generator | None) -> None:
+def set_generator(model: nn.Module, generator: torch.Generator | None,
+                  chunk_generator: torch.Generator | None = None) -> None:
     """Point every module of `model` that draws in training at
-    `generator`: each Dropout, and the encoder's dynamic chunk draw
-    (the modules with a `generator` attribute)."""
+    `generator` (the modules with a `generator` attribute: each Dropout,
+    and the ASR model, whose pipeline-parallel loss derives its streams
+    from it), and the encoder's dynamic chunk draw at `chunk_generator`,
+    or at `generator` when it is None. Under data parallelism the
+    trainer gives every data rank one chunk generator, seeded alike, and
+    each its own dropout generator."""
     for m in model.modules():
         if hasattr(m, "generator"):
             m.generator = generator
+        if hasattr(m, "chunk_generator"):
+            m.chunk_generator = (generator if chunk_generator is None
+                                 else chunk_generator)

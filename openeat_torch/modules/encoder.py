@@ -10,9 +10,24 @@ Chunk masks: `static_chunk_size` > 0 limits every query to its chunk
 and `num_left_chunks` chunks before it (-1: all of them);
 `use_dynamic_chunk` draws a chunk size per batch in training only, as
 the JAX encoder does: u uniform in [1, max(T, 2)), then T if u > T // 2
-(full context) else u % 25 + 1. The draw comes from `generator`, which
-openeat_torch.modules.dropout.set_generator points at the trainer's
-dropout generator.
+(full context) else u % 25 + 1. The draw comes from `chunk_generator`,
+which openeat_torch.modules.dropout.set_generator points at the
+trainer's chunk generator: the dropout generator itself in one process,
+and under data parallelism one generator that every data rank seeds
+alike, so that the data group trains one chunk size a step, as the JAX
+encoder draws one a global batch.
+
+Sequence parallelism (`sequence_sharding`, the JAX encoder's
+`seq_shard`): once openeat_torch/parallel/mesh.py's apply_mesh gives
+the stack a `time_shard` (a model group of n > 1 ranks), the block
+stack runs on rank i's frames [i*T/n, (i+1)*T/n) of the embed's output
+and gathers time after after_norm. T' that n does not divide runs
+unsharded, as in JAX, and so does a shard shorter than the conv
+module's halo (K-1 frames causal, (K-1)/2 otherwise), which JAX would
+shard: the numbers are the same either way. The replicated parameters
+of the stack (those the TP rules leave whole, outside an MoE FFN) see
+only their rank's frames, so one all-reduce sums their gradients over
+the model group in the backward.
 """
 
 from __future__ import annotations
@@ -21,12 +36,15 @@ from typing import Callable
 
 import torch
 from torch import nn
+from torch.func import functional_call
 
 from openeat_torch.modules.cmvn import GlobalCMVN
 from openeat_torch.modules.embedding import POS_ENC_CLASSES, sinusoid_table
 from openeat_torch.modules.encoder_layer import EncoderLayer
+from openeat_torch.modules.feed_forward import MoEPositionwiseFeedForward
 from openeat_torch.modules.layers import LayerNorm
 from openeat_torch.modules.subsampling import Conv2dSubsampling4
+from openeat_torch.parallel import tensor_parallel as tp
 from openeat_torch.utils.mask import (chunk_mask, dynamic_chunk_mask,
                                       make_non_pad_mask)
 
@@ -43,6 +61,7 @@ class Encoder(nn.Module):
         super().__init__()
         self.num_blocks_share = num_blocks_share
         self.num_layers = num_blocks // num_blocks_share
+        self.time_shard: tp.TimeShard | None = None   # set by apply_mesh
         for i in range(self.num_layers):
             self.add_module(f"layer_{i}", EncoderLayer(
                 d_model, attention_heads, linear_units, activation,
@@ -58,9 +77,45 @@ class Encoder(nn.Module):
                 for _ in range(self.num_blocks_share)]
 
     def forward(self, xs, mask, pos_emb, mask_pad=None, moe_aux=None):
+        sp = self.shard_for(xs.shape[1])
+        if sp is not None:
+            return self._forward_sharded(xs, mask, pos_emb, mask_pad,
+                                         moe_aux, sp)
         for layer in self.applications():
             xs = layer(xs, mask, pos_emb, mask_pad, moe_aux)
         return self.after_norm(xs)
+
+    def shard_for(self, t: int) -> tp.TimeShard | None:
+        """The time shard a stack input of t frames runs on, or None."""
+        sp = self.time_shard
+        if sp is None or t % sp.n:
+            return None
+        conv = getattr(self.layer_0, "conv_module", None)
+        halo = 0 if conv is None else max(conv.padding)
+        return sp if t // sp.n >= halo else None
+
+    def _forward_sharded(self, xs, mask, pos_emb, mask_pad, moe_aux, sp):
+        """The stack on this rank's frames; its output gathered whole."""
+        moe = tuple(name + "." for name, m in self.named_modules()
+                    if isinstance(m, MoEPositionwiseFeedForward))
+        names = [n for n, p in self.named_parameters()
+                 if p.requires_grad and not hasattr(p, "tp_dim")
+                 and not n.startswith(moe)]
+        used = dict(zip(names, tp.sum_grads(
+            [self.get_parameter(n) for n in names], sp.group)))
+
+        def call(module, prefix, *args, **kwargs):
+            own = {n[len(prefix):]: p for n, p in used.items()
+                   if n.startswith(prefix)}
+            return functional_call(module, own, args, kwargs)
+
+        xs = tp.split_time(xs, sp)
+        for i in range(self.num_layers):
+            for _ in range(self.num_blocks_share):
+                xs = call(getattr(self, f"layer_{i}"), f"layer_{i}.", xs,
+                          mask, pos_emb, mask_pad, moe_aux, sp=sp)
+        xs = call(self.after_norm, "after_norm.", xs)
+        return tp.gather_time(xs, sp, reduce_grad=False)
 
     def forward_chunk(self, xs, k_caches, v_caches, kv_mask, cnn_caches,
                       pos_emb):
@@ -100,7 +155,7 @@ class TransformerEncoder(nn.Module):
         self.num_left_chunks = num_left_chunks
         self.use_dynamic_chunk = use_dynamic_chunk
         # the dynamic chunk draw's generator (set_generator sets it)
-        self.generator: torch.Generator | None = None
+        self.chunk_generator: torch.Generator | None = None
         if use_global_cmvn:
             self.global_cmvn = GlobalCMVN(input_size)
         self.use_global_cmvn = use_global_cmvn
@@ -121,11 +176,11 @@ class TransformerEncoder(nn.Module):
         context). `chunk_size` replaces the dynamic draw."""
         if self.use_dynamic_chunk and self.training:
             if chunk_size is None:
-                if self.generator is None:
+                if self.chunk_generator is None:
                     raise RuntimeError(
                         "dynamic-chunk training needs a generator; call "
                         "openeat_torch.modules.dropout.set_generator")
-                g = self.generator
+                g = self.chunk_generator
                 u = torch.randint(1, max(t, 2), (), generator=g,
                                   device=g.device)
                 chunk_size = torch.where(u > t // 2, t, u % 25 + 1)

@@ -14,6 +14,13 @@ macaron FFN stays dense): `forward` routes with the padding mask and
 appends the layer's aux loss to `moe_aux` when given one;
 `forward_chunk` routes each row's chunk on its own with no pad mask, so
 a chunk has its own capacity, as the JAX layer's streaming step has.
+
+Under sequence parallelism (`sp`) x is this rank's frames [B, T/n, D]:
+the norms, residuals, dropouts (each drawing the whole mask and keeping
+the rank's frames) and the conv module run on them, attention and the
+FFNs place their own collectives, and an MoE FFN gathers the whole time
+(its capacity and buffer positions count every token in order), runs
+as without sharding and keeps the rank's frames.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from openeat_torch.modules.dropout import Dropout
 from openeat_torch.modules.feed_forward import (MoEPositionwiseFeedForward,
                                                 PositionwiseFeedForward)
 from openeat_torch.modules.layers import LayerNorm
+from openeat_torch.parallel import tensor_parallel as tp
 
 
 class EncoderLayer(nn.Module):
@@ -73,27 +81,39 @@ class EncoderLayer(nn.Module):
     def forward(self, x: torch.Tensor, mask: torch.Tensor,
                 pos_emb: torch.Tensor,
                 mask_pad: torch.Tensor | None = None,
-                moe_aux: list | None = None) -> torch.Tensor:
+                moe_aux: list | None = None,
+                sp: tp.TimeShard | None = None) -> torch.Tensor:
         """x: [B, T, D]; mask: bool [B, 1, T] attention mask (True =
         attend); mask_pad: bool [B, 1, T] for the conv module and the
         MoE router (defaults to mask); pos_emb: [1, T, D]; moe_aux: a
-        list that an MoE layer appends its aux loss to."""
+        list that an MoE layer appends its aux loss to; sp: x is this
+        rank's time shard [B, T/n, D] (the masks and pos_emb stay
+        whole)."""
         if mask_pad is None:
             mask_pad = mask
+        shard = None if sp is None else (1, sp.n, sp.i)
         if self.macaron_style:
             x = x + self.ff_scale * self.drop(self.feed_forward_macaron(
-                self.norm_ff_macaron(x)))
+                self.norm_ff_macaron(x), sp), shard)
         h = self.norm_mha(x)
-        x = x + self.drop(self.self_attn(h, h, h, mask, pos_emb))
+        x = x + self.drop(self.self_attn(h, h, h, mask, pos_emb, sp=sp),
+                          shard)
         if self.use_cnn_module:
-            x = x + self.drop(self.conv_module(self.norm_conv(x), mask_pad))
+            pad = mask_pad if sp is None else sp.local(mask_pad, -1)
+            x = x + self.drop(self.conv_module(self.norm_conv(x), pad,
+                                               sp=sp), shard)
         if self.moe:
-            h, aux = self.feed_forward(self.norm_ff(x), mask_pad)
+            h = self.norm_ff(x)
+            if sp is not None:
+                h = tp.gather_time(h, sp, reduce_grad=False)
+            h, aux = self.feed_forward(h, mask_pad)
+            if sp is not None:
+                h = tp.split_time(h, sp)
             if moe_aux is not None:
                 moe_aux.append(aux)
         else:
-            h = self.feed_forward(self.norm_ff(x))
-        x = x + self.ff_scale * self.drop(h)
+            h = self.feed_forward(self.norm_ff(x), sp)
+        x = x + self.ff_scale * self.drop(h, shard)
         if self.use_cnn_module:
             x = self.norm_final(x)
         return x

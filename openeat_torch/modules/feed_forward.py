@@ -4,7 +4,9 @@ activation -> dropout -> linear) and MoEPositionwiseFeedForward.
 
 Under tensor parallelism (openeat_torch/parallel/mesh.py) w_1 is
 column-parallel, w_2 row-parallel and the dropout between them acts on
-the hidden shard; the forward is the same code.
+the hidden shard; the forward is the same code. Under sequence
+parallelism (`sp`) a sharded FFN gathers time before w_1 and
+reduce-scatters after w_2; a replicated one runs on the rank's frames.
 """
 
 from __future__ import annotations
@@ -31,8 +33,16 @@ class PositionwiseFeedForward(nn.Module):
         self.activation = activation
         self.dropout = Dropout(dropout_rate)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.w_2(self.dropout(self.activation(self.w_1(x))))
+    def forward(self, x: torch.Tensor,
+                sp: tp.TimeShard | None = None) -> torch.Tensor:
+        if sp is None:
+            return self.w_2(self.dropout(self.activation(self.w_1(x))))
+        if self.w_2.tp_mode is None:
+            h = self.activation(self.w_1(x))
+            return self.w_2(self.dropout(h, (1, sp.n, sp.i)))
+        h = self.activation(self.w_1.local(tp.gather_time(x, sp)))
+        y = tp.scatter_time(self.w_2.local(self.dropout(h)), sp)
+        return y + self.w_2.bias.to(y.dtype)
 
 
 class MoEPositionwiseFeedForward(nn.Module):

@@ -43,8 +43,15 @@ class Dense(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.tp_mode is not None:
             return tp.dense_forward(self, x)
+        return self.local(x)
+
+    def local(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's product with no collective: the whole layer, a
+        column shard with its bias, or a row shard's partial sum without
+        the bias (which the caller adds once, after the sum)."""
         dt = self.compute_dtype
-        bias = None if self.bias is None else self.bias.to(dt)
+        bias = (None if self.bias is None or self.tp_mode == "row"
+                else self.bias.to(dt))
         return F.linear(x.to(dt), self.dense_weight(), bias)
 
 

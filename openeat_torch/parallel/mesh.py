@@ -42,6 +42,17 @@ generator per data rank, so the ranks of a model group draw the same
 masks, and a dropout inside a sharded region draws the whole mask and
 keeps its slice (modules/dropout.py).
 
+Sequence parallelism: a model with `sequence_sharding` shards its
+encoder block stack's time axis over the model group (apply_mesh gives
+the stack its TimeShard; modules/encoder.py).
+
+Pipeline parallelism has a mesh of its own, JAX's ('data', 'pipe')
+(make_pipe_mesh): world rank = data_rank * pp + pipe_rank, tp = 1. On
+it apply_mesh keeps on each pipe rank only the encoder layers of its
+stage (stage_model), and full_state_dict and full_optimizer_state
+gather the stages back to the whole model's tensors. The loss runs
+through openeat_torch/parallel/pipeline.py.
+
 With --multihost (the JAX package's one process per host) the ranks of
 a node form one "process" of the JAX CLI: the loader shards batches by
 node, each node pads its batch to a multiple of its data ranks, and the
@@ -58,13 +69,14 @@ from typing import Any
 import torch
 import torch.distributed as dist
 from torch import nn
+from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 from openeat_torch.modules.attention import (MultiHeadedAttention,
                                              RelPositionMultiHeadedAttention)
 from openeat_torch.modules.feed_forward import (MoEPositionwiseFeedForward,
                                                 PositionwiseFeedForward)
 from openeat_torch.modules.layers import Dense, Embed
-from openeat_torch.parallel.tensor_parallel import all_gather_rows
+from openeat_torch.parallel.tensor_parallel import TimeShard, all_gather_rows
 
 COL, ROW = (None, "model"), ("model", None)
 # openeat_tpu/parallel/mesh.py:TP_RULES: (regex over the flax parameter
@@ -103,6 +115,9 @@ class Mesh:
     data_group: Any
     model_group: Any     # None when tp == 1
     nodes: int = 1       # > 1 under --multihost
+    pp: int = 1          # pipeline stages (make_pipe_mesh)
+    pipe_rank: int = 0
+    pipe_group: Any = None   # None when pp == 1
 
     @property
     def local_dp(self) -> int:
@@ -132,26 +147,45 @@ def resolve_layout(dp: int, tp: int, world: int) -> tuple[int, int]:
     return dp, tp
 
 
+def _grid(dp: int, n: int) -> tuple[int, int, Any, Any]:
+    """(data rank, inner rank, data group, inner group) of this rank on
+    the row-major [dp, n] grid of the world's ranks; the inner group is
+    None when n == 1. Every rank creates every group in the same
+    order."""
+    data_rank, inner_rank = divmod(dist.get_rank(), n)
+    data_group = inner_group = None
+    for m in range(n):
+        g = dist.new_group([d * n + m for d in range(dp)])
+        if m == inner_rank:
+            data_group = g
+    if n > 1:
+        for d in range(dp):
+            g = dist.new_group([d * n + m for m in range(n)])
+            if d == data_rank:
+                inner_group = g
+    return data_rank, inner_rank, data_group, inner_group
+
+
 def make_mesh(dp: int, tp: int, nodes: int = 1) -> Mesh:
     """The mesh over the initialised process group's ranks; every rank
-    calls it, and every rank creates every group in the same order."""
-    world, rank = dist.get_world_size(), dist.get_rank()
-    dp, tp = resolve_layout(dp, tp, world)
+    calls it."""
+    dp, tp = resolve_layout(dp, tp, dist.get_world_size())
     if dp % nodes:
         raise ValueError(f"{dp} data ranks do not split over {nodes} nodes")
-    data_rank, model_rank = divmod(rank, tp)
-    data_group = model_group = None
-    for m in range(tp):
-        g = dist.new_group([d * tp + m for d in range(dp)])
-        if m == model_rank:
-            data_group = g
-    if tp > 1:
-        for d in range(dp):
-            g = dist.new_group([d * tp + m for m in range(tp)])
-            if d == data_rank:
-                model_group = g
-    return Mesh(dp, tp, data_rank, model_rank, data_group, model_group,
-                nodes)
+    return Mesh(dp, tp, *_grid(dp, tp), nodes)
+
+
+def make_pipe_mesh(dp: int, pp: int) -> Mesh:
+    """JAX's pipeline mesh ('data', 'pipe') over the process group's
+    ranks: world rank = data_rank * pp + pipe_rank; every rank calls
+    it."""
+    world = dist.get_world_size()
+    if dp < 1 or pp < 1 or dp * pp != world:
+        raise ValueError(f"data {dp} x pipe {pp} must equal the {world} "
+                         "ranks of the process group")
+    data_rank, pipe_rank, data_group, pipe_group = _grid(dp, pp)
+    return Mesh(dp, 1, data_rank, 0, data_group, None, pp=pp,
+                pipe_rank=pipe_rank, pipe_group=pipe_group)
 
 
 def init_mesh(dp: int | None, tp: int | None, device: torch.device,
@@ -285,10 +319,63 @@ def shard_model(model: nn.Module, mesh: Mesh) -> dict[str, str]:
     return plan
 
 
+@dataclass
+class PipeLayout:
+    """The whole model's entries, kept by stage_model: the state_dict's
+    names in order with their shapes and dtypes, the parameters' names
+    in the optimizer's order, and the stage of each physical encoder
+    layer."""
+    state: dict[str, tuple[torch.Size, torch.dtype]]
+    params: list[str]
+    owner: dict[int, int]
+
+    def stage_of(self, name: str) -> int | None:
+        """The stage that holds a state entry, or None (every stage)."""
+        m = re.match(r"encoder\.encoders\.layer_(\d+)\.", name)
+        return None if m is None else self.owner[int(m.group(1))]
+
+
+def stage_owner(num_layers: int, share: int, pp: int) -> dict[int, int]:
+    """{physical encoder layer: its stage} when the num_layers * share
+    block applications split into pp contiguous stages; ValueError when
+    they do not divide, or when a shared layer's applications would span
+    two stages (the port keeps a layer on one stage)."""
+    total = num_layers * share
+    if total % pp:
+        raise ValueError(f"{total} block applications not divisible by "
+                         f"pipe={pp}")
+    owner: dict[int, int] = {}
+    for a in range(total):
+        layer, stage = a // share, a // (total // pp)
+        if owner.setdefault(layer, stage) != stage:
+            raise ValueError(
+                f"encoder layer {layer} is applied {share} times, across "
+                f"stages {owner[layer]} and {stage}: num_blocks_share must "
+                f"divide the {total // pp} applications of a stage")
+    return owner
+
+
+def stage_model(model: nn.Module, mesh: Mesh) -> None:
+    """Keep only this pipe rank's encoder layers (each parameter marked
+    `pipe_stage`) and record the whole model's layout (`pipe_layout`)."""
+    enc = model.encoder.encoders
+    owner = stage_owner(enc.num_layers, enc.num_blocks_share, mesh.pp)
+    model.pipe_layout = PipeLayout(
+        {k: (v.shape, v.dtype) for k, v in model.state_dict().items()},
+        [n for n, p in model.named_parameters() if p.requires_grad], owner)
+    for layer, stage in owner.items():
+        if stage != mesh.pipe_rank:
+            delattr(enc, f"layer_{layer}")
+        else:
+            for p in getattr(enc, f"layer_{layer}").parameters():
+                p.pipe_stage = True
+
+
 def apply_mesh(model: nn.Module, mesh: Mesh | None) -> None:
     """Point every module that keeps a `data_group` (the loss
-    denominators, the MoE statistics) at the mesh's, and shard the model
-    over the model group."""
+    denominators, the MoE statistics) at the mesh's, shard the model
+    over the model group (and its encoder's time axis, with
+    `sequence_sharding`), and keep this rank's pipeline stage."""
     if mesh is None:
         return
     for m in model.modules():
@@ -296,6 +383,11 @@ def apply_mesh(model: nn.Module, mesh: Mesh | None) -> None:
             m.data_group = mesh.data_group
     if mesh.tp > 1:
         shard_model(model, mesh)
+        if getattr(model, "sequence_sharding", False):
+            model.encoder.encoders.time_shard = TimeShard(
+                mesh.model_group, mesh.tp, mesh.model_rank)
+    if mesh.pp > 1:
+        stage_model(model, mesh)
 
 
 def _gather(t: torch.Tensor, dim: int, mesh: Mesh) -> torch.Tensor:
@@ -303,10 +395,34 @@ def _gather(t: torch.Tensor, dim: int, mesh: Mesh) -> torch.Tensor:
                      dim=dim)
 
 
+def _unstage(local: dict, like: dict, stage_of, mesh: Mesh,
+             dev: torch.device) -> dict:
+    """{name: tensor} over every name of `like` ({name: (shape, dtype,
+    device)}, in order): this rank's `local` entries, and the entries of
+    the other stages' layers (stage_of(name) not None) gathered over the
+    pipe group: each from its stage, zeros from the others, in one
+    float32 sum all-reduce on `dev`."""
+    staged = [n for n in like if stage_of(n) is not None]
+    parts = [local[n].detach().float().to(dev) if n in local
+             else torch.zeros(like[n][0], device=dev) for n in staged]
+    flat = _flatten_dense_tensors(parts)
+    dist.all_reduce(flat, group=mesh.pipe_group)
+    whole = dict(zip(staged, _unflatten_dense_tensors(flat, parts)))
+    return {n: whole[n].to(dtype=like[n][1], device=like[n][2])
+            if n in whole else local[n] for n in like}
+
+
 def full_state_dict(model: nn.Module, mesh: Mesh | None) -> dict:
     """The model's state_dict with every shard gathered back to the full
-    tensor: the checkpoint of a sharded model is the unsharded one's."""
+    tensor, and every pipeline stage's layers to every rank: the
+    checkpoint of a sharded or staged model is the whole one's."""
     state = model.state_dict()
+    if mesh is not None and mesh.pp > 1:
+        layout = model.pipe_layout
+        dev = next(model.parameters()).device
+        like = {n: (shape, dtype, dev)
+                for n, (shape, dtype) in layout.state.items()}
+        return _unstage(state, like, layout.stage_of, mesh, dev)
     if mesh is None or mesh.tp == 1:
         return state
     for name, p in model.named_parameters():
@@ -319,11 +435,42 @@ def _optimizer_params(optimizer: torch.optim.Optimizer) -> list:
     return [p for g in optimizer.param_groups for p in g["params"]]
 
 
+def _unstage_optimizer(state: dict, optimizer: torch.optim.Optimizer,
+                       model: nn.Module, mesh: Mesh) -> dict:
+    """A staged model's optimizer state indexed over the whole model's
+    parameters (PipeLayout.params), the other stages' gathered."""
+    layout = model.pipe_layout
+    ids = {id(p): n for n, p in model.named_parameters()}
+    mine = [ids[id(p)] for p in _optimizer_params(optimizer)]
+    local = {(mine[i], k): v for i, entry in state["state"].items()
+             for k, v in entry.items()}
+    kinds = {}   # state key -> (param-shaped, its own shape, dtype, device)
+    for (n, k), v in local.items():
+        kinds.setdefault(k, (v.shape == layout.state[n][0], v.shape,
+                             v.dtype, v.device))
+    like = {(n, k): (layout.state[n][0] if shaped else shape, dtype, dev)
+            for n in layout.params
+            for k, (shaped, shape, dtype, dev) in kinds.items()}
+    whole = (_unstage(local, like, lambda key: layout.stage_of(key[0]),
+                      mesh, next(model.parameters()).device)
+             if local else {})
+    group = dict(state["param_groups"][0],
+                 params=list(range(len(layout.params))))
+    return {"state": {i: {k: whole[(n, k)] for k in kinds}
+                      for i, n in enumerate(layout.params) if whole},
+            "param_groups": [group]}
+
+
 def full_optimizer_state(optimizer: torch.optim.Optimizer,
-                         mesh: Mesh | None) -> dict:
+                         mesh: Mesh | None, model: nn.Module | None = None
+                         ) -> dict:
     """optimizer.state_dict() with each sharded parameter's state tensors
-    gathered to the full shape, so that a resume is exact at any tp."""
+    gathered to the full shape, so that a resume is exact at any tp;
+    a staged `model`'s (pp > 1) indexed over the whole model's
+    parameters, the other stages' gathered."""
     state = optimizer.state_dict()
+    if mesh is not None and mesh.pp > 1:
+        return _unstage_optimizer(state, optimizer, model, mesh)
     if mesh is None or mesh.tp == 1:
         return state
     for idx, p in enumerate(_optimizer_params(optimizer)):

@@ -19,10 +19,42 @@ Megatron-LM does:
   then uses whole (the MoE aux loss's probability sums over the data
   group).
 
-Every collective on a tensor is a sum all-reduce: the gather writes the
-rank's slice into zeros and sums. NCCL and gloo both take a sum
-all-reduce of CUDA tensors, which is what lets two ranks share one card
-over gloo. A group of None is the single-process path: each function
+Sequence parallelism (SP) shards the encoder block stack's time axis
+over the model group: rank i of n holds frames [i*t, (i+1)*t) of T =
+n*t (`TimeShard`). Its collectives act on dim 1 of [B, T, ...]:
+
+- gather_time: all-gather of time forward. Its backward is a
+  reduce-scatter (sum over the group, keep one's slice) where the ranks
+  hold partial gradients of the gathered tensor (it feeds a
+  column-parallel Dense, or keys and values that every rank's queries
+  read), or takes one's slice where every rank computed the same whole
+  gradient (`reduce_grad=False`: the replicated loss head after the
+  stack, an MoE layer run on the whole time);
+- scatter_time: its converse, reduce-scatter forward after a
+  row-parallel Dense, all-gather backward;
+- split_time: one's slice forward, all-gather backward (the stack's
+  input, which the replicated embed made whole on every rank);
+- halo_exchange: each rank's shard with `left` frames of rank i-1 in
+  front and `right` frames of rank i+1 behind, zeros at the group's
+  ends, as F.pad gives the unsharded conv; its backward sends each
+  halo's gradient back and adds it to the neighbour's boundary frames;
+- sum_grads: identity forward on the replicated parameters of the
+  stack; backward one flat sum all-reduce of their gradients, which
+  each rank computed from its own frames only.
+
+Pipeline parallelism moves activations between neighbouring ranks of
+the pipe group: shift_next hands each rank's tensor to rank i+1 (zeros
+into rank 0) and shift_prev to rank i-1. The GPipe schedule
+(openeat_torch/parallel/pipeline.py) runs its forward and backward
+ticks itself and pairs them: a tick's activation hop goes forward by
+shift_next, its gradient hop back by shift_prev. (An autograd Function
+per hop would let autograd skip the backward of a hop whose output no
+stage used, and the ranks' collectives would fall out of step.)
+
+Every collective on a tensor is a sum all-reduce: the gathers, the halo
+and the hops write the rank's part into zeros and sum. NCCL and gloo
+both take a sum all-reduce of CUDA tensors, which is what lets two
+ranks share one card over gloo. A group of None is the single-process path: each function
 returns its input untouched.
 
 A column-parallel Dense holds rows [i*out/n, (i+1)*out/n) of its weight
@@ -43,9 +75,13 @@ enters as its 1/dp share.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Any
+
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
+from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 
 def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
@@ -129,11 +165,167 @@ def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
     return _all_reduce(full, group)
 
 
+# ---- sequence parallelism: the time axis over the model group
+
+@dataclass(frozen=True)
+class TimeShard:
+    """Shard i of n of the time axis (dim 1), over `group`."""
+    group: Any
+    n: int
+    i: int
+
+    def local(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """This rank's slice of a tensor whole along `dim`."""
+        t = x.shape[dim] // self.n
+        return x.narrow(dim, self.i * t, t)
+
+
+def _gather(x: torch.Tensor, sp: TimeShard) -> torch.Tensor:
+    t = x.shape[1]
+    full = x.new_zeros((x.shape[0], sp.n * t) + tuple(x.shape[2:]))
+    full.narrow(1, sp.i * t, t).copy_(x)
+    return _all_reduce(full, sp.group)
+
+
+def _scatter(x: torch.Tensor, sp: TimeShard) -> torch.Tensor:
+    return sp.local(_all_reduce(x.clone(), sp.group)).contiguous()
+
+
+class _GatherTime(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, sp, reduce_grad):
+        ctx.sp, ctx.reduce_grad = sp, reduce_grad
+        return _gather(x, sp)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.reduce_grad:
+            return _scatter(g, ctx.sp), None, None
+        return ctx.sp.local(g).contiguous(), None, None
+
+
+class _ScatterTime(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, sp):
+        ctx.sp = sp
+        return _scatter(x, sp)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g.contiguous(), ctx.sp), None
+
+
+class _SplitTime(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, sp):
+        ctx.sp = sp
+        return sp.local(x).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g.contiguous(), ctx.sp), None
+
+
+class _HaloExchange(torch.autograd.Function):
+    """[B, t, C] -> [B, left + t + right, C]. One sum all-reduce each
+    way of a [n, B, left + right, C] table: slot i holds rank i's first
+    `right` frames (rank i-1's right halo) and its last `left` frames
+    (rank i+1's left halo); backward, the halos' gradients."""
+
+    @staticmethod
+    def forward(ctx, x, left, right, sp):
+        ctx.left, ctx.right, ctx.sp = left, right, sp
+        b, t, c = x.shape
+        table = x.new_zeros((sp.n, b, right + left, c))
+        table[sp.i, :, :right] = x[:, :right]
+        table[sp.i, :, right:] = x[:, t - left:]
+        table = _all_reduce(table, sp.group)
+        lo = (table[sp.i - 1, :, right:] if sp.i > 0
+              else x.new_zeros((b, left, c)))
+        hi = (table[sp.i + 1, :, :right] if sp.i < sp.n - 1
+              else x.new_zeros((b, right, c)))
+        return torch.cat([lo, x, hi], dim=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        left, right, sp = ctx.left, ctx.right, ctx.sp
+        b, tt, c = g.shape
+        t = tt - left - right
+        gx = g[:, left:left + t].clone()
+        table = g.new_zeros((sp.n, b, left + right, c))
+        table[sp.i, :, :left] = g[:, :left]
+        table[sp.i, :, left:] = g[:, left + t:]
+        table = _all_reduce(table, sp.group)
+        if sp.i < sp.n - 1:      # my tail was rank i+1's left halo
+            gx[:, t - left:] += table[sp.i + 1, :, :left]
+        if sp.i > 0:             # my head was rank i-1's right halo
+            gx[:, :right] += table[sp.i - 1, :, left:]
+        return gx, None, None, None
+
+
+class _SumGrads(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, *params):
+        ctx.group = group
+        return tuple(p.view_as(p) for p in params)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        flat = _all_reduce(_flatten_dense_tensors(grads), ctx.group)
+        return (None, *_unflatten_dense_tensors(flat, grads))
+
+
+def gather_time(x: torch.Tensor, sp: TimeShard,
+                reduce_grad: bool = True) -> torch.Tensor:
+    return _GatherTime.apply(x, sp, reduce_grad)
+
+
+def scatter_time(x: torch.Tensor, sp: TimeShard) -> torch.Tensor:
+    return _ScatterTime.apply(x, sp)
+
+
+def split_time(x: torch.Tensor, sp: TimeShard) -> torch.Tensor:
+    return _SplitTime.apply(x, sp)
+
+
+def halo_exchange(x: torch.Tensor, left: int, right: int,
+                  sp: TimeShard) -> torch.Tensor:
+    """x [B, t, C] with `left` frames of the rank before and `right` of
+    the rank after (t >= left, right), zeros at the ends."""
+    return _HaloExchange.apply(x, left, right, sp)
+
+
+def sum_grads(params: list, group) -> tuple:
+    """The parameters as they are; their gradients summed over the
+    group in one all-reduce."""
+    return _SumGrads.apply(group, *params)
+
+
+# ---- pipeline parallelism: hops between neighbouring pipe ranks
+
+def _shift(x: torch.Tensor, group, step: int) -> torch.Tensor:
+    n, i = dist.get_world_size(group), dist.get_rank(group)
+    table = x.new_zeros((n,) + tuple(x.shape))
+    table[i] = x
+    table = _all_reduce(table, group)
+    src = i - step
+    return table[src] if 0 <= src < n else torch.zeros_like(x)
+
+
+def shift_next(x: torch.Tensor, group) -> torch.Tensor:
+    """Rank i-1's x on rank i; zeros on rank 0. Every rank calls it."""
+    return _shift(x, group, 1)
+
+
+def shift_prev(x: torch.Tensor, group) -> torch.Tensor:
+    """Rank i+1's x on rank i; zeros on the last rank."""
+    return _shift(x, group, -1)
+
+
 # ---- the data group's denominators and shares
 
 def global_sum(x: torch.Tensor, group) -> torch.Tensor:
-    """The data group's sum of x (no gradient); x itself with no
-    group."""
+    """The group's sum of x (no gradient); x itself with no group."""
     return x if group is None else _all_reduce(x.detach().clone(), group)
 
 
@@ -156,14 +348,12 @@ def dense_forward(dense, x: torch.Tensor) -> torch.Tensor:
     """Forward of a sharded Dense: tp_mode "column" (output sharded),
     "gather" (column, then the full output on every rank) or "row"
     (input sharded; the bias once, after the sum)."""
-    dt = dense.compute_dtype
     group = dense.tp_group
-    w = dense.dense_weight()
     if dense.tp_mode == "row":
-        y = reduce_from_group(F.linear(x.to(dt), w), group)
-        return y if dense.bias is None else y + dense.bias.to(dt)
-    bias = None if dense.bias is None else dense.bias.to(dt)
-    y = F.linear(copy_to_group(x, group).to(dt), w, bias)
+        y = reduce_from_group(dense.local(x), group)
+        return y if dense.bias is None else \
+            y + dense.bias.to(dense.compute_dtype)
+    y = dense.local(copy_to_group(x, group))
     return gather_from_group(y, group) if dense.tp_mode == "gather" else y
 
 

@@ -28,7 +28,10 @@ no no_sync. The global norm counts each sharded tensor's shards once
 (one all-reduce of the sharded and replicated square sums over the
 model group) and each replicated tensor once, so every rank reads the
 same norm and skips the same steps. The metrics are summed over the
-data group: every rank returns the global batch's.
+data group: every rank returns the global batch's. On a pipe mesh
+(pipeline.py) each stage's parameters (`pipe_stage`) count on their
+rank and the replicated ones, equal on every pipe rank, once; the
+metrics are already equal on every pipe rank.
 """
 
 from __future__ import annotations
@@ -98,15 +101,17 @@ def _loss_and_grads(model: nn.Module, batch: dict, accum_grad: int,
 
 def _global_norm(params: list, mesh) -> torch.Tensor:
     sq = [p.grad.float().square().sum() for p in params]
-    if mesh is None or mesh.tp == 1:
+    if mesh is None or mesh.tp * mesh.pp == 1:
         return torch.stack(sq).sum().sqrt()
+    # a model or pipe group's ranks each hold their own shards or stage,
+    # and all of them the replicated tensors
     zero = sq[0].new_zeros(())
-    sharded = sum((q for q, p in zip(sq, params) if hasattr(p, "tp_dim")),
-                  zero)
-    replicated = sum((q for q, p in zip(sq, params)
-                      if not hasattr(p, "tp_dim")), zero)
-    both = torch.stack([sharded, replicated / mesh.tp])
-    dist.all_reduce(both, group=mesh.model_group)
+    own = [hasattr(p, "tp_dim") or hasattr(p, "pipe_stage") for p in params]
+    mine = sum((q for q, o in zip(sq, own) if o), zero)
+    replicated = sum((q for q, o in zip(sq, own) if not o), zero)
+    group = mesh.model_group if mesh.tp > 1 else mesh.pipe_group
+    both = torch.stack([mine, replicated / (mesh.tp * mesh.pp)])
+    dist.all_reduce(both, group=group)
     return both.sum().sqrt()
 
 
@@ -143,10 +148,12 @@ def build_train_step(schedule: Callable[[int], float], accum_grad: int = 1,
                      grad_clip: float = 5.0,
                      loss_fn: Callable | None = None,
                      mesh=None) -> Callable:
-    """Returns train_step(state, batch, generator) -> metrics dict.
+    """Returns train_step(state, batch, generator, chunk_generator=None)
+    -> metrics dict.
 
     With accum_grad > 1 every batch array has a leading [accum_grad,
-    micro, ...] layout. `generator` feeds the model's dropout.
+    micro, ...] layout. `generator` feeds the model's dropout, and its
+    dynamic chunk draw unless `chunk_generator` is given.
     `loss_fn(model, batch) -> metrics with "loss"` replaces the ASR loss
     (asr_loss), as the LM trainer does, like the JAX
     build_train_step(..., loss_fn=). On a `mesh` the batch holds this
@@ -154,10 +161,11 @@ def build_train_step(schedule: Callable[[int], float], accum_grad: int = 1,
     loss_fn = asr_loss if loss_fn is None else loss_fn
 
     def train_step(state: TrainState, batch: dict,
-                   generator: torch.Generator | None) -> dict:
+                   generator: torch.Generator | None,
+                   chunk_generator: torch.Generator | None = None) -> dict:
         model = state.model
         model.train()
-        set_generator(model, generator)
+        set_generator(model, generator, chunk_generator)
         state.optimizer.zero_grad(set_to_none=True)
         metrics = _loss_and_grads(model, batch, accum_grad, loss_fn)
         gnorm, applied = apply_update(state, schedule, grad_clip, mesh)

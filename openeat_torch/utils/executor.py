@@ -43,13 +43,16 @@ class Executor:
                 f.write(json.dumps(record) + "\n")
 
     def train(self, state: TrainState, batches: Iterable[dict],
-              generator: torch.Generator | None, epoch: int = 0) -> dict:
-        """One epoch over device batches; returns the epoch summary."""
+              generator: torch.Generator | None, epoch: int = 0,
+              chunk_generator: torch.Generator | None = None) -> dict:
+        """One epoch over device batches; returns the epoch summary.
+        `generator` and `chunk_generator` go to the train step."""
         n_batches = 0
         run_loss = run_acc = run_ok = frames = 0.0
         t0 = time.time()
         for i, batch in enumerate(batches):
-            metrics = self.train_step(state, batch, generator)
+            metrics = self.train_step(state, batch, generator,
+                                      chunk_generator)
             loss = metrics["loss"]
             ok = torch.isfinite(loss)
             run_loss = run_loss + torch.where(ok, loss, 0.0)

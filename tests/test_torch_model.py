@@ -97,12 +97,27 @@ def test_bridge_owns_the_depthwise_layout():
 
 
 def test_unported_options_raise():
+    """Adapters are refused. sequence_sharding is ported: it builds, and
+    with no model group (apply_mesh gives none) the model computes what
+    the plain one computes."""
     with pytest.raises(NotImplementedError, match="adapters"):
         build_asr_model(dict(TINY_CONF, encoder_use_adapter=True), FEAT_DIM,
                         VOCAB)
-    with pytest.raises(NotImplementedError, match="sequence parallel"):
-        build_asr_model(dict(TINY_CONF, sequence_sharding=True), FEAT_DIM,
-                        VOCAB)
+    _, _, _, tm = tiny_models(0)
+    ts = build_asr_model(dict(TINY_CONF, sequence_sharding=True), FEAT_DIM,
+                         VOCAB)
+    ts.load_state_dict(tm.state_dict())
+    assert ts.sequence_sharding and ts.encoder.encoders.time_shard is None
+    feats, lens = _inputs()
+    x, xl = torch.from_numpy(feats), torch.from_numpy(lens).long()
+    ys = torch.tensor([[3, 5, 7, 9], [4, 6, -1, -1], [8, -1, -1, -1]])
+    ys_lens = torch.tensor([4, 2, 1])
+    ts.eval()
+    with torch.no_grad():
+        for a, b in ((tm.encode(x, xl)[0], ts.encode(x, xl)[0]),
+                     (tm(x, xl, ys, ys_lens)["loss"],
+                      ts(x, xl, ys, ys_lens)["loss"])):
+            assert torch.equal(a, b)
 
 
 def test_bfloat16_compute_keeps_float32_parameters():

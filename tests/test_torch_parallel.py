@@ -37,10 +37,6 @@ embedding and the output layers shard too). Tolerances:
 
 import json
 import os
-import socket
-import subprocess
-import sys
-import time
 
 import jax
 import jax.numpy as jnp
@@ -74,13 +70,13 @@ from openeat_torch.models.language_model import build_language_model
 from openeat_torch.modules.feed_forward import MoEPositionwiseFeedForward
 from openeat_torch.parallel import mesh
 from openeat_torch.utils.param_bridge import flax_to_state_dict
+from tests._torch_jobs import spawn, wait
 from tests._torch_parity import FEAT_DIM, TINY_CONF, VOCAB, _draw, \
     tiny_models
 from tests.make_tiny_data import build as build_tiny
 from tests.test_torch_recognize import _write_arpa
 
 torch.set_num_threads(1)
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DENSE = dict(dropout_rate=0.0)
 MOE = dict(dropout_rate=0.0, moe_experts=4, moe_top_k=2,
            moe_capacity_factor=0.5)
@@ -104,45 +100,6 @@ def _batch(seed, b=3, t=57):
             "features_length": np.array([t, t - 16, 31, t - 5][:b],
                                         np.int32),
             "targets": ys, "targets_length": ys_lens}
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def _spawn(workdir: str) -> list:
-    port = _free_port()
-    procs = []
-    for rank in range(2):
-        env = dict(os.environ, RANK=str(rank), LOCAL_RANK=str(rank),
-                   WORLD_SIZE="2", LOCAL_WORLD_SIZE="2",
-                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
-                   OMP_NUM_THREADS="1")
-        log = open(os.path.join(workdir, f"rank{rank}.log"), "w")
-        procs.append((subprocess.Popen(
-            [sys.executable, "-m", "tests._torch_dist_worker", workdir],
-            cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT), log))
-    return procs
-
-
-def _wait(procs, workdir: str, timeout: float = 600.0) -> None:
-    deadline = time.monotonic() + timeout
-    try:
-        for p, _ in procs:
-            p.wait(timeout=max(1.0, deadline - time.monotonic()))
-    except subprocess.TimeoutExpired:
-        pass
-    finally:
-        for p, log in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait(timeout=30)
-            log.close()
-    logs = [open(os.path.join(workdir, f"rank{r}.log")).read()[-4000:]
-            for r in range(2)]
-    assert all(p.returncode == 0 for p, _ in procs), "\n".join(logs)
 
 
 def _jax_step(conf, variables, batch, data, model):
@@ -295,7 +252,7 @@ def job(tmp_path_factory):
                           "--num_workers", "1", "--max_epoch", "1", *extra]})
     with open(os.path.join(root, "tasks.json"), "w") as f:
         json.dump(tasks, f)
-    procs = _spawn(root)
+    procs = spawn(root, 2)
     try:
         # the JAX side meanwhile
         ref = {}
@@ -319,7 +276,7 @@ def job(tmp_path_factory):
                            os.path.join(root, "jax_lm"), "--dp", "2",
                            "--tp", "2"])
     finally:
-        _wait(procs, root)
+        wait(procs, root)
     c.update(ref=ref, steps=step_inputs, decodes=decodes, vocab=vocab)
     return c
 
