@@ -181,6 +181,35 @@
    another summation order), its kernels launched. These steps'
    launches join the kernels line.
 
+15. WeNet pre-trained fine-tuning (after 9; examples/asrucs2019/run.sh
+   stage 2 and examples/wenet_pre-trained_decoding/run.sh): writes a
+   JSON and a kaldi-text global CMVN file from the training wavs' fbank
+   (on the card), a WeNet-layout final.pt (the flagship with seeded
+   random weights and those statistics, under WeNet's names and
+   layouts) and a WeNet train.yaml (JSON, which is YAML). Then
+   openeat_torch.bin.convert_wenet, which must give back the model the
+   .pt was written from; recognize with the WeNet train.yaml in the four
+   modes on 8 decode wavs (bf16, the default of a config naming no
+   dtype), 12 K3 launches each; the decoded model's statistics equal
+   the written ones, its frontend feeds raw fbank, and its float32
+   encoder on the card is within ENC_TOL of the CPU's on that batch.
+   Then bin.train --checkpoint <converted> --only_adapter --profile_dir
+   with the asrucs2019 model_conf, adapters on (down_size 64, scalar
+   0.1), bf16, dataset_conf.speed_perturb, speed_perturb_rate 0.5 and
+   wav_dither 1.0, one epoch of the training corpus (max_length 3000,
+   so the 19.5 s wavs, 21.7 s at speed 0.9, run K2): every non-adapter
+   tensor of epoch_1.pt bit-equal to the converted checkpoint's, CMVN
+   included, every adapter tensor moved from its init, finite losses,
+   train.json with use_global_cmvn true and normalization false, the
+   trace naming openeat_dwconv1d_fwd, _dgrad and _wgrad (the wrappers'
+   launch regions) and the K3 and ctc_dp_* device kernels, and the
+   launch counts of 5 with the 4 profiled warm-up
+   steps (K2 among them). The adapter step's seconds against the full
+   step's on one batch. Last, bin.train --cmvn_file <kaldi text>
+   --is_json_cmvn false from scratch, 8 epochs of one 8-utterance batch
+   (dropout 0, no SpecAugment): the loss falls and the checkpoint's
+   statistics equal the file's.
+
 Any failed check raises. Before the last two stdout lines it prints the
 card's name and power limit again; then the kernels line (each kernel's
 launches on the main path, error, times and bounds; the CTC rows with
@@ -207,8 +236,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from openeat_torch.bin import (average_model, recognize, stream_recognize,
-                               train_lm)
+from openeat_torch.bin import (average_model, convert_wenet, recognize,
+                               stream_recognize, train_lm)
 from openeat_torch.bin import serve as serve_cli
 from openeat_torch.bin import train as train_cli
 from openeat_torch.dataset.audio import read_wav, resample, write_wav
@@ -244,9 +273,11 @@ from openeat_torch.parallel.train_step import (TrainState, apply_update,
 from openeat_torch.pipeline import DeviceFeeder
 from openeat_torch.runtime.client import AsrClient
 from openeat_torch.runtime.server import recv_frame, send_json
+from openeat_torch.utils.cmvn import load_cmvn
 from openeat_torch.utils.common import get_activation, make_generator
 from openeat_torch.utils.optim import build_optimizer
 from openeat_torch.utils.quantize import quantized_bytes
+from openeat_torch.utils.wenet_convert import convert_wenet_config
 from openeat_torch.utils.wer import corpus_wer
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -709,9 +740,17 @@ def stage_breakdown(cfg_path: str, ckpt: str, manifest: str,
     return out
 
 
+def _device_kernel_events(prof) -> list:
+    """The profile's device kernels (and copies): its CUDA events less
+    the user annotations, such as the regions the kernel wrappers open
+    around their launches (openeat_torch/ops/nvcc.py:launch_region)."""
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def _device_busy_us(prof) -> float:
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA)
+    return sum(e.time_range.elapsed_us() for e in _device_kernel_events(prof))
 
 
 def attention_cache_checks(cfg_path: str, ckpt: str, manifest: str,
@@ -1854,8 +1893,7 @@ def _device_kernels(call, attempts: int = 3) -> dict:
                                  ProfilerActivity.CUDA]) as prof:
             call()
             torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        names = [e.name for e in _device_kernel_events(prof)]
         if names:
             break
     return {"kernels": names, "traces": traces}
@@ -2760,6 +2798,326 @@ def dist_rank_role(work: str, train_data: str, dict_path: str) -> None:
 
 # ---------------------------------------------------------------- main
 
+# ---------------------------------------------------------------- finetune
+
+# examples/asrucs2019/conf/train_conformer.yaml's model_conf with the
+# adapters on (run.sh stage 2), bf16; speed perturbation offline and
+# online and wav dither, max_length 3000 so that the 19.5 s wavs,
+# stretched to 21.7 s at speed 0.9, stay in (and run K2)
+ADAPTER_KEYS = {"encoder_use_adapter": True, "decoder_use_adapter": True,
+                "down_size": 64, "scalar": 0.1}
+FINETUNE_CONFIG = dict(
+    TRAIN_CONFIG, max_epoch=1,
+    model_conf=dict(TRAIN_CONFIG["model_conf"], **ADAPTER_KEYS),
+    collate_conf=dict(
+        TRAIN_CONFIG["collate_conf"],
+        feature_extraction_conf=dict(
+            TRAIN_CONFIG["collate_conf"]["feature_extraction_conf"],
+            speed_perturb_rate=0.5, speeds=[0.9, 1.1, 0.1],
+            wav_dither=1.0)),
+    dataset_conf=dict(TRAIN_CONFIG["dataset_conf"], speed_perturb=True,
+                      speeds=[0.9, 1.1, 0.1], max_length=3000))
+# a WeNet release's train.yaml (u2 Conformer, bitransformer decoder) at
+# the flagship's widths, written as JSON, which is YAML too (the card
+# machine has no PyYAML)
+WENET_YAML = {
+    "encoder": "conformer",
+    "encoder_conf": {"output_size": 256, "attention_heads": 4,
+                     "linear_units": 1024, "num_blocks": 12,
+                     "cnn_module_kernel": 15, "dropout_rate": 0.1,
+                     "positional_dropout_rate": 0.1,
+                     "input_layer": "conv2d", "pos_enc_layer_type": "rel_pos",
+                     "activation_type": "swish", "use_cnn_module": True,
+                     "macaron_style": True, "normalize_before": True},
+    "decoder": "bitransformer",
+    "decoder_conf": {"attention_heads": 4, "linear_units": 1024,
+                     "num_blocks": 3, "r_num_blocks": 3},
+    "model_conf": {"ctc_weight": 0.3, "lsm_weight": 0.1,
+                   "reverse_weight": 0.3, "length_normalized_loss": False},
+    "dataset_conf": {"fbank_conf": {"num_mel_bins": 80}},
+    "input_dim": 80, "output_dim": VOCAB}
+
+
+def wenet_names(state: dict) -> dict:
+    """The port's state_dict under WeNet's names and layouts (the inverse
+    of openeat_torch/utils/wenet_convert.py): conv2d x4 as conv.0/conv.2,
+    the post-subsampling projection's input in torch's (C, F) order,
+    blocks numbered, pointwise convs [out, in, 1], depthwise [C, 1, K],
+    embeddings as embed.0."""
+    out = {}
+    for k, v in state.items():
+        v = v.clone()
+        if k.startswith("encoder.embed.Conv_"):
+            i = int(k[len("encoder.embed.Conv_")])
+            k = f"encoder.embed.conv.{2 * i}{k[len('encoder.embed.Conv_0'):]}"
+        elif k == "encoder.embed.Dense_0.weight":
+            d, fc = v.shape
+            v = v.reshape(d, fc // d, d).transpose(1, 2).reshape(d, fc)
+            k = "encoder.embed.out.0.weight"
+        elif k == "encoder.embed.Dense_0.bias":
+            k = "encoder.embed.out.0.bias"
+        elif k.startswith("encoder.encoders.after_norm."):
+            k = k.replace("encoder.encoders.", "encoder.")
+        if "pointwise_conv" in k and k.endswith(".weight"):
+            v = v[..., None]
+        if "depthwise_conv.weight" in k:
+            v = v.t()[:, None, :]
+        k = k.replace(".layer_", ".").replace("embed.weight",
+                                              "embed.0.weight")
+        out[k] = v.contiguous()
+    return out
+
+
+def write_cmvn_stats(manifest: str, dict_path: str) -> tuple[str, str]:
+    """Global CMVN statistics of the manifest's wavs (fbank on the card
+    over their valid frames) as a WeNet JSON file and a kaldi text
+    file."""
+    dev = torch.device("cuda")
+    ds = AudioDataset(manifest, load_dict(dict_path), batch_size=8)
+    total = torch.zeros((2, 80), dtype=torch.float64, device=dev)
+    frames = 0
+    for i in range(len(ds)):
+        b = {k: torch.from_numpy(v).to(dev)
+             for k, v in AudioCollate()(ds[i])[1].items()}
+        feats, flens = fbank_mod.fbank(b["wav"], b["wav_lens"])
+        valid = torch.arange(feats.shape[1], device=dev)[None] \
+            < flens[:, None]
+        f = feats[valid].double()
+        total += torch.stack([f.sum(0), f.square().sum(0)])
+        frames += int(valid.sum())
+    mean_stat, var_stat = total.cpu().numpy()
+    json_path = os.path.join(WORK, "global_cmvn.json")
+    with open(json_path, "w") as f:
+        json.dump({"mean_stat": mean_stat.tolist(),
+                   "var_stat": var_stat.tolist(), "frame_num": frames}, f)
+    kaldi_path = os.path.join(WORK, "cmvn.ark.txt")
+    with open(kaldi_path, "w") as f:
+        f.write(" [\n  " + " ".join(repr(float(x)) for x in mean_stat)
+                + f" {frames}\n  "
+                + " ".join(repr(float(x)) for x in var_stat) + " 0 ]\n")
+    return json_path, kaldi_path
+
+
+def _train_records(exp: str) -> list:
+    with open(os.path.join(exp, "metrics.jsonl")) as f:
+        return [r for r in map(json.loads, f) if r["kind"] == "train"]
+
+
+def _trace_names(profile_dir: str) -> set:
+    names = set()
+    for name in os.listdir(profile_dir):
+        with open(os.path.join(profile_dir, name)) as f:
+            names |= {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    return names
+
+
+def adapter_step_seconds(manifest: str, dict_path: str,
+                         n_steps: int = 6) -> dict:
+    """Seconds of a train step of the adapter model, bf16, dropout 0.1,
+    on one 8-utterance batch: every parameter trained against
+    --only_adapter (the whole backward either way: every gradient is
+    taken and counted in the clip norm; Adam updates the adapters
+    only). Host clock around synchronized steps, the first of each left
+    out, median; full, adapter, adapter, full, each half the steps."""
+    dev = torch.device("cuda")
+    batch = _features(_host_batches(manifest, dict_path, 8), dev,
+                      FrontendConfig())
+    runs = {}
+    for only in (False, True, True, False):
+        model = _flagship("bfloat16", 0.1, **ADAPTER_KEYS).to(dev)
+        opt, schedule = build_optimizer(model, 1e-3, 4, only_adapter=only)
+        state, step = TrainState(model, opt), build_train_step(schedule)
+        gen = make_generator(SEED, dev)
+        times = []
+        for _ in range(n_steps // 2 + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(state, batch, gen)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        runs.setdefault("adapter" if only else "full", []).extend(times[1:])
+    out = {f"{k}_step_s": statistics.median(v) for k, v in runs.items()}
+    out["adapter_over_full"] = out["adapter_step_s"] / out["full_step_s"]
+    out["batch_shape"] = list(batch["features"].shape)
+    return out
+
+
+def finetune(manifest: str, dict_path: str, train_data: str,
+             cv_data: str) -> dict:
+    """The WeNet pre-trained fine-tuning path through the entry points:
+    convert_wenet of a WeNet-layout final.pt and train.yaml, recognize in
+    the four modes from the converted checkpoint and the WeNet config,
+    train --only_adapter --profile_dir from it, and a from-scratch
+    train --cmvn_file. Every check raises."""
+    out = {}
+    wdir = os.path.join(WORK, "wenet")
+    os.makedirs(wdir)
+    json_cmvn, kaldi_cmvn = write_cmvn_stats(train_data, dict_path)
+    mean, istd = load_cmvn(json_cmvn, True)
+    port = random_model_state(torch.Generator().manual_seed(SEED + 11))
+    port["encoder.global_cmvn.mean"] = torch.from_numpy(mean)
+    port["encoder.global_cmvn.istd"] = torch.from_numpy(istd)
+    torch.save(wenet_names(port), os.path.join(wdir, "final.pt"))
+    wenet_cfg = os.path.join(wdir, "train.yaml")
+    with open(wenet_cfg, "w") as f:
+        json.dump(WENET_YAML, f)
+
+    # 1. convert, then decode the converted checkpoint in four modes
+    t0 = time.perf_counter()
+    ckpt = convert_wenet.main(["--pt", os.path.join(wdir, "final.pt"),
+                               "--d_model", "256", "--out",
+                               os.path.join(wdir, "converted"),
+                               "--wenet_config", wenet_cfg])
+    out["convert_s"] = time.perf_counter() - t0
+    converted = torch.load(ckpt, weights_only=True)
+    if set(converted) != set(port) or any(
+            not torch.equal(converted[k], v) for k, v in port.items()):
+        raise AssertionError("convert_wenet did not give back the model "
+                             "the WeNet checkpoint was written from")
+    with open(manifest, encoding="utf-8") as f:
+        lines = f.readlines()[:BATCH]
+    eight = os.path.join(wdir, "decode8.data")
+    with open(eight, "w", encoding="utf-8") as f:
+        f.writelines(lines)
+    decodes = []
+    for mode in MODES:
+        hyps, wall, launches, _ = run_recognize(wenet_cfg, ckpt, eight,
+                                                dict_path, mode,
+                                                f"wenet_{mode}")
+        if len(hyps) != BATCH or launches != 12:
+            raise AssertionError(f"wenet {mode}: {len(hyps)} keys written, "
+                                 f"K3 launched {launches} times")
+        decodes.append({"mode": mode, "wall_s": wall, "k3_launches": launches,
+                        "nonempty_hyps": sum(bool(v) for v in hyps.values())})
+    out["decodes"] = decodes
+    cfg = convert_wenet_config(WENET_YAML)
+    cfg["model_conf"]["compute_dtype"] = "float32"
+    models = {d: recognize.load_model(cfg, ckpt, VOCAB, torch.device(d))
+              for d in ("cuda", "cpu")}
+    for m in models.values():
+        got = m.encoder.global_cmvn
+        if not (np.array_equal(got.mean.detach().cpu().numpy(), mean)
+                and np.array_equal(got.istd.detach().cpu().numpy(), istd)):
+            raise AssertionError("the decoded model's CMVN statistics are "
+                                 "not the written ones")
+    fe = FrontendConfig.from_collate_conf(cfg["collate_conf"])
+    if fe.normalization:
+        raise AssertionError("a WeNet config must decode raw fbank")
+    feeder = DeviceFeeder(PrefetchLoader(AudioDataset(
+        eight, load_dict(dict_path), batch_size=BATCH), AudioCollate()),
+        fe, torch.device("cuda"), BATCH)
+    feats = next(iter(feeder))[1]
+    with torch.inference_mode():
+        g_enc, g_lens = models["cuda"].encode(feats["features"],
+                                              feats["features_length"])
+        c_enc, _ = models["cpu"].encode(feats["features"].cpu(),
+                                        feats["features_length"].cpu())
+    valid = torch.arange(c_enc.shape[1])[None] < g_lens.cpu()[:, None]
+    out["encoder_max_abs_err"] = float((g_enc.cpu() - c_enc).abs()[valid]
+                                       .max())
+    if not torch.isfinite(g_enc).all() \
+            or out["encoder_max_abs_err"] > ENC_TOL:
+        raise AssertionError(f"converted model GPU vs CPU: {out}")
+
+    # 2. fine-tune the adapters from the converted checkpoint
+    cfg_path = os.path.join(wdir, "finetune.json")
+    with open(cfg_path, "w") as f:
+        json.dump(FINETUNE_CONFIG, f)
+    exp, prof = os.path.join(wdir, "exp"), os.path.join(wdir, "prof")
+    common = ["--train_data", train_data, "--cv_data", cv_data, "--dict",
+              dict_path, "--device", "cuda", "--num_workers", "4"]
+    _reset_counts()
+    t0 = time.perf_counter()
+    state = train_cli.main(["--config", cfg_path, "--exp_dir", exp,
+                            "--checkpoint", ckpt, "--only_adapter",
+                            "--profile_dir", prof, *common])
+    torch.cuda.synchronize()
+    out["train_wall_s"] = time.perf_counter() - t0
+    counts = out["launches"] = _counts()
+    n_cv = len(AudioDataset(cv_data, load_dict(dict_path),
+                            batch_type="dynamic", max_frames_in_batch=10000))
+    steps = state.step + 4          # the 4 warm-up steps of --profile_dir
+    want = {"depthwise_conv1d": 12 * (steps + n_cv),
+            "depthwise_conv1d_dgrad": 12 * steps,
+            "depthwise_conv1d_wgrad": 12 * steps}
+    n_ctc = counts["ctc_dp_shared"] + counts["ctc_dp_global"]
+    if any(counts[k] != v for k, v in want.items()) \
+            or n_ctc != steps + n_cv or not counts["ctc_dp_global"]:
+        raise AssertionError(f"fine-tune launches {counts}: expected {want} "
+                             f"and {steps + n_cv} CTC with K2")
+    losses = [r["loss"] for r in _train_records(exp)]
+    out["step_losses"] = losses
+    if len(losses) != state.step or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"fine-tune losses {losses}")
+    tuned = torch.load(os.path.join(exp, "epoch_1.pt"), weights_only=True)
+    init = _flagship("bfloat16", 0.1, **ADAPTER_KEYS).state_dict()
+    frozen = [k for k in tuned if "adapter" not in k]
+    adapters = [k for k in tuned if "adapter" in k]
+    if set(frozen) != set(converted) or any(
+            not torch.equal(tuned[k], converted[k]) for k in frozen):
+        raise AssertionError("--only_adapter changed a frozen tensor")
+    # 12 encoder and 3 + 3 decoder blocks, 6 tensors an adapter
+    if len(adapters) != 18 * 6 or any(torch.equal(tuned[k], init[k])
+                                      for k in adapters):
+        raise AssertionError("an adapter tensor did not train")
+    resolved = json.load(open(os.path.join(exp, "train.json")))
+    if resolved["use_global_cmvn"] is not True \
+            or resolved["collate_conf"]["normalization"] is not False:
+        raise AssertionError(f"train.json: {resolved['use_global_cmvn']}, "
+                             f"{resolved['collate_conf']}")
+    # the wrappers' regions (named after their C entry points) and the
+    # device kernels, whose names the trace demangles
+    names = _trace_names(prof)
+    traced = sorted(n for n in names if "dwconv1d" in n or "ctc_dp" in n)
+    out["trace_names"] = traced
+    if not {"openeat_dwconv1d_fwd", "openeat_dwconv1d_dgrad",
+            "openeat_dwconv1d_wgrad"} <= names or not all(
+            any(k in n for n in traced) for k in (
+                "dwconv1d_kernel<", "dwconv1d_wgrad_kernel<", "ctc_dp_")):
+        raise AssertionError(f"the --profile_dir trace names {traced}")
+    out["n_steps"], out["n_cv_batches"] = state.step, n_cv
+    out["frozen_tensors"], out["adapter_tensors"] = len(frozen), len(adapters)
+    out.update(adapter_step_seconds(train_data, dict_path))
+
+    # 3. from scratch with --cmvn_file (kaldi text): 8 epochs of one
+    # 8-utterance batch
+    small = os.path.join(wdir, "small.data")
+    with open(train_data, encoding="utf-8") as f:
+        lines = f.readlines()[:8]
+    with open(small, "w", encoding="utf-8") as f:
+        f.writelines(lines)
+    scratch_cfg = dict(TRAIN_CONFIG, max_epoch=8, warmup_steps=2,
+                       optim_conf={"lr": 0.002},
+                       model_conf=dict(TRAIN_CONFIG["model_conf"],
+                                       dropout_rate=0.0),
+                       collate_conf=dict(TRAIN_CONFIG["collate_conf"],
+                                         spec_aug=False))
+    cfg_path = os.path.join(wdir, "scratch.json")
+    with open(cfg_path, "w") as f:
+        json.dump(scratch_cfg, f)
+    exp = os.path.join(wdir, "exp_cmvn")
+    state = train_cli.main(["--config", cfg_path, "--exp_dir", exp,
+                            "--cmvn_file", kaldi_cmvn, "--is_json_cmvn",
+                            "false", "--train_data", small, "--cv_data",
+                            cv_data, "--dict", dict_path, "--device", "cuda",
+                            "--num_workers", "4",
+                            "--save_optimizer", "false"])
+    losses = [r["loss"] for r in _train_records(exp)]
+    out["cmvn_file_losses"] = losses
+    if state.step != 8 or not losses[-1] < losses[0]:
+        raise AssertionError(f"--cmvn_file run: {state.step} steps, "
+                             f"losses {losses}")
+    k_mean, k_istd = load_cmvn(kaldi_cmvn, False)
+    last = torch.load(os.path.join(exp, "epoch_8.pt"), weights_only=True)
+    if not (np.array_equal(last["encoder.global_cmvn.mean"].numpy(), k_mean)
+            and np.array_equal(last["encoder.global_cmvn.istd"].numpy(),
+                               k_istd)):
+        raise AssertionError("the --cmvn_file model's statistics are not "
+                             "the file's")
+    out["cmvn_json_vs_kaldi_max_abs"] = float(np.abs(k_mean - mean).max())
+    return out
+
+
 def _kernel_row(name: str, source: str, replaces: str, launches: int,
                 row: dict, prefix: str = "") -> dict:
     return {"name": name, "route": "cuda", "source": source,
@@ -3056,6 +3414,14 @@ def main() -> None:
         print("moe_breakdown " + json.dumps(report["moe_breakdown"]),
               flush=True)
         lap("train_breakdowns")
+
+        # ---- slice 11: WeNet pre-trained fine-tuning
+        report["finetune"] = finetune(manifest, dict_path, train_data,
+                                      cv_data)
+        print("finetune " + json.dumps(
+            {k: v for k, v in report["finetune"].items()
+             if k not in ("step_losses", "cmvn_file_losses")}), flush=True)
+        lap("finetune")
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     report["wall_s"] = time.perf_counter() - t_start
@@ -3079,13 +3445,16 @@ def main() -> None:
     for name in NEW_DIST_CASES:
         n.update(report["dist_two_ranks"][name]["launches"])
     n.update(report["dist_world1"]["pp1"]["launches"])
+    n.update(report["finetune"]["launches"])
     kernels = [
         _kernel_row("depthwise_conv1d", "openeat_torch/csrc/depthwise_conv.cu",
                     "openeat_tpu/ops/depthwise_conv.py:39",
                     decode_launches + n["depthwise_conv1d"]
                     + report["recipe"]["k3_launches"] + stream_launches
                     + serve_launches
-                    + report["int8"]["recognize"]["k3_launches"], k3),
+                    + report["int8"]["recognize"]["k3_launches"]
+                    + sum(d["k3_launches"]
+                          for d in report["finetune"]["decodes"]), k3),
         _kernel_row("depthwise_conv1d_dgrad",
                     "openeat_torch/csrc/depthwise_conv.cu",
                     "openeat_tpu/ops/depthwise_conv.py:114",

@@ -8,9 +8,15 @@ lengths, --length_penalty adds a per-token bonus at the final pick) or
 attention_rescoring, and writes `<utt> <text>` lines. The flags are the
 JAX entry point's, plus --device (default cuda; cpu must be asked for).
 
---checkpoint takes the port's own state_dict (.pt) or an .npz of flax
-leaves as openeat_tpu/utils/checkpoint.py:_flatten keys them, converted
-through openeat_torch/utils/param_bridge.py; so does --lm_checkpoint.
+--checkpoint takes the port's own state_dict (.pt; a WeNet release
+after openeat_torch.bin.convert_wenet) or an .npz of flax leaves as
+openeat_tpu/utils/checkpoint.py:_flatten keys them, converted through
+openeat_torch/utils/param_bridge.py; so does --lm_checkpoint. A
+WeNet-layout --config (encoder_conf / decoder_conf) is adapted as the
+JAX entry point adapts it (utils/wenet_convert.py:convert_wenet_config;
+raw fbank into the checkpoint's global CMVN), its vocab from the dict
+when it has no output_dim. Whether the model has global CMVN is read
+from the checkpoint; a config that says otherwise is an error.
 With --lm_weight > 0, attention_rescoring fuses a Transformer LM
 (--lm_config, --lm_checkpoint; on the device) or an ARPA/binary n-gram
 (--ngram_lm; on the host). --timestamp_file writes JSONL {key, tokens,
@@ -26,8 +32,8 @@ encoder routing with the global batch's capacity, and the first rank
 gathers the rows and writes the result and timestamp files, the same
 bytes as --dp 1.
 
-Not ported yet, refused with NotImplementedError: --bpe_model,
---data_type feat/kaldi and WeNet-layout configs.
+Not ported yet, refused with NotImplementedError: --bpe_model and
+--data_type feat/kaldi.
 """
 
 from __future__ import annotations
@@ -60,6 +66,8 @@ from openeat_torch.pipeline import DeviceFeeder
 from openeat_torch.utils.common import init_logger, resolve_device
 from openeat_torch.utils.param_bridge import flax_to_state_dict
 from openeat_torch.utils.quantize import quantize_model, quantized_bytes
+from openeat_torch.utils.wenet_convert import (convert_wenet_config,
+                                               is_wenet_config)
 
 MODES = ["ctc_greedy_search", "ctc_prefix_beam_search", "attention",
          "attention_rescoring"]
@@ -105,16 +113,13 @@ def get_parser() -> argparse.ArgumentParser:
     return p
 
 
-def refuse_unported(args, cfg: dict) -> None:
+def refuse_unported(args) -> None:
     """Raise NotImplementedError for what this port does not do yet."""
     later = {
         "--bpe_model": (args.bpe_model is not None,
                         "a later slice (BPE tokenizer)"),
         "--data_type feat/kaldi": (args.data_type != "wav",
                                    "a later slice (kaldi ark input)"),
-        "WeNet-layout config": ("encoder_conf" in cfg
-                                or "decoder_conf" in cfg,
-                                "a later slice (convert_wenet)"),
     }
     for what, (asked, where) in later.items():
         if asked:
@@ -180,7 +185,9 @@ def main(argv=None):
     args = get_parser().parse_args(argv)
     logger = init_logger()
     cfg = load_config(args.config)
-    refuse_unported(args, cfg)
+    refuse_unported(args)
+    if is_wenet_config(cfg):
+        cfg = convert_wenet_config(cfg)
     want_times = args.timestamp_file is not None
     if want_times and args.mode == "attention":
         raise SystemExit("--timestamp_file needs a CTC frame alignment; "

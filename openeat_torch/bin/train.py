@@ -32,15 +32,42 @@ The first rank alone writes train.json, the checkpoints (gathered to
 full tensors), optimizer.pt, metrics.jsonl and train.log; the logged
 metrics are the global batch's.
 
+Fine-tuning, as the JAX trainer does it:
+- global CMVN: --cmvn_file (JSON, or kaldi text with --is_json_cmvn
+  false), or a --checkpoint that carries encoder.global_cmvn.* (a
+  converted WeNet release: openeat_torch.bin.convert_wenet), builds the
+  model with GlobalCMVN. The file's statistics are loaded before the
+  checkpoint, whose own win. Global CMVN and per-utterance
+  normalization exclude each other: collate_conf.normalization: true
+  raises ValueError, an unset one becomes false. train.json records
+  use_global_cmvn and normalization, so that recognize builds the same
+  model and frontend;
+- --only_adapter trains only the adapters (model_conf
+  encoder_use_adapter / decoder_use_adapter); every parameter still
+  gets its gradient, counted in the clip norm (utils/optim.py), and a
+  --checkpoint is an init only: no epoch, step or optimizer state is
+  restored;
+- speed perturbation: dataset_conf.speed_perturb (one manifest entry a
+  speed of dataset_conf.speeds) and feature_extraction_conf
+  speed_perturb_rate (the collate's online draw from speeds);
+  feature_extraction_conf.wav_dither adds noise to the framed samples;
+- --profile_dir traces 3 train steps on the first batch, after one
+  untraced step, before epoch 0 (utils/profiling.py: a Chrome trace of
+  CPU and CUDA activity). Unlike the JAX trainer, whose traced steps
+  train the model, the model, the optimizer and the step counts are
+  restored afterwards and the steps draw from generators of their own,
+  so a run with --profile_dir writes the checkpoints a run without it
+  writes.
+
 Refused with NotImplementedError, each naming the slice that brings it:
---bpe_model, --data_type feat/kaldi, --only_adapter, --cmvn_file (and
-checkpoints carrying global CMVN statistics), --profile_dir, speed
-perturbation and wav dither in the config.
+--bpe_model and --data_type feat/kaldi.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
+import dataclasses
 import json
 import logging
 import os
@@ -65,8 +92,10 @@ from openeat_torch.pipeline import DeviceFeeder
 from openeat_torch.utils import checkpoint as ckpt_lib
 from openeat_torch.utils.common import (LOG_FORMAT, init_logger,
                                         make_generator, resolve_device)
+from openeat_torch.utils.cmvn import load_cmvn
 from openeat_torch.utils.executor import Executor
 from openeat_torch.utils.optim import build_optimizer
+from openeat_torch.utils.profiling import trace
 
 
 def get_parser() -> argparse.ArgumentParser:
@@ -103,27 +132,13 @@ def get_parser() -> argparse.ArgumentParser:
     return p
 
 
-def refuse_unported(args, cfg: dict) -> None:
+def refuse_unported(args) -> None:
     """Raise NotImplementedError for what this port does not do yet."""
-    collate_conf = cfg.get("collate_conf", {}) or {}
-    fe_conf = collate_conf.get("feature_extraction_conf", {}) or {}
-    dataset_conf = cfg.get("dataset_conf", {}) or {}
     later = {
         "--bpe_model": (args.bpe_model is not None,
                         "a later slice (BPE tokenizer)"),
         "--data_type feat/kaldi": (args.data_type != "wav",
                                    "a later slice (kaldi ark input)"),
-        "--only_adapter": (args.only_adapter, "a later slice (adapters)"),
-        "--cmvn_file": (args.cmvn_file is not None,
-                        "a later slice (global CMVN)"),
-        "--profile_dir": (args.profile_dir is not None,
-                          "a later slice (profiler traces)"),
-        "speed perturbation": (
-            bool(dataset_conf.get("speed_perturb"))
-            or bool(fe_conf.get("speed_perturb_rate")),
-            "a later slice (speed perturbation)"),
-        "wav_dither": (bool(fe_conf.get("wav_dither")),
-                       "a later slice (fbank dither path)"),
     }
     for what, (asked, where) in later.items():
         if asked:
@@ -153,6 +168,26 @@ def frontend_seed(seed: int, epoch: int, mesh) -> int:
                .generate_state(1)[0])
 
 
+def profile_steps(state: TrainState, train_step, batch: dict,
+                  generator: torch.Generator, profile_dir: str,
+                  device: torch.device) -> None:
+    """One train step on `batch`, then 3 more under utils/profiling.trace
+    (the JAX trainer's count); afterwards the model, the optimizer and
+    the state's counts are what they were before, and the run's own
+    generators were not drawn from."""
+    saved = (copy.deepcopy(state.model.state_dict()),
+             copy.deepcopy(state.optimizer.state_dict()), state.step,
+             state.n_applied)
+    train_step(state, batch, generator)
+    with trace(profile_dir, device):
+        for _ in range(3):
+            train_step(state, batch, generator)
+    state.model.load_state_dict(saved[0])
+    state.optimizer.load_state_dict(saved[1])
+    state.step, state.n_applied = saved[2], saved[3]
+    state.model.zero_grad(set_to_none=True)
+
+
 def writes_files(mesh) -> bool:
     """Whether this rank writes the run's files (the first rank)."""
     return mesh is None or dist.get_rank() == 0
@@ -172,7 +207,7 @@ def file_logger(exp_dir: str, mesh):
 def main(argv=None) -> TrainState:
     args = get_parser().parse_args(argv)
     cfg = load_config(args.config)
-    refuse_unported(args, cfg)
+    refuse_unported(args)
     device = resolve_device(args.device)
     mesh, device = init_mesh(*mesh_layout(cfg, args.dp, args.tp), device,
                              args.multihost)
@@ -209,25 +244,52 @@ def _train(args, cfg: dict, device: torch.device, logger: logging.Logger,
         batch_size=dataset_conf.get("batch_size", 12),
         max_frames_in_batch=dataset_conf.get("max_frames_in_batch", 10000),
         sort=dataset_conf.get("sort", True), seed=seed)
-    train_ds = AudioDataset(args.train_data, char_dict, **ds_kwargs)
+    speeds = (0.9, 1.1, 0.1)
+    train_ds = AudioDataset(
+        args.train_data, char_dict,
+        speed_perturb=dataset_conf.get("speed_perturb", False),
+        speeds=dataset_conf.get("speeds", speeds), **ds_kwargs)
     cv_ds = AudioDataset(args.cv_data, char_dict, **ds_kwargs)
     logger.info("train batches %d cv batches %d vocab %d", len(train_ds),
                 len(cv_ds), vocab_size)
-    collate = AudioCollate(resample_rate=fe_conf.get("resample_rate", 16000))
+    rate = fe_conf.get("resample_rate", 16000)
+    collate = AudioCollate(
+        resample_rate=rate,
+        speed_perturb_rate=fe_conf.get("speed_perturb_rate", 0.0),
+        speeds=fe_conf.get("speeds", speeds), seed=seed)
+    cv_collate = AudioCollate(resample_rate=rate)
     frontend = FrontendConfig.from_collate_conf(collate_conf)
     input_size = fe_conf.get("mel_bins", 80)
 
+    # the checkpoint is read before the model is built: its global CMVN
+    # statistics (a converted WeNet release, a --cmvn_file run) decide
+    # whether the model has GlobalCMVN, and then the features are raw
+    # fbank, not per-utterance normalized
     ckpt_src, ckpt_info = (ckpt_lib.load_checkpoint(args.checkpoint)
                            if args.checkpoint else (None, {}))
-    if ckpt_src is not None and "encoder.global_cmvn.mean" in ckpt_src:
-        raise NotImplementedError(
-            f"{args.checkpoint} carries global CMVN statistics, which "
-            "openeat_torch's trainer does not take yet; it comes with a "
-            "later slice (global CMVN)")
+    use_global_cmvn = args.cmvn_file is not None or (
+        ckpt_src is not None and "encoder.global_cmvn.mean" in ckpt_src)
+    if use_global_cmvn and frontend.normalization:
+        if collate_conf.get("normalization") is True:
+            raise ValueError(
+                "collate_conf.normalization: true is incompatible with "
+                "global CMVN (--cmvn_file or a checkpoint carrying "
+                "global_cmvn statistics, which are over raw fbank); "
+                "remove one of the two")
+        frontend = dataclasses.replace(frontend, normalization=False)
+        logger.info("global CMVN: per-utterance normalization disabled")
+    cfg["collate_conf"] = dict(collate_conf,
+                               normalization=frontend.normalization)
 
     model_conf = dict(cfg.get("model_conf", {}) or {})
-    model = build_asr_model(model_conf, input_size, vocab_size)
+    model = build_asr_model(model_conf, input_size, vocab_size,
+                            use_global_cmvn=use_global_cmvn)
     init_parameters(model, make_generator(seed))
+    if args.cmvn_file:
+        mean, istd = load_cmvn(args.cmvn_file, args.is_json_cmvn)
+        with torch.no_grad():
+            model.encoder.global_cmvn.mean.copy_(torch.from_numpy(mean))
+            model.encoder.global_cmvn.istd.copy_(torch.from_numpy(istd))
     if ckpt_src is not None:
         mods = args.init_mods.split(",")
         new, copied = ckpt_lib.load_trained_modules(model.state_dict(),
@@ -243,7 +305,7 @@ def _train(args, cfg: dict, device: torch.device, logger: logging.Logger,
     writer = writes_files(mesh)
 
     resolved = dict(cfg, input_size=input_size, vocab_size=vocab_size,
-                    use_global_cmvn=False)
+                    use_global_cmvn=use_global_cmvn)
     if writer:
         with open(os.path.join(args.exp_dir, "train.json"), "w") as f:
             json.dump(resolved, f, indent=1)
@@ -252,11 +314,13 @@ def _train(args, cfg: dict, device: torch.device, logger: logging.Logger,
     warmup_steps = (train_cfg.warmup_steps if train_cfg.warmup_steps
                     else int(train_cfg.warmup_epoch * steps_per_epoch))
     optimizer, schedule = build_optimizer(model, train_cfg.lr, warmup_steps,
-                                          train_cfg.optim)
+                                          train_cfg.optim,
+                                          only_adapter=args.only_adapter)
     state = TrainState(model, optimizer)
 
     start_epoch = 0
-    if ckpt_src is not None and ckpt_info.get("epoch") is not None:
+    if ckpt_src is not None and ckpt_info.get("epoch") is not None \
+            and not args.only_adapter:
         start_epoch = int(ckpt_info["epoch"])
         state.step = int(ckpt_info.get("step", 0))
         opt_path = os.path.join(
@@ -271,17 +335,26 @@ def _train(args, cfg: dict, device: torch.device, logger: logging.Logger,
                 logger.info("restored optimizer state (epoch %d)",
                             start_epoch)
 
+    train_step = build_train_step(schedule, train_cfg.accum_grad,
+                                  train_cfg.grad_clip, mesh=mesh)
     executor = Executor(
-        build_train_step(schedule, train_cfg.accum_grad, train_cfg.grad_clip,
-                         mesh=mesh),
-        build_eval_step(model, mesh=mesh), schedule, train_cfg.log_interval,
-        logger, metrics_file=os.path.join(args.exp_dir, "metrics.jsonl"),
-        mesh=mesh)
+        train_step, build_eval_step(model, mesh=mesh), schedule,
+        train_cfg.log_interval, logger,
+        metrics_file=os.path.join(args.exp_dir, "metrics.jsonl"), mesh=mesh)
     shard = ({} if mesh is None or mesh.nodes == 1 else
              {"shard_id": mesh.node, "num_shards": mesh.nodes})
     feed = {} if mesh is None else {"mesh": mesh,
                                     "pad_batch_multiple": mesh.local_dp}
     data_rank = None if mesh is None or mesh.dp == 1 else mesh.data_rank
+    if args.profile_dir:
+        warm = DeviceFeeder(
+            PrefetchLoader(train_ds, copy.deepcopy(collate), 1, **shard),
+            frontend, device, train=True, seed=seed,
+            accum_grad=train_cfg.accum_grad, **feed)
+        profile_steps(state, train_step, next(iter(warm))[1],
+                      make_generator(seed, device), args.profile_dir,
+                      device)
+        logger.info("profiler trace written to %s", args.profile_dir)
     for epoch in range(start_epoch, train_cfg.max_epoch):
         train_feed = DeviceFeeder(
             PrefetchLoader(train_ds, collate, args.num_workers,
@@ -295,7 +368,7 @@ def _train(args, cfg: dict, device: torch.device, logger: logging.Logger,
                      make_generator(dropout_seed(seed, epoch), device))
         summary = executor.train(state, (b for _, b in train_feed),
                                  dropout_gen, epoch, chunk_gen)
-        cv_feed = DeviceFeeder(PrefetchLoader(cv_ds, collate,
+        cv_feed = DeviceFeeder(PrefetchLoader(cv_ds, cv_collate,
                                               args.num_workers, **shard),
                                frontend.without_augmentation(), device,
                                **feed)

@@ -2,8 +2,9 @@
 of openeat_tpu/config.py:load_config, resolve_mesh_conf and TrainConfig.
 
 JSON is read with the standard library. YAML needs PyYAML, which is
-imported only when a `.yaml`/`.yml` file is given, so a host without it
-can still run from a JSON config.
+imported only when a `.yaml`/`.yml` file is not JSON (YAML's JSON
+subset), so a host without it can still run from a JSON config under
+either name.
 """
 
 from __future__ import annotations
@@ -17,13 +18,17 @@ _MESH_DEFAULTS = {"data": -1, "model": 1}
 
 def load_config(path: str) -> dict:
     """Load a JSON or YAML config file into a plain nested dict."""
+    if not path.endswith((".json", ".yaml", ".yml")):
+        raise ValueError(f"{path}: config must be .json, .yaml or .yml")
     with open(path, "r", encoding="utf-8") as f:
-        if path.endswith(".json"):
-            return json.load(f) or {}
-        if path.endswith((".yaml", ".yml")):
-            import yaml
-            return yaml.safe_load(f) or {}
-    raise ValueError(f"{path}: config must be .json, .yaml or .yml")
+        text = f.read()
+    if path.endswith(".json"):
+        return json.loads(text) or {}
+    try:
+        return json.loads(text) or {}
+    except json.JSONDecodeError:
+        import yaml
+        return yaml.safe_load(text) or {}
 
 
 def resolve_mesh_conf(cfg: dict) -> dict:

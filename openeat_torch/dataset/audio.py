@@ -1,6 +1,6 @@
-"""Host audio IO: WAV reading and writing, resampling.
-Port of openeat_tpu/dataset/audio.py for WAV; FLAC comes with a later
-slice."""
+"""Host audio IO: WAV reading and writing, resampling and sox-style
+speed perturbation. Port of openeat_tpu/dataset/audio.py for WAV; FLAC
+comes with a later slice."""
 
 from __future__ import annotations
 
@@ -91,3 +91,21 @@ def resample(x: np.ndarray, orig_rate: int, new_rate: int) -> np.ndarray:
     frac = Fraction(new_rate, orig_rate).limit_denominator(1000)
     return sps.resample_poly(x, frac.numerator, frac.denominator).astype(
         np.float32)
+
+
+def speed_perturb(x: np.ndarray, rate: int, speed: float) -> np.ndarray:
+    """sox's speed effect: resample by `speed` and keep the nominal rate
+    (duration len(x) / speed), through resample_poly with the speed as a
+    fraction of denominator at most 100, as the JAX package does."""
+    if speed == 1.0:
+        return x
+    frac = Fraction(speed).limit_denominator(100)
+    return sps.resample_poly(x, frac.denominator, frac.numerator).astype(
+        np.float32)
+
+
+def random_speed(speeds, rng: np.random.Generator) -> float:
+    """A speed drawn uniformly from lo, lo + step, ..., hi of `speeds`
+    (lo, hi, step)."""
+    lo, hi, step = speeds
+    return float(rng.choice(np.arange(lo, hi + step / 2, step)))

@@ -4,8 +4,10 @@ openeat_tpu/dataset/dataset.py for wav input: manifest -> length-sorted
 dynamic, static or shuffle batches -> padded int16 waveform batches with
 IGNORE_ID-padded targets; the loader can shuffle the batch order per
 epoch from a seed. Feature extraction runs on the device
-(openeat_torch/ops/frontend.py). Speed perturbation comes with a later
-slice."""
+(openeat_torch/ops/frontend.py). Speed perturbation, as in JAX: offline
+(dataset_conf.speed_perturb: one manifest entry per speed) and online
+(speed_perturb_rate: the collate re-draws an utterance's speed with
+that probability)."""
 
 from __future__ import annotations
 
@@ -35,14 +37,11 @@ class AudioDataset:
                  batch_size: int = 12, sort: bool = True,
                  batch_type: str = "static",
                  max_frames_in_batch: int = 10000, seed: int = 777,
-                 speed_perturb: bool = False):
-        if speed_perturb:
-            raise NotImplementedError(
-                "dataset_conf speed_perturb is not ported to openeat_torch "
-                "yet; it comes with a later slice (speed perturbation)")
+                 speed_perturb: bool = False, speeds=(0.9, 1.1, 0.1)):
         self.utts = parse_manifest(data_file, char_dict, max_length,
                                    min_length, token_max_length,
-                                   token_min_length, sort)
+                                   token_min_length, sort, speed_perturb,
+                                   speeds)
         self.batches = make_batches(self.utts, batch_type, batch_size,
                                     max_frames_in_batch, seed)
 
@@ -59,13 +58,26 @@ class AudioCollate:
     padded up to a multiple of `wav_bucket_ms` and L to a multiple of
     `token_bucket` with IGNORE_ID. int16 is exact for PCM sources (the
     x32768 scaling restores the raw samples) and halves the
-    host-to-device bytes."""
+    host-to-device bytes.
+
+    After the resample each utterance plays at its manifest entry's
+    speed, or, with probability speed_perturb_rate, at a speed drawn
+    from `speeds` (lo, hi, step); the collate draws rng.random() for
+    every utterance it reads, and then the speed, from one
+    np.random.default_rng(seed) over the whole run, in the JAX order.
+    The draws follow the order of the calls: at one loader worker the
+    batches are collated in order and the speeds are the JAX
+    collate's."""
 
     def __init__(self, resample_rate: int = 16000, wav_bucket_ms: int = 1000,
-                 token_bucket: int = 8):
+                 token_bucket: int = 8, speed_perturb_rate: float = 0.0,
+                 speeds=(0.9, 1.1, 0.1), seed: int = 777):
         self.resample_rate = resample_rate
         self.wav_bucket = int(resample_rate * wav_bucket_ms / 1000)
         self.token_bucket = token_bucket
+        self.speed_perturb_rate = speed_perturb_rate
+        self.speeds = speeds
+        self.rng = np.random.default_rng(seed)
 
     def __call__(self, batch: list[Utterance]):
         keys, wavs, tokens = [], [], []
@@ -79,6 +91,10 @@ class AudioCollate:
             x = x * 32768.0
             if rate != self.resample_rate:
                 x = audio_lib.resample(x, rate, self.resample_rate)
+            speed = u.speed
+            if self.rng.random() < self.speed_perturb_rate:
+                speed = audio_lib.random_speed(self.speeds, self.rng)
+            x = audio_lib.speed_perturb(x, self.resample_rate, speed)
             keys.append(u.key)
             wavs.append(np.clip(np.rint(x), -32768, 32767))
             tokens.append(np.asarray(u.token_ids, np.int32))

@@ -3,7 +3,10 @@ Port of openeat_tpu/dataset/manifest.py for wav entries.
 
 Each line is tab-separated `utt:<id>  feat:<path>  feat_shape:<dur_s>
 text:<...>` (or the 7-field variant with a `tokenid:` column); a wav
-path may carry `path,start,end` segment bounds.
+path may carry `path,start,end` segment bounds. With speed_perturb each
+kept utterance becomes one entry per speed of np.arange(*speeds) (the
+JAX expression: (0.9, 1.1, 0.1) gives 0.9, 1.0 and 1.1, by float
+rounding), its frame count num_frames / speed.
 """
 
 from __future__ import annotations
@@ -11,6 +14,8 @@ from __future__ import annotations
 import codecs
 from dataclasses import dataclass
 from typing import Optional
+
+import numpy as np
 
 from openeat_torch.dataset.text import text_to_token_ids
 
@@ -21,12 +26,16 @@ class Utterance:
     path: str              # wav path, optionally 'path,start_s,end_s'
     num_frames: float      # 10 ms frames, estimated from the duration
     token_ids: list[int]
+    speed: float = 1.0     # the offline speed perturbation's speed
 
 
 def parse_manifest(data_file: str, char_dict: dict[str, int],
                    max_length: float = 10240, min_length: float = 0,
                    token_max_length: int = 200, token_min_length: int = 0,
-                   sort: bool = True) -> list[Utterance]:
+                   sort: bool = True, speed_perturb: bool = False,
+                   speeds=(0.9, 1.1, 0.1)) -> list[Utterance]:
+    speed_list = ([float(s) for s in np.arange(*speeds)] if speed_perturb
+                  else [1.0])
     utts: list[Utterance] = []
     with codecs.open(data_file, "r", encoding="utf-8") as f:
         for line in f:
@@ -45,7 +54,8 @@ def parse_manifest(data_file: str, char_dict: dict[str, int],
                 continue
             if not (token_min_length < len(token_ids) < token_max_length):
                 continue
-            utts.append(Utterance(key, path, num_frames, token_ids))
+            utts.extend(Utterance(key, path, num_frames / speed, token_ids,
+                                  speed) for speed in speed_list)
     if sort:
         utts.sort(key=lambda u: u.num_frames)
     return utts

@@ -12,7 +12,10 @@ With moe_experts > 0 every encoder block's main FFN is a mixture of
 experts (modules/feed_forward.py); the training forward returns the
 mean of the layers' aux losses as `moe_aux`, which the train step adds
 to the loss at moe_aux_weight (the eval loss leaves it out, as the JAX
-eval step does).
+eval step does). encoder_use_adapter / decoder_use_adapter put the
+fine-tuning Adapter (down_size, scalar) in every encoder / decoder
+block; openeat_torch/utils/optim.py trains them alone with
+only_adapter.
 
 Under a mesh's data group (`data_group`, set by openeat_torch/parallel/
 mesh.py) every metric the forward returns is this rank's share of the
@@ -42,7 +45,8 @@ from openeat_torch.modules.convolution import DepthwiseConv1d
 from openeat_torch.modules.ctc import CTCHead
 from openeat_torch.modules.decoder import BiTransformerDecoder
 from openeat_torch.modules.encoder import TransformerEncoder
-from openeat_torch.modules.feed_forward import MoEPositionwiseFeedForward
+from openeat_torch.modules.feed_forward import (Adapter,
+                                                MoEPositionwiseFeedForward)
 from openeat_torch.modules.label_smoothing import label_smoothing_loss
 from openeat_torch.modules.layers import Conv2d, Dense, Embed
 from openeat_torch.parallel.tensor_parallel import share
@@ -60,8 +64,6 @@ _NOT_PORTED = {
     "input_layer": ("conv2d", "a later slice (linear, conv2d6, conv2d8)"),
     "pos_enc_layer_type": (("rel_pos", "abs_pos"),
                            "a later slice (no_pos)"),
-    "encoder_use_adapter": (False, "a later slice (adapters)"),
-    "decoder_use_adapter": (False, "a later slice (adapters)"),
 }
 
 
@@ -101,7 +103,10 @@ class ASRModel(nn.Module):
                  use_dynamic_chunk: bool = False, moe_experts: int = 0,
                  moe_top_k: int = 2, moe_capacity_factor: float = 1.25,
                  moe_aux_weight: float = 0.01,
-                 sequence_sharding: bool = False):
+                 sequence_sharding: bool = False,
+                 encoder_use_adapter: bool = False,
+                 decoder_use_adapter: bool = False, down_size: int = 64,
+                 scalar: float = 0.1):
         super().__init__()
         act = get_activation(activation_type)
         self.input_size = input_size
@@ -129,14 +134,15 @@ class ASRModel(nn.Module):
             encoder_num_blocks_share, use_global_cmvn, compute_dtype,
             dropout_rate, positional_dropout_rate, static_chunk_size,
             num_left_chunks, use_dynamic_chunk, moe_experts, moe_top_k,
-            moe_capacity_factor)
+            moe_capacity_factor, encoder_use_adapter, down_size, scalar)
         self.ctc = CTCHead(d_model, vocab_size, compute_dtype,
                            length_normalized_loss)
         self.decoder = BiTransformerDecoder(
             vocab_size, d_model, attention_heads, linear_units, act,
             decoder_num_blocks, r_decoder_num_blocks,
             decoder_num_blocks_share, tie_word_embedding, compute_dtype,
-            dropout_rate, positional_dropout_rate)
+            dropout_rate, positional_dropout_rate, decoder_use_adapter,
+            down_size, scalar)
 
     @property
     def sos(self) -> int:
@@ -334,6 +340,10 @@ def build_asr_model(model_conf: dict, input_size: int, vocab_size: int,
         moe_capacity_factor=mc.get("moe_capacity_factor", 1.25),
         moe_aux_weight=mc.get("moe_aux_weight", 0.01),
         sequence_sharding=mc.get("sequence_sharding", False),
+        encoder_use_adapter=mc.get("encoder_use_adapter", False),
+        decoder_use_adapter=mc.get("decoder_use_adapter", False),
+        down_size=mc.get("down_size", 64),
+        scalar=mc.get("scalar", 0.1),
     )
 
 
@@ -353,7 +363,7 @@ def init_parameters(model: ASRModel, generator: torch.Generator) -> None:
     lecun_normal over their fan-in, biases 0, LayerNorm 1 and 0,
     embeddings normal with variance 1/d, rel-pos biases xavier_uniform,
     expert banks lecun_normal over their per-expert fan-in (the expert
-    axis is a batch axis) with zero biases."""
+    axis is a batch axis) with zero biases, a learned adapter scale 1."""
     for module in model.modules():
         if isinstance(module, (Dense, Conv2d)):
             w = module.weight
@@ -377,3 +387,5 @@ def init_parameters(model: ASRModel, generator: torch.Generator) -> None:
                 _trunc_normal_(w, w.shape[1], generator)
             module.b_in.zero_()
             module.b_out.zero_()
+        elif isinstance(module, Adapter) and module.learned_scale:
+            module.scale.fill_(1.0)

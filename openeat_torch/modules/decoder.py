@@ -25,14 +25,17 @@ class Decoder(nn.Module):
 
     def __init__(self, d_model: int, attention_heads: int, linear_units: int,
                  activation: Callable, num_blocks: int, num_blocks_share: int,
-                 dtype: torch.dtype, dropout_rate: float = 0.0):
+                 dtype: torch.dtype, dropout_rate: float = 0.0,
+                 use_adapter: bool = False, down_size: int = 64,
+                 scalar: float = 0.1):
         super().__init__()
         self.num_blocks_share = num_blocks_share
         self.num_layers = num_blocks // num_blocks_share
         for i in range(self.num_layers):
             self.add_module(f"layer_{i}", DecoderLayer(
                 d_model, attention_heads, linear_units, activation, dtype,
-                dropout_rate))
+                dropout_rate, use_adapter=use_adapter, down_size=down_size,
+                scalar=scalar))
 
     def applications(self) -> list[DecoderLayer]:
         """The layers in the order they are applied (sharing repeats)."""
@@ -51,13 +54,16 @@ class TransformerDecoder(nn.Module):
                  num_blocks_share: int = 1, share_embedding: bool = False,
                  dtype: torch.dtype = torch.float32,
                  dropout_rate: float = 0.0,
-                 positional_dropout_rate: float = 0.0):
+                 positional_dropout_rate: float = 0.0,
+                 use_adapter: bool = False, down_size: int = 64,
+                 scalar: float = 0.1):
         super().__init__()
         self.embed = Embed(vocab_size, d_model, dtype)
         self.pos_enc = PositionalEncoding(d_model, positional_dropout_rate)
         self.decoders = Decoder(d_model, attention_heads, linear_units,
                                 activation, num_blocks, num_blocks_share,
-                                dtype, dropout_rate)
+                                dtype, dropout_rate, use_adapter, down_size,
+                                scalar)
         self.after_norm = LayerNorm(d_model, 1e-12, dtype)
         self.share_embedding = share_embedding
         if not share_embedding:
@@ -124,14 +130,17 @@ class BiTransformerDecoder(nn.Module):
                  share_embedding: bool = False,
                  dtype: torch.dtype = torch.float32,
                  dropout_rate: float = 0.0,
-                 positional_dropout_rate: float = 0.0):
+                 positional_dropout_rate: float = 0.0,
+                 use_adapter: bool = False, down_size: int = 64,
+                 scalar: float = 0.1):
         super().__init__()
 
         def make(n: int) -> TransformerDecoder:
             return TransformerDecoder(
                 vocab_size, d_model, attention_heads, linear_units,
                 activation, n, num_blocks_share, share_embedding, dtype,
-                dropout_rate, positional_dropout_rate)
+                dropout_rate, positional_dropout_rate, use_adapter,
+                down_size, scalar)
 
         self.left_decoder = make(num_blocks)
         if r_num_blocks > 0:

@@ -5,7 +5,9 @@ each branch through dropout at dropout_rate before its residual add;
 and the KV-cache `step` of the attention decode mode: self-attention K/V
 written into a static [B, Lmax, H, Dk] cache at the position, the
 history masked by arange(Lmax) <= pos, cross-attention K/V projected
-once per utterance."""
+once per utterance. With use_adapter the fine-tuning Adapter runs in
+parallel to the FFN, in `forward` and in `step`, adding only its scaled
+update."""
 
 from __future__ import annotations
 
@@ -16,7 +18,8 @@ from torch import nn
 
 from openeat_torch.modules.attention import MultiHeadedAttention
 from openeat_torch.modules.dropout import Dropout
-from openeat_torch.modules.feed_forward import PositionwiseFeedForward
+from openeat_torch.modules.feed_forward import (Adapter,
+                                                PositionwiseFeedForward)
 from openeat_torch.modules.layers import LayerNorm
 
 
@@ -24,7 +27,9 @@ class DecoderLayer(nn.Module):
     def __init__(self, d_model: int, attention_heads: int, linear_units: int,
                  activation: Callable, dtype: torch.dtype = torch.float32,
                  dropout_rate: float = 0.0,
-                 attention_dropout_rate: float = 0.0):
+                 attention_dropout_rate: float = 0.0,
+                 use_adapter: bool = False, down_size: int = 64,
+                 scalar: float = 0.1):
         super().__init__()
         self.norm1 = LayerNorm(d_model, 1e-12, dtype)
         self.norm2 = LayerNorm(d_model, 1e-12, dtype)
@@ -35,6 +40,10 @@ class DecoderLayer(nn.Module):
                                              attention_dropout_rate)
         self.feed_forward = PositionwiseFeedForward(
             d_model, linear_units, activation, dtype, dropout_rate)
+        if use_adapter:
+            self.adapter = Adapter(d_model, dropout_rate, down_size, scalar,
+                                   dtype)
+        self.use_adapter = use_adapter
         self.drop = Dropout(dropout_rate)
 
     def forward(self, tgt, tgt_mask, memory, memory_mask):
@@ -44,7 +53,9 @@ class DecoderLayer(nn.Module):
         x = tgt + self.drop(self.self_attn(h, h, h, tgt_mask))
         h = self.norm2(x)
         x = x + self.drop(self.src_attn(h, memory, memory, memory_mask))
-        return x + self.drop(self.feed_forward(self.norm3(x)))
+        adapter_update = self.adapter(x) if self.use_adapter else 0.0
+        return x + self.drop(self.feed_forward(self.norm3(x))) \
+            + adapter_update
 
     # ---- incremental decode ----
 
@@ -72,4 +83,6 @@ class DecoderLayer(nn.Module):
         h = self.norm2(x)
         x = x + self.src_attn.attend_cached(self.src_attn.project_q(h),
                                             *cross_kv, memory_mask)
-        return x + self.feed_forward(self.norm3(x)), self_k, self_v
+        adapter_update = self.adapter(x) if self.use_adapter else 0.0
+        return (x + self.feed_forward(self.norm3(x)) + adapter_update,
+                self_k, self_v)

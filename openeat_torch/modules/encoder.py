@@ -57,7 +57,9 @@ class Encoder(nn.Module):
                  use_cnn_module: bool, cnn_module_kernel: int, causal: bool,
                  num_blocks: int, num_blocks_share: int, dtype: torch.dtype,
                  dropout_rate: float = 0.0, moe_experts: int = 0,
-                 moe_top_k: int = 2, moe_capacity_factor: float = 1.25):
+                 moe_top_k: int = 2, moe_capacity_factor: float = 1.25,
+                 use_adapter: bool = False, down_size: int = 64,
+                 scalar: float = 0.1):
         super().__init__()
         self.num_blocks_share = num_blocks_share
         self.num_layers = num_blocks // num_blocks_share
@@ -68,7 +70,9 @@ class Encoder(nn.Module):
                 macaron_style, use_cnn_module, cnn_module_kernel, causal,
                 dtype, dropout_rate, moe_experts=moe_experts,
                 moe_top_k=moe_top_k,
-                moe_capacity_factor=moe_capacity_factor))
+                moe_capacity_factor=moe_capacity_factor,
+                use_adapter=use_adapter, down_size=down_size,
+                scalar=scalar))
         self.after_norm = LayerNorm(d_model, 1e-5, dtype)
 
     def applications(self) -> list[EncoderLayer]:
@@ -147,7 +151,9 @@ class TransformerEncoder(nn.Module):
                  positional_dropout_rate: float = 0.0,
                  static_chunk_size: int = 0, num_left_chunks: int = -1,
                  use_dynamic_chunk: bool = False, moe_experts: int = 0,
-                 moe_top_k: int = 2, moe_capacity_factor: float = 1.25):
+                 moe_top_k: int = 2, moe_capacity_factor: float = 1.25,
+                 use_adapter: bool = False, down_size: int = 64,
+                 scalar: float = 0.1):
         super().__init__()
         self.dtype = dtype
         self.d_model = d_model
@@ -168,7 +174,7 @@ class TransformerEncoder(nn.Module):
             d_model, attention_heads, linear_units, activation,
             macaron_style, use_cnn_module, cnn_module_kernel, causal,
             num_blocks, num_blocks_share, dtype, dropout_rate, moe_experts,
-            moe_top_k, moe_capacity_factor)
+            moe_top_k, moe_capacity_factor, use_adapter, down_size, scalar)
 
     def _chunk_mask(self, t: int, device: torch.device,
                     chunk_size: int | None) -> torch.Tensor | None:

@@ -15,6 +15,11 @@ appends the layer's aux loss to `moe_aux` when given one;
 `forward_chunk` routes each row's chunk on its own with no pad mask, so
 a chunk has its own capacity, as the JAX layer's streaming step has.
 
+With use_adapter the fine-tuning Adapter (modules/feed_forward.py) runs
+in parallel to the main FFN, on the block's input to it, and only its
+scaled bottleneck update is added beside the FFN's residual, in
+`forward` and in `forward_chunk`.
+
 Under sequence parallelism (`sp`) x is this rank's frames [B, T/n, D]:
 the norms, residuals, dropouts (each drawing the whole mask and keeping
 the rank's frames) and the conv module run on them, attention and the
@@ -34,7 +39,8 @@ from openeat_torch.modules.attention import (MultiHeadedAttention,
                                              RelPositionMultiHeadedAttention)
 from openeat_torch.modules.convolution import ConvolutionModule
 from openeat_torch.modules.dropout import Dropout
-from openeat_torch.modules.feed_forward import (MoEPositionwiseFeedForward,
+from openeat_torch.modules.feed_forward import (Adapter,
+                                                MoEPositionwiseFeedForward,
                                                 PositionwiseFeedForward)
 from openeat_torch.modules.layers import LayerNorm
 from openeat_torch.parallel import tensor_parallel as tp
@@ -47,7 +53,9 @@ class EncoderLayer(nn.Module):
                  causal: bool = False, dtype: torch.dtype = torch.float32,
                  dropout_rate: float = 0.0,
                  attention_dropout_rate: float = 0.0, moe_experts: int = 0,
-                 moe_top_k: int = 2, moe_capacity_factor: float = 1.25):
+                 moe_top_k: int = 2, moe_capacity_factor: float = 1.25,
+                 use_adapter: bool = False, down_size: int = 64,
+                 scalar: float = 0.1):
         super().__init__()
         ln = lambda: LayerNorm(d_model, 1e-12, dtype)  # noqa: E731
         ffn = lambda: PositionwiseFeedForward(  # noqa: E731
@@ -68,6 +76,10 @@ class EncoderLayer(nn.Module):
             self.conv_module = ConvolutionModule(
                 d_model, cnn_module_kernel, activation, causal, dtype)
             self.norm_final = ln()
+        if use_adapter:
+            self.adapter = Adapter(d_model, dropout_rate, down_size, scalar,
+                                   dtype)
+        self.use_adapter = use_adapter
         self.norm_ff = ln()
         self.moe = moe_experts > 0
         if self.moe:
@@ -102,6 +114,7 @@ class EncoderLayer(nn.Module):
             pad = mask_pad if sp is None else sp.local(mask_pad, -1)
             x = x + self.drop(self.conv_module(self.norm_conv(x), pad,
                                                sp=sp), shard)
+        adapter_update = self.adapter(x, shard) if self.use_adapter else 0.0
         if self.moe:
             h = self.norm_ff(x)
             if sp is not None:
@@ -113,7 +126,7 @@ class EncoderLayer(nn.Module):
                 moe_aux.append(aux)
         else:
             h = self.feed_forward(self.norm_ff(x), sp)
-        x = x + self.ff_scale * self.drop(h, shard)
+        x = x + self.ff_scale * self.drop(h, shard) + adapter_update
         if self.use_cnn_module:
             x = self.norm_final(x)
         return x
@@ -135,6 +148,7 @@ class EncoderLayer(nn.Module):
         x = x + h
         h, new_cnn = self.conv_module(self.norm_conv(x), None, cnn_cache)
         x = x + h
+        adapter_update = self.adapter(x) if self.use_adapter else 0.0
         h = self.norm_ff(x)
         if self.moe:
             # each row is a stream: it routes its chunk alone, with the
@@ -143,5 +157,5 @@ class EncoderLayer(nn.Module):
             h = torch.cat([self.feed_forward(row[None])[0] for row in h])
         else:
             h = self.feed_forward(h)
-        x = x + self.ff_scale * h
+        x = x + self.ff_scale * h + adapter_update
         return self.norm_final(x), k_new, v_new, new_cnn

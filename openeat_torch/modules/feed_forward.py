@@ -1,6 +1,7 @@
 """Position-wise feed-forward blocks (PyTorch). Port of
 openeat_tpu/modules/feed_forward.py: PositionwiseFeedForward (linear ->
-activation -> dropout -> linear) and MoEPositionwiseFeedForward.
+activation -> dropout -> linear), MoEPositionwiseFeedForward and the
+fine-tuning bottleneck Adapter.
 
 Under tensor parallelism (openeat_torch/parallel/mesh.py) w_1 is
 column-parallel, w_2 row-parallel and the dropout between them acts on
@@ -19,7 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from openeat_torch.modules.dropout import Dropout
-from openeat_torch.modules.layers import Dense
+from openeat_torch.modules.layers import Dense, LayerNorm
 from openeat_torch.parallel import tensor_parallel as tp
 
 
@@ -190,3 +191,39 @@ class MoEPositionwiseFeedForward(nn.Module):
         y = (g[..., None] * out[dest]).sum(dim=1)
         y = tp.reduce_from_group(y, self.tp_group)
         return y.reshape(b, t, d), aux
+
+
+class Adapter(nn.Module):
+    """Parameter-efficient fine-tuning bottleneck: scale * drop(up(drop(
+    relu(down(LN(x)))))), with LayerNorm eps 1e-12 and both dropout
+    sites of the JAX module (inside the bottleneck and on its output).
+    `scalar` == -1 makes the scale a learned parameter `scale` [1]
+    (initialised to ones). It returns the scaled update alone (the JAX
+    module with residual=False, as its encoder and decoder layers build
+    it), which the layer adds in parallel to its FFN branch. The
+    parameters stay replicated under tensor parallelism (mesh.tp_plan
+    skips them), and under sequence parallelism the adapter runs on the
+    rank's frames with the whole dropout masks drawn (`shard`)."""
+
+    def __init__(self, d_model: int, dropout_rate: float = 0.1,
+                 down_size: int = 64, scalar: float = 0.1,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.norm = LayerNorm(d_model, 1e-12, dtype)
+        self.down_proj = Dense(d_model, down_size, dtype=dtype)
+        self.up_proj = Dense(down_size, d_model, dtype=dtype)
+        self.dropout = Dropout(dropout_rate)
+        self.out_dropout = Dropout(dropout_rate)
+        self.learned_scale = scalar == -1
+        if self.learned_scale:
+            self.scale = nn.Parameter(torch.ones(1))
+        # the fixed scale rounded to the compute dtype, as JAX casts it
+        self.scalar = float(torch.tensor(scalar, dtype=dtype))
+
+    def forward(self, x: torch.Tensor,
+                shard: tuple[int, int, int] | None = None) -> torch.Tensor:
+        h = F.relu(self.down_proj(self.norm(x)))
+        h = self.up_proj(self.dropout(h, shard))
+        h = self.out_dropout(h, shard)
+        return (self.scale.to(h.dtype) * h if self.learned_scale
+                else self.scalar * h)

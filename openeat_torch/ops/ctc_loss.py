@@ -227,7 +227,7 @@ def _launch(label_logp, input_lens, s_lens, allow2, smem_hist: bool):
     gamma = torch.empty((b, t, s), dtype=torch.float32, device=dev)
     # K2 keeps beta's history here (K1 in shared memory)
     bws = None if smem_hist else torch.empty_like(gamma)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), nvcc.launch_region("openeat_ctc_dp"):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _entry("openeat_ctc_dp", _DP_ARGS)(
             lp.data_ptr(), il.data_ptr(), sl.data_ptr(), a2.data_ptr(),

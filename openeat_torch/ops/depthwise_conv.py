@@ -254,7 +254,7 @@ def launch(src: torch.Tensor, w: torch.Tensor,
     name = "openeat_dwconv1d_dgrad" if plan.dgrad else "openeat_dwconv1d_fwd"
     out = torch.empty((b, plan.t_out, c), dtype=src.dtype,
                       device=src.device)
-    with torch.cuda.device(src.device):
+    with torch.cuda.device(src.device), nvcc.launch_region(name):
         rc = _entry(name, _CONV_ARGS)(
             src.data_ptr(), w.data_ptr(), out.data_ptr(), b, t_in, c,
             w.shape[0], _DTYPE_CODE[src.dtype], plan.copy_bytes,
@@ -429,7 +429,8 @@ def depthwise_conv1d_wgrad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
                       num_sms=_num_sms(x.device.index))
     ws = _workspace(x.device, plan.ws_floats)
     dw = torch.empty((k, c), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(x.device), \
+            nvcc.launch_region("openeat_dwconv1d_wgrad"):
         depthwise_conv1d_wgrad.launches += 1
         rc = _entry("openeat_dwconv1d_wgrad", _WGRAD_ARGS)(
             x.data_ptr(), dy.data_ptr(), ws.data_ptr(), ws.numel(),

@@ -1,10 +1,17 @@
 """Kaldi-compatible log-mel filterbank on the device (PyTorch).
 
-Port of openeat_tpu/ops/fbank.py, framed-matmul path, no dither:
-framing (snip_edges) -> DC removal -> preemphasis (0.97) -> povey window
--> real DFT of the zero-padded 512-point frame as one matmul against
-``dft_basis`` -> power spectrum -> mel matmul -> log. ``mel_banks`` and
-``dft_basis`` are host numpy, copied from the JAX package.
+Port of openeat_tpu/ops/fbank.py, framed-matmul path: framing
+(snip_edges) -> dither -> DC removal -> preemphasis (0.97) -> povey
+window -> real DFT of the zero-padded 512-point frame as one matmul
+against ``dft_basis`` -> power spectrum -> mel matmul -> log.
+``mel_banks`` and ``dft_basis`` are host numpy, copied from the JAX
+package.
+
+Dither is kaldi's and the JAX package's: dither * N(0, 1) noise of the
+framed shape [B, T, frame_len], added after framing (every frame draws
+its own, the overlaps included) and before the DC removal. The caller
+gives the noise (ops/frontend.py draws it from its generator on the
+card; the tests hand in the JAX package's jax.random.normal draw).
 """
 
 from __future__ import annotations
@@ -85,11 +92,14 @@ def povey_window(frame_len: int) -> np.ndarray:
 def fbank(wav: torch.Tensor, wav_lens: torch.Tensor, *,
           sample_rate: int = 16000, num_mel_bins: int = 80,
           frame_length_ms: float = 25.0, frame_shift_ms: float = 10.0,
-          preemphasis: float = 0.97, remove_dc_offset: bool = True
+          preemphasis: float = 0.97, remove_dc_offset: bool = True,
+          dither: float = 0.0, noise: torch.Tensor | None = None
           ) -> tuple[torch.Tensor, torch.Tensor]:
     """Batched kaldi fbank. wav: [B, N] float32 or int16 (x32768 scaled),
-    wav_lens: [B] sample counts. Returns (feats [B, T, M] float32,
-    flens [B]); frames past flens[b] are garbage for the caller to mask."""
+    wav_lens: [B] sample counts. With dither != 0 the framed samples get
+    dither * `noise` ([B, T, frame_len] standard normal). Returns (feats
+    [B, T, M] float32, flens [B]); frames past flens[b] are garbage for
+    the caller to mask."""
     wav = wav.float()
     n = wav.shape[1]
     frame_len = int(sample_rate * frame_length_ms / 1000.0)
@@ -101,6 +111,11 @@ def fbank(wav: torch.Tensor, wav_lens: torch.Tensor, *,
     nb = padded // 2 + 1
     dev = wav.device
     frames = wav.unfold(1, frame_len, frame_shift)[:, :t]   # [B, T, L]
+    if dither != 0.0:
+        if noise is None or noise.shape != frames.shape:
+            raise ValueError(f"dither needs noise of the framed shape "
+                             f"{tuple(frames.shape)}")
+        frames = frames + dither * noise
     if remove_dc_offset:
         frames = frames - frames.mean(dim=-1, keepdim=True)
     if preemphasis != 0.0:

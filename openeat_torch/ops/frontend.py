@@ -1,11 +1,10 @@
 """Device frontend: waveform batch -> features (PyTorch).
 
-Port of openeat_tpu/ops/frontend.py: fbank, then per-utterance
-normalization with padded frames zeroed; in training, then feature
-dither, spec-substitute and SpecAugment, drawn from a generator the
-caller owns, with padded frames zeroed again. Waveform dither
-(``wav_dither``) needs the fbank's dither path and is refused until a
-later slice brings it.
+Port of openeat_tpu/ops/frontend.py: fbank (in training with waveform
+dither, ``wav_dither``: noise on the framed samples), then
+per-utterance normalization with padded frames zeroed; in training,
+then feature dither, spec-substitute and SpecAugment, all drawn from a
+generator the caller owns, with padded frames zeroed again.
 
 A data-parallel rank computes the features of its rows only (`rows` of
 a batch whose lengths are `batch_lens`) but draws the augmentation for
@@ -133,15 +132,22 @@ def compute_features(wav: torch.Tensor, wav_lens: torch.Tensor,
     is skipped, as the JAX frontend does; train=True draws them from
     `generator`, for the whole batch of waveform lengths `batch_lens`
     whose `rows` wav holds (default: wav is the whole batch)."""
-    if train and cfg.wav_dither:
-        raise NotImplementedError(
-            "wav_dither is not ported to openeat_torch yet; it comes with "
-            "a later slice (fbank dither path)")
+    dither, noise = (cfg.wav_dither if train else 0.0), None
+    if dither:
+        if generator is None:
+            raise ValueError("training-time augmentation needs a generator")
+        # the whole batch's noise, this rank's rows kept
+        frame_len = int(cfg.sample_rate * cfg.frame_length_ms / 1000.0)
+        t = fbank_mod.num_frames(wav.shape[1], frame_len, int(
+            cfg.sample_rate * cfg.frame_shift_ms / 1000.0))
+        b = wav.shape[0] if batch_lens is None else batch_lens.shape[0]
+        noise = torch.randn((b, t, frame_len), generator=generator,
+                            device=wav.device)[rows]
     feats, flens = fbank_mod.fbank(
         wav, wav_lens, sample_rate=cfg.sample_rate,
         num_mel_bins=cfg.num_mel_bins,
         frame_length_ms=cfg.frame_length_ms,
-        frame_shift_ms=cfg.frame_shift_ms)
+        frame_shift_ms=cfg.frame_shift_ms, dither=dither, noise=noise)
     batch_flens = (None if batch_lens is None
                    else feature_lengths(batch_lens, cfg))
     return augment_features(feats, flens, cfg, train, generator,

@@ -4,11 +4,15 @@ nvcc compiles the file by hand (no PyTorch headers, no ninja) into
 ``openeat_torch/_build/``, named by a hash of the source so an edited
 source is rebuilt. The library exposes a plain C interface and is loaded
 with ctypes. Nothing here runs at import time: a kernel's wrapper calls
-:func:`load_library` on its first launch.
+:func:`load_library` on its first launch. While a profiler runs, each
+launch sits in a region named after its C entry point
+(:func:`launch_region`), so a trace names the entry beside its device
+kernel.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -17,6 +21,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
@@ -24,6 +30,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "--ptxas-options=-v"]
 
 _loaded: dict[str, ctypes.CDLL] = {}
+
+
+def launch_region(entry: str):
+    """A torch.profiler region named `entry` (the C entry point a
+    wrapper calls) while a profiler runs; no region otherwise, so an
+    unprofiled launch pays nothing for it."""
+    if getattr(torch.autograd.profiler, "_is_profiler_enabled", True):
+        return torch.profiler.record_function(entry)
+    return contextlib.nullcontext()
 
 
 def find_nvcc() -> str:

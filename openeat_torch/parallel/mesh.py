@@ -37,10 +37,13 @@ TP rules reach:
 - the MoE expert banks by experts, when E divides by tp (the router
   stays replicated).
 
-Everything else is replicated. Dropout masks: the trainer seeds one
-generator per data rank, so the ranks of a model group draw the same
-masks, and a dropout inside a sharded region draws the whole mask and
-keeps its slice (modules/dropout.py).
+Everything else is replicated, the fine-tuning adapters too: JAX's
+TP_RULES would split their down_proj and up_proj, which only moves the
+same numbers; the port keeps them whole, since they are small and
+sequence parallelism runs them on each rank's frames. Dropout masks:
+the trainer seeds one generator per data rank, so the ranks of a model
+group draw the same masks, and a dropout inside a sharded region draws
+the whole mask and keeps its slice (modules/dropout.py).
 
 Sequence parallelism: a model with `sequence_sharding` shards its
 encoder block stack's time axis over the model group (apply_mesh gives
@@ -48,9 +51,11 @@ the stack its TimeShard; modules/encoder.py).
 
 Pipeline parallelism has a mesh of its own, JAX's ('data', 'pipe')
 (make_pipe_mesh): world rank = data_rank * pp + pipe_rank, tp = 1. On
-it apply_mesh keeps on each pipe rank only the encoder layers of its
-stage (stage_model), and full_state_dict and full_optimizer_state
-gather the stages back to the whole model's tensors. The loss runs
+it apply_mesh keeps on each pipe rank only the encoder layers its
+stage applies (stage_model): a weight-shared layer whose applications
+fall on two or more stages is kept on each of them. full_state_dict
+and full_optimizer_state gather the stages back to the whole model's
+tensors. The loss runs
 through openeat_torch/parallel/pipeline.py.
 
 With --multihost (the JAX package's one process per host) the ranks of
@@ -73,10 +78,12 @@ from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 from openeat_torch.modules.attention import (MultiHeadedAttention,
                                              RelPositionMultiHeadedAttention)
-from openeat_torch.modules.feed_forward import (MoEPositionwiseFeedForward,
+from openeat_torch.modules.feed_forward import (Adapter,
+                                                MoEPositionwiseFeedForward,
                                                 PositionwiseFeedForward)
 from openeat_torch.modules.layers import Dense, Embed
 from openeat_torch.parallel.tensor_parallel import TimeShard, all_gather_rows
+from openeat_torch.utils.optim import trainable
 
 COL, ROW = (None, "model"), ("model", None)
 # openeat_tpu/parallel/mesh.py:TP_RULES: (regex over the flax parameter
@@ -228,14 +235,15 @@ def close_mesh(mesh: Mesh | None) -> None:
 def tp_plan(model: nn.Module, tp: int) -> dict[str, str]:
     """{module path: how it shards} for the layers the TP rules reach at
     tp ranks: "ffn", "attention", "gather" (a column-parallel output
-    layer), "vocab" (an embedding) or "experts"."""
+    layer), "vocab" (an embedding) or "experts". An adapter's layers
+    stay replicated."""
     if tp <= 1:
         return {}
     plan, units = {}, []
     for name, m in model.named_modules():
         path = name.replace(".", "/")
         if isinstance(m, (PositionwiseFeedForward, MultiHeadedAttention,
-                          MoEPositionwiseFeedForward)):
+                          MoEPositionwiseFeedForward, Adapter)):
             units.append(name + ".")
         if isinstance(m, PositionwiseFeedForward):
             if (param_spec(f"{path}/w_1/kernel") == COL
@@ -322,53 +330,65 @@ def shard_model(model: nn.Module, mesh: Mesh) -> dict[str, str]:
 @dataclass
 class PipeLayout:
     """The whole model's entries, kept by stage_model: the state_dict's
-    names in order with their shapes and dtypes, the parameters' names
-    in the optimizer's order, and the stage of each physical encoder
-    layer."""
+    names in order with their shapes and dtypes, the trainable
+    parameters' names in the optimizer's order, and the stages that
+    apply each physical encoder layer."""
     state: dict[str, tuple[torch.Size, torch.dtype]]
     params: list[str]
-    owner: dict[int, int]
+    owner: dict[int, tuple[int, ...]]
 
     def stage_of(self, name: str) -> int | None:
-        """The stage that holds a state entry, or None (every stage)."""
+        """The stage whose copy of a state entry the gathers take (the
+        first that holds it), or None (every stage)."""
         m = re.match(r"encoder\.encoders\.layer_(\d+)\.", name)
-        return None if m is None else self.owner[int(m.group(1))]
+        return None if m is None else self.owner[int(m.group(1))][0]
+
+    def shared(self) -> list[str]:
+        """The state entries of the layers held on more than one stage,
+        in state_dict order."""
+        return [n for n in self.state
+                if (m := re.match(r"encoder\.encoders\.layer_(\d+)\.", n))
+                and len(self.owner[int(m.group(1))]) > 1]
 
 
-def stage_owner(num_layers: int, share: int, pp: int) -> dict[int, int]:
-    """{physical encoder layer: its stage} when the num_layers * share
-    block applications split into pp contiguous stages; ValueError when
-    they do not divide, or when a shared layer's applications would span
-    two stages (the port keeps a layer on one stage)."""
+def stage_owner(num_layers: int, share: int, pp: int
+                ) -> dict[int, tuple[int, ...]]:
+    """{physical encoder layer: the stages that apply it, in order} when
+    the num_layers * share block applications split into pp contiguous
+    stages (ValueError when they do not divide). A weight-shared layer
+    whose applications span stages has each of them, as JAX's stack of
+    one entry per application has (openeat_tpu/parallel/pipeline.py:
+    stack_block_params)."""
     total = num_layers * share
     if total % pp:
         raise ValueError(f"{total} block applications not divisible by "
                          f"pipe={pp}")
-    owner: dict[int, int] = {}
+    owner: dict[int, tuple[int, ...]] = {}
     for a in range(total):
         layer, stage = a // share, a // (total // pp)
-        if owner.setdefault(layer, stage) != stage:
-            raise ValueError(
-                f"encoder layer {layer} is applied {share} times, across "
-                f"stages {owner[layer]} and {stage}: num_blocks_share must "
-                f"divide the {total // pp} applications of a stage")
+        stages = owner.setdefault(layer, ())
+        if stage not in stages:
+            owner[layer] = stages + (stage,)
     return owner
 
 
 def stage_model(model: nn.Module, mesh: Mesh) -> None:
-    """Keep only this pipe rank's encoder layers (each parameter marked
-    `pipe_stage`) and record the whole model's layout (`pipe_layout`)."""
+    """Keep only the encoder layers this pipe rank applies (each
+    parameter marked `pipe_stage`, and `pipe_copies`, the number of
+    stages that hold it) and record the whole model's layout
+    (`pipe_layout`)."""
     enc = model.encoder.encoders
     owner = stage_owner(enc.num_layers, enc.num_blocks_share, mesh.pp)
     model.pipe_layout = PipeLayout(
         {k: (v.shape, v.dtype) for k, v in model.state_dict().items()},
-        [n for n, p in model.named_parameters() if p.requires_grad], owner)
-    for layer, stage in owner.items():
-        if stage != mesh.pipe_rank:
+        [n for n, _ in model.named_parameters() if trainable(n)], owner)
+    for layer, stages in owner.items():
+        if mesh.pipe_rank not in stages:
             delattr(enc, f"layer_{layer}")
         else:
             for p in getattr(enc, f"layer_{layer}").parameters():
                 p.pipe_stage = True
+                p.pipe_copies = len(stages)
 
 
 def apply_mesh(model: nn.Module, mesh: Mesh | None) -> None:
@@ -399,11 +419,12 @@ def _unstage(local: dict, like: dict, stage_of, mesh: Mesh,
              dev: torch.device) -> dict:
     """{name: tensor} over every name of `like` ({name: (shape, dtype,
     device)}, in order): this rank's `local` entries, and the entries of
-    the other stages' layers (stage_of(name) not None) gathered over the
-    pipe group: each from its stage, zeros from the others, in one
-    float32 sum all-reduce on `dev`."""
+    the staged layers (stage_of(name) not None) gathered over the pipe
+    group: each from the stage stage_of names, zeros from the others,
+    in one float32 sum all-reduce on `dev`."""
     staged = [n for n in like if stage_of(n) is not None]
-    parts = [local[n].detach().float().to(dev) if n in local
+    parts = [local[n].detach().float().to(dev)
+             if n in local and stage_of(n) == mesh.pipe_rank
              else torch.zeros(like[n][0], device=dev) for n in staged]
     flat = _flatten_dense_tensors(parts)
     dist.all_reduce(flat, group=mesh.pipe_group)

@@ -31,8 +31,15 @@ the plain step. The loss is the JAX one's:
   too, where JAX's tail normalises per data shard
   (openeat_tpu/parallel/pipeline.py:235).
 
-Gradients: a stage's block gradients stay on its rank. The replicated
-parameters' gradients end equal on every pipe rank: the gradient of the
+Gradients: a stage's block gradients stay on its rank, except those
+of a weight-shared layer whose applications span stages, which each of
+those stages holds (mesh.stage_owner): each stage's backward gives the
+gradient of its own applications, and the backward sums them over the
+pipe group (zeros from the stages that do not hold the layer), so
+that every holder ends with the layer's whole gradient, the sum over
+its applications that JAX's autodiff forms over its stack of one entry
+per application. The replicated parameters' gradients end equal on
+every pipe rank: the gradient of the
 head's output (stage 0's) is summed over the pipe group, so that every
 rank runs the head's backward with it, and with `tail_on_last_stage`
 the tail's parameter gradients are summed over the group (zeros from
@@ -46,10 +53,7 @@ the data rank in, for the tail too (JAX's tail key is the same on every
 data shard, openeat_tpu/parallel/pipeline.py:308).
 
 Refused, as in JAX: mixture-of-experts layers, chunk masks and dynamic
-chunks; and a mesh with a model group (the pipe mesh has none). A
-physical layer whose applications would span two stages is refused
-too, when apply_mesh stages the model (mesh.stage_owner); JAX sums such
-a layer's gradient over the stages.
+chunks; and a mesh with a model group (the pipe mesh has none).
 """
 
 from __future__ import annotations
@@ -89,11 +93,12 @@ class _Schedule:
     """This rank's stage and one step's inputs to it."""
 
     def __init__(self, layers: list, mesh: Mesh, num_micro: int, mask_pad,
-                 pos_emb, streams: _Streams):
+                 pos_emb, streams: _Streams, shared: list):
         self.layers, self.mesh, self.m = layers, mesh, num_micro
         self.s, self.n = mesh.pipe_rank, mesh.pp
         self.masks = mask_pad.chunk(num_micro)
         self.pos_emb, self.streams = pos_emb, streams
+        self.shared = shared
 
     def stage(self, x: torch.Tensor, m: int) -> torch.Tensor:
         """This stage's blocks on microbatch m."""
@@ -132,6 +137,10 @@ class _Schedule:
         first = [None] * self.m
         ticks = self.m + self.n - 1
         send = received = None
+        earlier = [None if p is None else p.grad for p, _ in self.shared]
+        for p, _ in self.shared:
+            if p is not None:
+                p.grad = None
         for t in reversed(range(ticks)):
             if self.n > 1 and t < ticks - 1:
                 received = tp.shift_prev(send, self.mesh.pipe_group)
@@ -143,9 +152,28 @@ class _Schedule:
                 send = inputs[m].grad
                 if self.s == 0:
                     first[m] = send
+        self._sum_shared(earlier, inputs[0].device)
         dx = torch.cat(first) if self.s == 0 else torch.zeros_like(
             torch.cat(inputs))
         return tp.global_sum(dx, self.mesh.pipe_group)
+
+    def _sum_shared(self, earlier: list, device: torch.device) -> None:
+        """Sum this backward's gradients of the layers held on several
+        stages over the pipe group and add them to what those
+        parameters held before it (`earlier`, e.g. an accumulated
+        micro-batch's)."""
+        if not self.shared:
+            return
+        parts = [torch.zeros(shape, device=device)
+                 if p is None or p.grad is None else p.grad
+                 for p, shape in self.shared]
+        flat = tp.global_sum(_flatten_dense_tensors(parts),
+                             self.mesh.pipe_group)
+        for (p, _), g, old in zip(self.shared,
+                                  _unflatten_dense_tensors(flat, parts),
+                                  earlier):
+            if p is not None:
+                p.grad = g if old is None else old + g
 
 
 class _Pipeline(torch.autograd.Function):
@@ -217,6 +245,17 @@ def _stage_layers(model: nn.Module, mesh: Mesh) -> list:
             for a in range(first, first + per)]
 
 
+def _shared_parameters(model: nn.Module) -> list:
+    """(parameter or None, shape) of every entry of the layers held on
+    more than one stage, in the same order on every pipe rank; None
+    where this rank does not hold the layer."""
+    layout = getattr(model, "pipe_layout", None)
+    if layout is None:
+        return []
+    mine = dict(model.named_parameters())
+    return [(mine.get(n), layout.state[n][0]) for n in layout.shared()]
+
+
 def _tail_parameters(model: nn.Module) -> list:
     """The parameters the loss tail uses: after_norm, CTC, decoders."""
     mods = (model.encoder.encoders.after_norm, model.ctc, model.decoder)
@@ -257,7 +296,8 @@ def make_pp_loss_fn(model: nn.Module, mesh: Mesh, num_micro: int,
             batch["features"], batch["features_length"])
         mask_pad = make_non_pad_mask(out_lens, xs.shape[1])[:, None, :]
         sched = _Schedule(_stage_layers(model, mesh), mesh, num_micro,
-                          mask_pad, pos_emb, streams)
+                          mask_pad, pos_emb, streams,
+                          _shared_parameters(model))
         tail_gen = streams(TAIL)
         set_generator(model.ctc, tail_gen)
         set_generator(model.decoder, tail_gen)

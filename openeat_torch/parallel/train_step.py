@@ -15,7 +15,12 @@ One step, in the JAX order:
   evaluates its schedule (0 on the first update).
 
 A parameter that no loss term reaches gets a zero gradient, as jax.grad
-gives, so that Adam treats it as optax does. Whether the norm is finite
+gives, so that Adam treats it as optax does. Every parameter of the
+model gets its gradient, the frozen ones too (GlobalCMVN's statistics;
+all but the adapters under only_adapter): the norm, the clip and the
+non-finite skip count them, as JAX's flat norm over the whole gradient
+tree does, and the optimizer, which holds the trainable parameters
+only, leaves them as they are. Whether the norm is finite
 is read on the host, one sync per step. A mixture-of-experts model's
 `moe_aux` enters the training loss at moe_aux_weight (make_loss_fn's
 rule); the eval step leaves it out.
@@ -30,8 +35,9 @@ model group) and each replicated tensor once, so every rank reads the
 same norm and skips the same steps. The metrics are summed over the
 data group: every rank returns the global batch's. On a pipe mesh
 (pipeline.py) each stage's parameters (`pipe_stage`) count on their
-rank and the replicated ones, equal on every pipe rank, once; the
-metrics are already equal on every pipe rank.
+rank, a shared layer held by k stages (`pipe_copies`) 1/k on each, and
+the replicated ones, equal on every pipe rank, once; the metrics are
+already equal on every pipe rank.
 """
 
 from __future__ import annotations
@@ -107,7 +113,8 @@ def _global_norm(params: list, mesh) -> torch.Tensor:
     # and all of them the replicated tensors
     zero = sq[0].new_zeros(())
     own = [hasattr(p, "tp_dim") or hasattr(p, "pipe_stage") for p in params]
-    mine = sum((q for q, o in zip(sq, own) if o), zero)
+    mine = sum((q / getattr(p, "pipe_copies", 1)
+                for q, o, p in zip(sq, own, params) if o), zero)
     replicated = sum((q for q, o in zip(sq, own) if not o), zero)
     group = mesh.model_group if mesh.tp > 1 else mesh.pipe_group
     both = torch.stack([mine, replicated / (mesh.tp * mesh.pp)])
@@ -166,7 +173,7 @@ def build_train_step(schedule: Callable[[int], float], accum_grad: int = 1,
         model = state.model
         model.train()
         set_generator(model, generator, chunk_generator)
-        state.optimizer.zero_grad(set_to_none=True)
+        model.zero_grad(set_to_none=True)
         metrics = _loss_and_grads(model, batch, accum_grad, loss_fn)
         gnorm, applied = apply_update(state, schedule, grad_clip, mesh)
         metrics = reduce_metrics(metrics, mesh)

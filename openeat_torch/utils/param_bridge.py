@@ -11,7 +11,9 @@ is the torch module path; this file owns every layout change:
 - depthwise Conv kernel [K, 1, C] -> K3 taps [K, C];
 - LayerNorm scale -> weight; Embed embedding -> weight;
 - the MoE FFN's expert banks w_in [E, D, F], b_in [E, F], w_out
-  [E, F, D], b_out [E, D] as they are (its router is a Dense).
+  [E, F, D], b_out [E, D] as they are (its router is a Dense);
+- an adapter's learned `scale` [1] as it is (its norm, down_proj and
+  up_proj are a LayerNorm and two Dense).
 
 A model sharded over a mesh's model group is gathered back to these
 full tensors by openeat_torch/parallel/mesh.py:full_state_dict, so a
@@ -30,7 +32,8 @@ from torch import nn
 from openeat_torch.modules.attention import RelPositionMultiHeadedAttention
 from openeat_torch.modules.cmvn import GlobalCMVN
 from openeat_torch.modules.convolution import DepthwiseConv1d
-from openeat_torch.modules.feed_forward import MoEPositionwiseFeedForward
+from openeat_torch.modules.feed_forward import (Adapter,
+                                                MoEPositionwiseFeedForward)
 from openeat_torch.modules.layers import Conv2d, Dense, Embed, LayerNorm
 
 # (module class, flax leaf) -> (torch parameter, layout change)
@@ -53,6 +56,7 @@ _RULES = {
     (MoEPositionwiseFeedForward, "b_in"): ("b_in", None),
     (MoEPositionwiseFeedForward, "w_out"): ("w_out", None),
     (MoEPositionwiseFeedForward, "b_out"): ("b_out", None),
+    (Adapter, "scale"): ("scale", None),
 }
 
 

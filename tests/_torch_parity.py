@@ -43,11 +43,13 @@ def _draw(rng: np.random.Generator, leaf: str, shape) -> np.ndarray:
     return 0.1 * x
 
 
-def tiny_models(seed: int = 0, **overrides):
+def tiny_models(seed: int = 0, use_global_cmvn: bool = False, **overrides):
     """(jax_model, flax variables, flat leaves, torch_model) for the tiny
-    Conformer with `overrides` applied to its model_conf."""
+    Conformer with `overrides` applied to its model_conf (and GlobalCMVN
+    with use_global_cmvn)."""
     conf = dict(TINY_CONF, **overrides)
-    jmodel = build_jax_model(conf, FEAT_DIM, VOCAB)
+    jmodel = build_jax_model(conf, FEAT_DIM, VOCAB,
+                             use_global_cmvn=use_global_cmvn)
     rng = np.random.default_rng(seed)
     feats = jnp.zeros((1, 40, FEAT_DIM), jnp.float32)
     shapes = jax.eval_shape(jmodel.init, jax.random.PRNGKey(0), feats,
@@ -57,7 +59,8 @@ def tiny_models(seed: int = 0, **overrides):
         lambda path, leaf: jnp.asarray(_draw(rng, path[-1].key, leaf.shape)),
         shapes)
     flat = _flatten(variables)
-    tmodel = build_torch_model(conf, FEAT_DIM, VOCAB)
+    tmodel = build_torch_model(conf, FEAT_DIM, VOCAB,
+                               use_global_cmvn=use_global_cmvn)
     tmodel.load_state_dict(flax_to_state_dict(flat, tmodel), strict=True)
     return jmodel, variables, flat, tmodel.eval()
 

@@ -70,10 +70,10 @@ def test_compute_features_eval_matches_jax():
     wav, lens = _wavs(1)
     cfg = FrontendConfig.from_collate_conf(
         {"spec_aug": True, "feature_extraction_conf": {"wav_dither": 1.0}})
-    # training would need the fbank's dither path, a later slice
-    with pytest.raises(NotImplementedError, match="wav_dither"):
+    # training dithers the framed samples (and needs a generator)
+    with pytest.raises(ValueError, match="generator"):
         compute_features(torch.from_numpy(wav), torch.from_numpy(lens), cfg,
-                         train=True, generator=torch.Generator())
+                         train=True)
     feats, flens = compute_features(torch.from_numpy(wav),
                                     torch.from_numpy(lens),
                                     cfg.without_augmentation())
@@ -81,6 +81,12 @@ def test_compute_features_eval_matches_jax():
     eval_feats, _ = compute_features(torch.from_numpy(wav),
                                      torch.from_numpy(lens), cfg)
     assert torch.equal(eval_feats, feats)
+    dithered, _ = compute_features(
+        torch.from_numpy(wav), torch.from_numpy(lens),
+        FrontendConfig.from_collate_conf(
+            {"feature_extraction_conf": {"wav_dither": 1.0}}),
+        train=True, generator=torch.Generator().manual_seed(0))
+    assert not torch.equal(dithered, feats)
     jcfg = JaxFrontendConfig.from_collate_conf(
         {"spec_aug": True}).without_augmentation()
     j_feats, j_lens = jax_features(jnp.asarray(wav), jnp.asarray(lens),

@@ -97,12 +97,15 @@ def test_bridge_owns_the_depthwise_layout():
 
 
 def test_unported_options_raise():
-    """Adapters are refused. sequence_sharding is ported: it builds, and
-    with no model group (apply_mesh gives none) the model computes what
-    the plain one computes."""
-    with pytest.raises(NotImplementedError, match="adapters"):
-        build_asr_model(dict(TINY_CONF, encoder_use_adapter=True), FEAT_DIM,
-                        VOCAB)
+    """Input layers other than conv2d and the no_pos encoding are
+    refused. sequence_sharding is ported: it builds, and with no model
+    group (apply_mesh gives none) the model computes what the plain one
+    computes."""
+    for key, value in (("input_layer", "linear"),
+                       ("pos_enc_layer_type", "no_pos")):
+        with pytest.raises(NotImplementedError, match=value):
+            build_asr_model(dict(TINY_CONF, **{key: value}), FEAT_DIM,
+                            VOCAB)
     _, _, _, tm = tiny_models(0)
     ts = build_asr_model(dict(TINY_CONF, sequence_sharding=True), FEAT_DIM,
                          VOCAB)

@@ -13,6 +13,13 @@ d = 64, 4 heads, vocab 40; 2 blocks, or 4 applied as 2 shared layers),
   model's largest (summation order: the microbatches, the ranks);
 - one SGD step (lr 1, clip 5): every update within 1e-4 of its tensor's
   largest update plus 1e-7, as tests/test_torch_parallel.py;
+- a weight-shared stack whose shared layer spans both stages (12
+  applications of 3 physical layers, 4 each, at pipe 2: layer 1's
+  applications 4-7 fall on both) against JAX's make_pp_loss_fn on the
+  same stack: loss within 1e-6 relative, every gradient within the
+  tolerance above, layer 1 held on both pipe ranks with bit-equal
+  (summed) gradients; and one SGD step whose norm counts that layer
+  once;
 - one Adam step at data 2 x pipe 2 against the port's one-process step:
   the gathered first and second moments (the clipped gradient and its
   square) within the gradients' tolerance, every weight within 2 lr
@@ -48,6 +55,8 @@ torch.set_num_threads(1)
 DENSE = dict(dropout_rate=0.0)
 SHARED = dict(dropout_rate=0.0, encoder_num_blocks=4,
               encoder_num_blocks_share=2)
+SPAN = dict(dropout_rate=0.0, encoder_num_blocks=12,
+            encoder_num_blocks_share=4)
 ADAM_LR = 1e-3
 
 
@@ -84,7 +93,8 @@ def job(tmp_path_factory):
     c = {"root": root, "models": {}}
     tasks = {2: [], 4: []}
     for name, conf, seed, bseed in (("dense", DENSE, 0, 1),
-                                    ("shared", SHARED, 3, 2)):
+                                    ("shared", SHARED, 3, 2),
+                                    ("span", SPAN, 5, 3)):
         jm, variables, flat, tm = tiny_models(seed, **conf)
         leaves = os.path.join(root, f"{name}.npz")
         np.savez(leaves, **flat)
@@ -98,6 +108,9 @@ def job(tmp_path_factory):
             ("pp2", "dense", dict(mode="grads")),
             ("pp2_tail", "dense", dict(mode="grads", tail=True)),
             ("pp2_shared", "shared", dict(mode="grads")),
+            ("pp2_span", "span", dict(mode="grads")),
+            ("pp2_span_sgd", "span", dict(mode="step", optim="sgd",
+                                          lr=1.0)),
             ("pp2_sgd", "dense", dict(mode="step", optim="sgd", lr=1.0))):
         tasks[2].append(dict(c[src], kind="pp", name=name, dp=1, pp=2,
                              num_micro=4, **extra))
@@ -124,6 +137,10 @@ def job(tmp_path_factory):
                     variables, batch)
         jm, variables, batch, _ = c["models"]["shared"]
         ref["seq_shared"] = _jax_grads(jax_loss_fn(jm), variables, batch)
+        jm, variables, batch, _ = c["models"]["span"]
+        with jax.sharding.set_mesh(jmesh):
+            ref["pp_span"] = _jax_grads(jax_pp_loss_fn(
+                jm, jmesh, num_micro=4), variables, batch)
     finally:
         for world, (ps, work) in procs.items():
             wait(ps, work)
@@ -193,6 +210,50 @@ def test_pp_weight_shared_stack(job):
     assert [r["held"] for r in ranks] == [["layer_0"], ["layer_1"]]
     _assert_metrics(ranks[0]["metrics"], metrics)
     _assert_grads(got, flax_to_state_dict(grads, tm))
+
+
+def test_pp_shared_layer_spanning_both_stages(job):
+    """The flagship's sharing (12 applications, 4 a layer) at pipe 2:
+    layer 1 is applied on both stages, held by both, and its gradient,
+    summed over the pipe group, is JAX's on every holder."""
+    tm = job["models"]["span"][3]
+    metrics, grads = job["ref"]["pp_span"]
+    ranks = [_load(job, "pp2_span", r) for r in range(2)]
+    assert [r["held"] for r in ranks] == [["layer_0", "layer_1"],
+                                          ["layer_1", "layer_2"]]
+    got = {}
+    for n in tm.state_dict():
+        holders = [r["grads"][n] for r in ranks if n in r["grads"]]
+        shared = n.startswith("encoder.encoders.layer_1.")
+        if shared or not n.startswith("encoder.encoders.layer_"):
+            assert len(holders) == 2 and torch.equal(*holders), n
+        else:
+            assert len(holders) == 1, n
+        got[n] = holders[0]
+    for r in ranks:
+        for key in ("loss", "loss_ctc", "loss_att", "acc"):
+            np.testing.assert_allclose(r["metrics"][key], metrics[key],
+                                       rtol=1e-6, err_msg=key)
+        # the stage's K3 launches: its 6 applications a microbatch
+        assert len(r["k3"]) == 6 * 4
+    _assert_grads(got, flax_to_state_dict(grads, tm))
+
+
+def test_pp_span_sgd_step_counts_the_shared_layer_once(job):
+    tm = job["models"]["span"][3]
+    metrics, grads = job["ref"]["pp_span"]
+    want = flax_to_state_dict(grads, tm)
+    norm = float(torch.sqrt(sum(g.double().square().sum()
+                                for g in want.values())))
+    scale = min(1.0, 5.0 / norm)
+    got = _load(job, "pp2_span_sgd", 0)
+    np.testing.assert_allclose(got["metrics"]["grad_norm"], norm, rtol=1e-5)
+    before = tm.state_dict()
+    for k, g in want.items():
+        step = float((scale * g).abs().max())
+        err = float((got["params"][k] - (before[k] - scale * g))
+                    .abs().max())
+        assert err <= 1e-4 * step + 1e-7, (k, err, step)
 
 
 def test_pp_ranks_hold_their_stage_only(job):
@@ -292,12 +353,14 @@ def test_pp_refusals(conf, mesh_kw, match):
 
 
 def test_pp_stage_layout_and_batch_refusals():
-    assert stage_owner(2, 2, 2) == {0: 0, 1: 1}
-    assert stage_owner(12, 1, 4) == {i: i // 3 for i in range(12)}
+    assert stage_owner(2, 2, 2) == {0: (0,), 1: (1,)}
+    assert stage_owner(12, 1, 4) == {i: (i // 3,) for i in range(12)}
     with pytest.raises(ValueError, match="not divisible"):
         stage_owner(3, 1, 2)
-    with pytest.raises(ValueError, match="across stages"):
-        stage_owner(2, 2, 4)        # JAX's test layout; the port refuses
+    # JAX's test layout: each layer's two applications on two stages
+    assert stage_owner(2, 2, 4) == {0: (0, 1), 1: (2, 3)}
+    # the flagship's 12 applications of 3 shared layers at pipe 2
+    assert stage_owner(3, 4, 2) == {0: (0,), 1: (0, 1), 2: (1,)}
     tm = tiny_models(0, **DENSE)[3].train()
     loss_fn = pipeline.make_pp_loss_fn(tm, _local(), 3)
     batch = {k: torch.from_numpy(v) for k, v in _batch(4).items()}

@@ -86,14 +86,11 @@ def setup(tmp_path_factory):
     cfg_path = str(root / "train.json")
     with open(cfg_path, "w") as f:
         json.dump(cfg, f)
-    wenet = str(root / "wenet.json")
-    with open(wenet, "w") as f:
-        json.dump(dict(cfg, encoder_conf={"output_size": 64}), f)
     arpa = str(root / "lm.arpa")
     _write_arpa(arpa, data["dict"])
     jax_ckpt.save_checkpoint(str(root), "jax_ckpt", variables)
     return dict(root=root, data=data, jm=jm, variables=variables, npz=npz,
-                pt=pt, cfg=cfg_path, wenet=wenet, arpa=arpa,
+                pt=pt, cfg=cfg_path, arpa=arpa,
                 jax_ckpt=str(root / "jax_ckpt"))
 
 
@@ -236,7 +233,6 @@ def test_int8_writes_the_jax_cli_files(setup, mode):
 
 @pytest.mark.parametrize("extra,match", [
     (["--data_type", "kaldi"], "kaldi"),
-    (["--config", "@wenet"], "WeNet"),
     (["--bpe_model", "bpe.model"], "bpe"),
     (["--data_type", "feat"], "feat"),
 ])

@@ -18,7 +18,9 @@ Cases: the flagship layout (heads and FFN sharded over the model
 group, the symmetric conv's halo of 7 frames a side); replicated
 attention and FFN (1 head, 127 hidden units) with the causal conv's
 left-only halo of 14; a chunk-masked model; the MoE Conformer; an odd
-T' that runs unsharded. K3's input on each rank is its shard plus the
+T' that runs unsharded; adapters in every block (replicated over the
+model group, run on each rank's frames, their gradients summed over
+the group with the other replicated parameters'). K3's input on each rank is its shard plus the
 halo: [B, T'/2 + 14, 64]. The halo exchange's value and gradient equal
 autograd's through the unsharded F.pad for both conv layouts.
 
@@ -65,8 +67,11 @@ CASES = {
     "sp_moe": (dict(SP, moe_experts=4, moe_top_k=2,
                     moe_capacity_factor=0.5), 6, 7, 61),
     "sp_odd": (SP, 0, 1, 57),                                # T' = 13
+    "sp_adapter": (dict(SP, encoder_use_adapter=True,
+                        decoder_use_adapter=True, down_size=16), 8, 9, 61),
 }
-HALO = {"sp": 7, "sp_replicated_causal": 14, "sp_chunk": 7, "sp_moe": 7}
+HALO = {"sp": 7, "sp_replicated_causal": 14, "sp_chunk": 7, "sp_moe": 7,
+        "sp_adapter": 7}
 
 
 def _batch(seed, t, b=4):
