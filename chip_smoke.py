@@ -210,11 +210,51 @@
    (dropout 0, no SpecAugment): the loss falls and the checkpoint's
    statistics equal the file's.
 
+16. LibriSpeech (after 15; examples/librispeech/run.sh stages 1-4 at
+   conf/train_conformer.yaml's full width: d 256, FFN 2048, 12 blocks,
+   kernel 31, 3+3 decoders, bf16, SpecAugment, wav dither 0.1, online
+   speed perturbation 0.5, 12000-frame batches, accum_grad 4). A seeded
+   English corpus: 3000 train transcripts over a 3000-word Zipf lexicon,
+   16-bit 16 kHz FLAC (the port's encoder, on 8 processes) for the first
+   36 of them (32 of 3-16 s, 4 of 24-28 s: T' past 600, S past 128) and
+   a 4-utterance cv set, one train entry a `path,start,end` segment.
+   openeat_torch.bin.train_bpe at 1000 (its symbols and merges must
+   reach 1000), the dict from the port's tokenize; every file read by
+   the native library (native/openeat_io.cc, built with g++) equals the
+   port's Python decoder, sample for sample (s per audio-s of each).
+   bin.train --bpe_model for 3 epochs (12 optimizer steps, the phase's
+   cut): finite losses, every waveform read by the native library and
+   none by the Python decoder, K2 at T' > 600, and the launch counts (12
+   K3 forward, dgrad and wgrad and one CTC kernel a micro-batch; 12
+   forward and one CTC a cv batch). average_model --val_best, then
+   recognize --bpe_model of the cv set in ctc_greedy_search and
+   attention_rescoring (no `▁` in the text, word WER from utils/wer.py,
+   RTF), and its float32 encoder on the card within ENC_TOL of the
+   CPU's. Kaldi: the fbank of 8
+   training utterances as a plain and a compressed ark, 2 --data_type
+   kaldi train steps on the compressed one, and recognize --data_type
+   kaldi of the plain one, equal to a decode of the same features in
+   memory. conv2d6, conv2d8, linear and no_pos at 2 blocks: a finite
+   bf16 train step, the float32 encoder on the card within ENC_TOL of
+   the CPU's. ctc_impl parallel against F.ctc_loss in float64 at every
+   training CTC shape (CTC_PARALLEL_TOL). K1 and K2 bit-equal to the
+   plain recursions at every (B, T, S) of the training run (as in 3),
+   timed at each one's largest T x S, and K2's plan at the run's
+   widths. K3 at K = 31 at the run's largest and most frequent shapes,
+   float32 and bfloat16: forward and dgrad bit-equal to the plain
+   versions, wgrad by the rules of 2, with times, bounds and library
+   times. Launches at each shape are what the wrappers counted at that
+   shape in the training run. Last, the training breakdown of 9 for this model (3
+   timed steps), whose one profiled step must name the K3 wrappers'
+   regions, the K3 kernels and a CTC kernel.
+
 Any failed check raises. Before the last two stdout lines it prints the
 card's name and power limit again; then the kernels line (each kernel's
 launches on the main path, error, times and bounds; the CTC rows with
 their chain bound; K3 once more at each chunk-step shape with the
-stream runs' launches there) and the JSON result. Details go to
+stream runs' launches there; K3 at K = 31 and K1 and K2 once more at
+the LibriSpeech run's shapes, with that run's launches there) and the
+JSON result. Details go to
 chiprun_out/chip_smoke.json.
 """
 
@@ -228,6 +268,7 @@ import os
 import shutil
 import statistics
 import subprocess
+import sys
 import threading
 import time
 from collections import Counter
@@ -240,10 +281,16 @@ from openeat_torch.bin import (average_model, convert_wenet, recognize,
                                stream_recognize, train_lm)
 from openeat_torch.bin import serve as serve_cli
 from openeat_torch.bin import train as train_cli
+from openeat_torch.bin import train_bpe
+from openeat_torch.dataset import audio as audio_lib
+from openeat_torch.dataset import kaldi_io
 from openeat_torch.dataset.audio import read_wav, resample, write_wav
+from openeat_torch.dataset.batching import pad_batch_2d
+from openeat_torch.dataset.bpe import load_bpe
 from openeat_torch.dataset.dataset import (AudioCollate, AudioDataset,
                                            PrefetchLoader)
-from openeat_torch.dataset.text import load_dict
+from openeat_torch.dataset.text import (load_dict, remove_punctuation,
+                                        token_ids_to_text, tokenize)
 from openeat_torch.decode import attention_beam
 from openeat_torch.decode.attention_beam import recognize as attention_decode
 from openeat_torch.decode.ctc_greedy import ctc_greedy_search
@@ -264,13 +311,16 @@ from openeat_torch.ops import ctc_loss as ctc
 from openeat_torch.ops import depthwise_conv as dw
 from openeat_torch.ops import fbank as fbank_mod
 from openeat_torch.ops import nvcc
-from openeat_torch.ops.frontend import FrontendConfig, compute_features
+from openeat_torch.ops.ctc_parallel import ctc_loss_parallel
+from openeat_torch.ops.frontend import (FrontendConfig, augment_features,
+                                        compute_features)
 from openeat_torch.modules.feed_forward import MoEPositionwiseFeedForward
 from openeat_torch.parallel import mesh as mesh_lib
 from openeat_torch.parallel.pipeline import make_pp_loss_fn
 from openeat_torch.parallel.train_step import (TrainState, apply_update,
                                                asr_loss, build_train_step)
 from openeat_torch.pipeline import DeviceFeeder
+from openeat_torch.runtime import native_io
 from openeat_torch.runtime.client import AsrClient
 from openeat_torch.runtime.server import recv_frame, send_json
 from openeat_torch.utils.cmvn import load_cmvn
@@ -1079,9 +1129,10 @@ def _frame_agreement(lp_ref: torch.Tensor, lp_got: torch.Tensor) -> dict:
 
 
 class K3Trace:
-    """Records (shape, dtype, route) of each depthwise_conv1d call that
-    the conv modules make, by wrapping the name they call; the wrapper's
-    own launch count is untouched."""
+    """Records (shape, dtype, route, grad) of each depthwise_conv1d call
+    that the conv modules make, by wrapping the name they call (grad:
+    whether autograd records it, so that its dgrad and wgrad follow);
+    the wrapper's own launch count is untouched."""
 
     def __init__(self):
         self.calls: list[tuple] = []
@@ -1091,7 +1142,7 @@ class K3Trace:
         def traced(x, w):
             route = dw.device_plan(x, w.shape[0], dgrad=False).route
             self.calls.append((tuple(x.shape), str(x.dtype).split(".")[-1],
-                               route))
+                               route, torch.is_grad_enabled()))
             return self._orig(x, w)
         conv_module.depthwise_conv1d = traced
         return self
@@ -1943,15 +1994,16 @@ def k3_kernels_per_call(shapes: list[tuple], ctc_shapes: list[tuple],
 
 # ---------------------------------------------------------------- CTC
 
-def check_global_plan() -> list:
+def check_global_plan(widths=(1, 32, 33, 49, 64, 65, 128, 129, 241, 256,
+                              257, 512, 513, 1001, ctc.MAX_S)) -> list:
     """K2's plan as the C launcher makes it (openeat_ctc_global_plan)
-    against ctc.global_plan, at widths from 1 to MAX_S."""
+    against ctc.global_plan at each of `widths` (by default from 1 to
+    MAX_S)."""
     fn = ctc._entry("openeat_ctc_global_plan",
                     (ctypes.c_int, ctypes.c_void_p))
     out = (ctypes.c_int * 4)()
     plans = []
-    for s in (1, 32, 33, 49, 64, 65, 128, 129, 241, 256, 257, 512, 513,
-              1001, ctc.MAX_S):
+    for s in widths:
         fn(s, ctypes.addressof(out))
         if tuple(out) != ctc.global_plan(s):
             raise AssertionError(f"K2 plan at S = {s}: C {tuple(out)}, "
@@ -1983,13 +2035,14 @@ def ctc_problem(b: int, t: int, l_pad: int, v: int, gen) -> dict:
 
 
 def ctc_case(b: int, t: int, l_pad: int, v: int, gen,
-             step_ms: float | None = None) -> dict:
+             step_ms: float | None = None, timed: bool = True) -> dict:
     """The CTC kernel dispatch_variant picks at [B, T, S=2L+1] against
     the plain recursions, bit for bit (loss and gamma, NEG_INF entries
-    included); times of the kernel alone, the plain version, the port's
-    whole CTC op and F.ctc_loss (forward and backward). `step_ms`, one
-    chain step's device time (ctc.chain_step_ms), gives the chain bound:
-    T dependent steps, alpha and beta side by side."""
+    included); where `timed`, times of the kernel alone, the plain
+    version, the port's whole CTC op and F.ctc_loss (forward and
+    backward). `step_ms`, one chain step's device time
+    (ctc.chain_step_ms), gives the chain bound: T dependent steps, alpha
+    and beta side by side."""
     p = ctc_problem(b, t, l_pad, v, gen)
     z, s_lens = ctc.extended_labels(p["labels"], p["ll"])
     allow2 = ctc.transition_masks(z)
@@ -2011,6 +2064,8 @@ def ctc_case(b: int, t: int, l_pad: int, v: int, gen,
     if not (row["max_abs_err"] == 0.0 and row["neg_inf_equal"]):
         raise AssertionError(f"CTC kernel disagrees with its plain version: "
                              f"{row}")
+    if not timed:
+        return row
 
     nbytes = 2 * llp.numel() * 4 + allow2.numel() + 3 * b * 4
     n = _n_copies(nbytes)
@@ -2105,6 +2160,7 @@ COUNTED = (dw.depthwise_conv1d, dw.depthwise_conv1d_dgrad,
 def _reset_counts() -> None:
     for fn in COUNTED:
         fn.launches = 0
+        fn.shape_launches.clear()
 
 
 def _counts() -> dict:
@@ -2281,20 +2337,28 @@ def overfit(manifest: str, dict_path: str, steps: int = 30) -> dict:
 
 
 def train_breakdown(manifest: str, dict_path: str, n_steps: int = 6,
-                    **overrides) -> dict:
-    """Per step at the flagship bf16 setting (dropout 0.1, SpecAugment;
-    `overrides` of its model_conf, e.g. the MoE keys): host collate,
-    frontend, forward, backward, clip+optimizer from host clocks around
-    synchronized work (first step left out as warm-up), then the
-    device's idle share over 5 profiled steps."""
+                    train_config: dict = TRAIN_CONFIG, bpe=None,
+                    n_profiled: int = 5, **overrides) -> dict:
+    """Per step at `train_config`'s setting (the flagship's by default:
+    bf16, dropout 0.1, SpecAugment; `overrides` of its model_conf, e.g.
+    the MoE keys; one whole dynamic batch a step, whatever its
+    accum_grad): host collate, frontend, forward, backward,
+    clip+optimizer from host clocks around synchronized work (first step
+    left out as warm-up), then the device's idle share over `n_profiled`
+    profiled steps."""
     dev = torch.device("cuda")
-    model = _flagship("bfloat16", 0.1, **overrides).to(dev).train()
-    dc = TRAIN_CONFIG["dataset_conf"]
-    ds = AudioDataset(manifest, load_dict(dict_path),
+    char_dict = load_dict(dict_path)
+    conf = dict(train_config["model_conf"], compute_dtype="bfloat16",
+                dropout_rate=0.1, **overrides)
+    model = build_asr_model(conf, 80, len(char_dict))
+    init_parameters(model, make_generator(SEED))
+    model.to(dev).train()
+    dc = train_config["dataset_conf"]
+    ds = AudioDataset(manifest, char_dict, bpe,
                       max_length=dc["max_length"],
                       min_length=dc["min_length"], batch_type="dynamic",
                       max_frames_in_batch=dc["max_frames_in_batch"])
-    fe = FrontendConfig.from_collate_conf(TRAIN_CONFIG["collate_conf"])
+    fe = FrontendConfig.from_collate_conf(train_config["collate_conf"])
     opt, schedule = build_optimizer(model, 1e-3, 4)
     state = TrainState(model, opt)
     gen = make_generator(SEED, dev)
@@ -2348,12 +2412,16 @@ def train_breakdown(manifest: str, dict_path: str, n_steps: int = 6,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for host in hosts[1:6]:
+        for host in hosts[1:1 + n_profiled]:
             one_step(host, lambda name: None)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     busy_us = _device_busy_us(prof)
-    out["profiled_steps"] = 5
+    # the kernel wrappers' regions and the kernels the steps ran
+    out["trace_names"] = sorted({e.name for e in prof.events()
+                                 if "dwconv1d" in e.name
+                                 or "ctc_dp" in e.name})
+    out["profiled_steps"] = len(hosts[1:1 + n_profiled])
     out["profiled_wall_s"] = wall_us / 1e6
     out["device_busy_s"] = busy_us / 1e6
     out["device_idle_share"] = 1.0 - busy_us / wall_us if busy_us else None
@@ -3118,6 +3186,667 @@ def finetune(manifest: str, dict_path: str, train_data: str,
     return out
 
 
+# --------------------------------------------------------- librispeech
+
+# examples/librispeech/conf/train_conformer.yaml as JSON (the card machine
+# has no PyYAML), cut to 3 epochs of the phase's corpus (12 optimizer
+# steps), with a loss record every step
+LS_TRAIN_CONFIG = {
+    "model_conf": {
+        "d_model": 256, "attention_heads": 4, "linear_units": 2048,
+        "dropout_rate": 0.1, "length_normalized_loss": False,
+        "input_layer": "conv2d", "pos_enc_layer_type": "rel_pos",
+        "encoder_num_blocks": 12, "macaron_style": True,
+        "use_cnn_module": True, "cnn_module_kernel": 31, "causal": False,
+        "ctc_weight": 0.3, "lsm_weight": 0.1, "decoder_num_blocks": 3,
+        "r_decoder_num_blocks": 3, "reverse_weight": 0.3,
+        "compute_dtype": "bfloat16"},
+    "collate_conf": {
+        "feature_extraction_conf": {
+            "resample_rate": 16000, "speed_perturb_rate": 0.5,
+            "speeds": [0.9, 1.1, 0.1], "wav_dither": 0.1, "mel_bins": 80},
+        "spec_aug": True,
+        "spec_aug_conf": {"num_t_mask": 2, "num_f_mask": 2, "max_t": 50,
+                          "max_f": 10}},
+    "dataset_conf": {"max_length": 3000, "min_length": 10,
+                     "batch_type": "dynamic", "max_frames_in_batch": 12000,
+                     "sort": True},
+    "mesh_conf": {"data": -1, "model": 1},
+    "grad_clip": 5, "accum_grad": 4, "max_epoch": 3, "log_interval": 1,
+    "optim": "adam", "optim_conf": {"lr": 0.002}, "warmup_epoch": 4,
+    "seed": SEED,
+}
+LS_BPE_SIZE = 1000
+LS_N_TEXT = 3000            # the train set's transcripts: BPE's input
+LS_TRAIN_SECONDS = [(3.0, 16.0)] * 32 + [(24.0, 28.0)] * 4
+LS_CV_SECONDS = [(3.0, 8.0)] * 4
+LS_WORDS_PER_S = 2.7
+LS_INPUT_LAYERS = [("conv2d6", "rel_pos"), ("conv2d8", "rel_pos"),
+                   ("linear", "rel_pos"), ("conv2d", "no_pos")]
+# ctc_impl parallel in float32 against F.ctc_loss in float64: the loss's
+# rtol, and the gradient's bound as a share of max |grad|. Its log values
+# reach |log p| of about 5000 at T' 723, where a float32 ulp is 4.9e-4,
+# so the posteriors (and the gradient) carry about 1e-4 of max |grad| of
+# rounding (1.4e-5 to 1.0e-4 on the CPU at T 300-723, S 65-385)
+CTC_PARALLEL_TOL = (1e-6, 1e-3)
+
+
+class ReadTrace:
+    """Counts the files the native reader decodes and the Python
+    decoder's reads (openeat_torch/dataset/audio.py:read_audio)."""
+
+    def __init__(self):
+        self.native = self.python = 0
+        self._native, self._python = native_io.read_wav_batch, \
+            audio_lib.read_audio
+
+    def __enter__(self):
+        def native(paths, *a, **k):
+            self.native += len(paths)
+            return self._native(paths, *a, **k)
+
+        def python(*a, **k):
+            self.python += 1
+            return self._python(*a, **k)
+        native_io.read_wav_batch, audio_lib.read_audio = native, python
+        return self
+
+    def __exit__(self, *exc):
+        native_io.read_wav_batch = self._native
+        audio_lib.read_audio = self._python
+
+
+def english_lexicon(rng: np.random.Generator, n: int = 3000) -> list[str]:
+    """Pseudo-words of 2-10 letters, one in twenty with an apostrophe."""
+    letters = np.array(list("ABCDEFGHIJKLMNOPQRSTUVWXYZ"))
+    words: list[str] = []
+    seen = set()
+    while len(words) < n:
+        w = "".join(rng.choice(letters, int(rng.integers(2, 11))))
+        if rng.random() < 0.05:
+            w = w[:-1] + "'" + w[-1]
+        if w not in seen:
+            seen.add(w)
+            words.append(w)
+    return words
+
+
+# The FLAC jobs' worker: the port's codec alone (numpy only), so that a
+# worker starts in about half a second where a spawned copy of this
+# script would import torch. "encode" writes each path from its .src.npy
+# samples; "decode" reads each path with the Python decoder (the
+# collate's read_audio for a FLAC file) into its .dec.npy.
+FLAC_WORKER = """
+import sys
+import numpy as np
+from openeat_torch.dataset.flac import read_flac, write_flac
+for path in sys.argv[2:]:
+    if sys.argv[1] == "encode":
+        write_flac(path, np.load(path + ".src.npy"), 16000)
+    else:
+        np.save(path + ".dec.npy", read_flac(path)[0])
+"""
+
+
+def flac_jobs(op: str, paths: list[str], workers: int = 8) -> None:
+    """FLAC_WORKER's `op` over `paths` in `workers` processes at once."""
+    procs = [subprocess.Popen([sys.executable, "-c", FLAC_WORKER, op,
+                               *paths[i::workers]], cwd=REPO)
+             for i in range(min(workers, len(paths)))]
+    rcs = [p.wait() for p in procs]
+    if any(rcs):
+        raise AssertionError(f"FLAC {op} workers exited {rcs}")
+
+
+def write_librispeech_corpus(rng: np.random.Generator) -> dict:
+    """A seeded English corpus in LibriSpeech's layout: LS_N_TEXT train
+    transcripts over a Zipf lexicon (about LS_WORDS_PER_S words a
+    second), 16-bit mono 16 kHz FLAC (the port's encoder, 8 processes) for
+    the first len(LS_TRAIN_SECONDS) of them and a cv set, one wav.scp
+    entry a `path,start,end` segment."""
+    root = os.path.join(WORK, "librispeech")
+    os.makedirs(root)
+    lexicon = english_lexicon(rng)
+    zipf = 1.0 / np.arange(1, len(lexicon) + 1)
+    zipf /= zipf.sum()
+
+    def sentence(seconds: float) -> str:
+        n = max(2, int(round(LS_WORDS_PER_S * seconds)))
+        return " ".join(lexicon[i] for i in rng.choice(len(lexicon), n,
+                                                       p=zipf))
+
+    out = {"root": root, "audio_s": {}}
+    jobs = []
+    for split, ranges in (("train", LS_TRAIN_SECONDS), ("cv", LS_CV_SECONDS)):
+        lines, texts = [], []
+        for i, (lo, hi) in enumerate(ranges):
+            dur = float(np.round(rng.uniform(lo, hi), 3))
+            t = np.arange(int(dur * 16000)) / 16000.0
+            x = sum(0.1 * np.sin(2 * np.pi * rng.uniform(80, 3000) * t)
+                    for _ in range(3)) + 0.02 * rng.standard_normal(t.size)
+            key = f"{split}{i:03d}"
+            path = os.path.join(root, key + ".flac")
+            np.save(path + ".src.npy", x.astype(np.float32))
+            jobs.append((path, x.size))
+            text = sentence(dur)
+            entry = path
+            if split == "train" and i == 0:     # a segment entry
+                entry, dur = f"{path},0.250,{dur - 0.25:.3f}", dur - 0.5
+            lines.append(f"utt:{key}\tfeat:{entry}\tfeat_shape:{dur:.3f}\t"
+                         f"text:{text}\n")
+            texts.append(f"{key} {text}\n")
+            out["audio_s"][split] = out["audio_s"].get(split, 0.0) + dur
+        if split == "train":
+            texts += [f"text{i:05d} {sentence(rng.uniform(3.0, 16.0))}\n"
+                      for i in range(LS_N_TEXT - len(ranges))]
+        for name, rows in (("format.data", lines), ("text", texts)):
+            with open(os.path.join(root, f"{split}.{name}"), "w",
+                      encoding="utf-8") as f:
+                f.writelines(rows)
+        out[split] = os.path.join(root, f"{split}.format.data")
+    t0 = time.perf_counter()
+    flac_jobs("encode", [p for p, _ in jobs])
+    out["flac_encode_s"] = time.perf_counter() - t0
+    out["flac_paths"] = [p for p, _ in jobs]
+    out["flac_audio_s"] = sum(n for _, n in jobs) / 16000.0
+    out["text"] = os.path.join(root, "train.text")
+    return out
+
+
+def librispeech_dict(corpus: dict) -> tuple[str, str, int]:
+    """Stage 1: openeat_torch.bin.train_bpe on the train text at
+    LS_BPE_SIZE, then the dict from the port's tokenize (<blank>, <unk>,
+    the sorted pieces, <sos/eos>). Returns (bpe model, dict, vocab)."""
+    prefix = os.path.join(corpus["root"], f"bpe_{LS_BPE_SIZE}")
+    bpe_path = train_bpe.main(["--input", corpus["text"], "--skip_ncols",
+                               "1", "--model_prefix", prefix, "--vocab_size",
+                               str(LS_BPE_SIZE)])
+    model = load_bpe(bpe_path)
+    # the trainer stops at vocab_size symbols + merges, or earlier when no
+    # pair occurs twice: the corpus must be large enough for the former
+    if len(model.vocab) + len(model.merges) < LS_BPE_SIZE:
+        raise AssertionError(f"BPE stopped at {len(model.vocab)} symbols "
+                             f"and {len(model.merges)} merges")
+    pieces = set()
+    with open(corpus["text"], encoding="utf-8") as f:
+        for line in f:
+            pieces.update(tokenize(remove_punctuation(
+                line.rstrip("\n").split(" ", 1)[1]), model))
+    vocab = ["<blank>", "<unk>"] + sorted(pieces) + ["<sos/eos>"]
+    dict_path = os.path.join(corpus["root"], "dict.txt")
+    with open(dict_path, "w", encoding="utf-8") as f:
+        f.writelines(f"{tok} {i}\n" for i, tok in enumerate(vocab))
+    return bpe_path, dict_path, len(vocab)
+
+
+def check_native_reads(corpus: dict) -> dict:
+    """Every FLAC file read by the native library and by the port's
+    Python decoder (flac_jobs): the same samples; the seconds each takes
+    per second of audio (8 threads against 8 processes)."""
+    paths = corpus["flac_paths"]
+    if not native_io.available():       # builds the library at first use
+        raise AssertionError(f"the native reader did not build: "
+                             f"{native_io.build_error}")
+    t0 = time.perf_counter()
+    cap = int(30 * 16000)
+    wav, lens, rates = native_io.read_wav_batch(paths, [None] * len(paths),
+                                                [None] * len(paths), cap, 8)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    flac_jobs("decode", paths)
+    python = [np.load(p + ".dec.npy") for p in paths]
+    python_s = time.perf_counter() - t0
+    for i, ref in enumerate(python):
+        if rates[i] != 16000 or lens[i] != len(ref) \
+                or not np.array_equal(wav[i, :lens[i]], ref):
+            raise AssertionError(f"native and Python FLAC decodes differ: "
+                                 f"{paths[i]}")
+    audio_s = corpus["flac_audio_s"]
+    return {"files": len(paths), "audio_s": audio_s,
+            "native_s_per_audio_s": native_s / audio_s,
+            "python_s_per_audio_s": python_s / audio_s,
+            "encode_s_per_audio_s": corpus["flac_encode_s"] / audio_s}
+
+
+def ls_train_counts(steps: int, cv_batches: int, accum: int,
+                    blocks: int) -> dict:
+    """Launches of a bin.train run of a `blocks`-block encoder with
+    `steps` optimizer steps of `accum` micro-batches each and
+    `cv_batches` cv batches in all."""
+    micro = accum * steps
+    return {"depthwise_conv1d": blocks * (micro + cv_batches),
+            "depthwise_conv1d_dgrad": blocks * micro,
+            "depthwise_conv1d_wgrad": blocks * micro,
+            "ctc": micro + cv_batches}
+
+
+def _feature_batch(manifest: str, dict_path: str, bpe_path: str,
+                   n: int, dev: str) -> dict:
+    ds = AudioDataset(manifest, load_dict(dict_path), load_bpe(bpe_path),
+                      batch_size=n, max_length=1e9)
+    host = AudioCollate()(ds[0])[1]
+    return _features(host, torch.device(dev), FrontendConfig())
+
+
+def encoder_gpu_vs_cpu(conf: dict, state: dict, vocab: int,
+                       batch: dict) -> float:
+    """The float32 encoder of `conf` with weights `state` on the card
+    against the CPU's on `batch`: the largest difference over valid
+    frames."""
+    models = {}
+    for dev in ("cuda", "cpu"):
+        m = build_asr_model(dict(conf, compute_dtype="float32"), 80, vocab)
+        m.load_state_dict(state)
+        models[dev] = m.to(dev).eval()
+    with torch.inference_mode():
+        g, g_lens = models["cuda"].encode(batch["features"].cuda(),
+                                          batch["features_length"].cuda())
+        c, c_lens = models["cpu"].encode(batch["features"].cpu(),
+                                         batch["features_length"].cpu())
+    if not torch.isfinite(g).all() or not torch.equal(g_lens.cpu(), c_lens):
+        raise AssertionError("card encoder output not finite, or lengths "
+                             "differ from the CPU's")
+    valid = torch.arange(c.shape[1])[None] < c_lens[:, None]
+    return float((g.cpu() - c).abs()[valid].max())
+
+
+def ctc_parallel_checks(shapes: list[tuple], vocab: int, gen) -> list:
+    """ctc_impl parallel (openeat_torch/ops/ctc_parallel.py) on the card,
+    float32, at each (B, T, S) the training run gave the CTC kernels:
+    seeded random logits and labels; the feasible rows' losses and the
+    gradient of their sum against F.ctc_loss in float64 on the same
+    inputs, within CTC_PARALLEL_TOL (the loss relative, the gradient as
+    a share of the largest |grad|). The port's K1/K2 op on the same
+    rows, against the same reference, and the seconds of each (forward
+    and backward) are reported beside it."""
+    dev = torch.device("cuda")
+    rows = []
+    for b, t, s in shapes:
+        l = (s - 1) // 2
+        logits = torch.randn((b, t, vocab), generator=gen, device=dev)
+        labels = torch.randint(1, vocab, (b, max(l, 1)), generator=gen,
+                               device=dev)
+        il = torch.randint(max(t // 2, 1), t + 1, (b,), generator=gen,
+                           device=dev)
+        ll = torch.randint(max(l // 2, 1), max(l, 1) + 1, (b,),
+                           generator=gen, device=dev)
+        il[0], ll[0] = t, max(l, 1)
+        tpad = (torch.arange(t, device=dev)[None] >= il[:, None]).float()
+        lpad = (torch.arange(labels.shape[1], device=dev)[None]
+                >= ll[:, None]).float()
+        ok = il >= 2 * ll + 1        # feasible with any repeats
+        got_x = logits.clone().requires_grad_()
+        op_x = logits.clone().requires_grad_()
+        ref_x = logits.double().requires_grad_()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = ctc_loss_parallel(got_x, tpad, labels, lpad)
+        got[ok].sum().backward()
+        torch.cuda.synchronize()
+        par_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        op = ctc.ctc_loss(torch.log_softmax(op_x, dim=-1), il, labels, ll)
+        op[ok].sum().backward()
+        torch.cuda.synchronize()
+        op_s = time.perf_counter() - t0
+        ref = F.ctc_loss(torch.log_softmax(ref_x, dim=-1).transpose(0, 1),
+                         labels, il, ll, blank=0, reduction="none",
+                         zero_infinity=True)
+        ref[ok].sum().backward()
+        g_max = float(ref_x.grad.abs().max())
+
+        def errs(loss, x):
+            return (float(((loss.double() - ref).abs() / ref.abs())
+                          .detach()[ok].max()),
+                    float((x.grad.double() - ref_x.grad).abs().max())
+                    / g_max)
+        row = {"shape": [b, t, s], "rows_checked": int(ok.sum())}
+        row["loss_max_rel_err"], row["grad_max_abs_err_over_max"] = \
+            errs(got, got_x)
+        row["k1_k2_loss_max_rel_err"], row["k1_k2_grad_err_over_max"] = \
+            errs(op, op_x)
+        row.update(parallel_s=par_s, k1_k2_op_s=op_s)
+        if not ok.any() or row["loss_max_rel_err"] > CTC_PARALLEL_TOL[0] \
+                or row["grad_max_abs_err_over_max"] > CTC_PARALLEL_TOL[1]:
+            raise AssertionError(f"ctc_impl parallel vs float64: {row}")
+        rows.append(row)
+    return rows
+
+
+def input_layer_checks(batch: dict, vocab: int) -> list:
+    """Each other input layer (and no_pos) in the LibriSpeech model at 2
+    blocks: one bf16 train step (dropout 0.1, the batch's features)
+    with a finite loss, then its float32 encoder on the card within
+    ENC_TOL of the CPU's."""
+    dev = torch.device("cuda")
+    rows = []
+    for layer, pos in LS_INPUT_LAYERS:
+        conf = dict(LS_TRAIN_CONFIG["model_conf"], encoder_num_blocks=2,
+                    input_layer=layer, pos_enc_layer_type=pos)
+        model = build_asr_model(conf, 80, vocab)
+        init_parameters(model, make_generator(SEED))
+        model.to(dev).train()
+        opt, schedule = build_optimizer(model, 1e-3, 4)
+        state = TrainState(model, opt)
+        metrics = build_train_step(schedule, 1, 5.0)(
+            state, batch, make_generator(SEED, dev))
+        loss = float(metrics["loss"])
+        err = encoder_gpu_vs_cpu(conf, {k: v.cpu() for k, v in
+                                        model.state_dict().items()},
+                                 vocab, batch)
+        row = {"input_layer": layer, "pos_enc": pos, "bf16_loss": loss,
+               "subsampling_rate": model.encoder.embed.subsampling_rate,
+               "encoder_max_abs_err": err}
+        if not math.isfinite(loss) or err > ENC_TOL:
+            raise AssertionError(f"input layer check: {row}")
+        rows.append(row)
+    return rows
+
+
+def kaldi_checks(ckpt_cfg: str, ckpt: str, manifest: str, dict_path: str,
+                 bpe_path: str, root: str) -> dict:
+    """Kaldi ark input through the entry points: the raw fbank of
+    `manifest`'s utterances (the card's frontend) written as a plain
+    (FM) and a compressed (CM) ark; 2 train steps of the LibriSpeech
+    config on the compressed ark from scratch (--data_type kaldi, 2
+    epochs of one batch); recognize --data_type kaldi of the plain ark
+    from `ckpt`, whose tokens must equal a decode of the same features
+    passed in memory."""
+    dev = torch.device("cuda")
+    char_dict, bpe = load_dict(dict_path), load_bpe(bpe_path)
+    ds = AudioDataset(manifest, char_dict, bpe, batch_size=64,
+                      max_length=1e9)
+    keys, host = AudioCollate()(ds[0])
+    b = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    feats, flens = compute_features(b["wav"], b["wav_lens"],
+                                    FrontendConfig(normalization=False))
+    mats = {k: feats[i, :int(flens[i])].cpu().numpy()
+            for i, k in enumerate(keys)}
+    texts = manifest_texts(manifest)
+    arks = {}
+    for kind, writer in (("fm", kaldi_io.write_ark_entry),
+                         ("cm", kaldi_io.write_compressed_ark_entry)):
+        ark, lines = os.path.join(root, f"fbank_{kind}.ark"), []
+        with open(ark, "wb") as f:
+            for k, m in mats.items():
+                off = writer(f, k, m)
+                lines.append(f"utt:{k}\tfeat:{ark}:{off}\tfeat_shape:"
+                             f"{m.shape[0]},{m.shape[1]}\ttext:{texts[k]}\n")
+        arks[kind] = os.path.join(root, f"fbank_{kind}.data")
+        with open(arks[kind], "w", encoding="utf-8") as f:
+            f.writelines(lines)
+    out = {"utterances": len(mats)}
+    cm_err = max(float(np.abs(kaldi_io.read_mat(
+        line.split("\t")[1].split(":", 1)[1]) - mats[line.split("\t")[0][4:]])
+        .max()) for line in open(arks["cm"], encoding="utf-8"))
+    span = max(float(m.max() - m.min()) for m in mats.values())
+    out["cm_max_abs_err"], out["fbank_span"] = cm_err, span
+    if cm_err > 0.05 * span:
+        raise AssertionError(f"compressed ark reads {cm_err} off")
+    cfg = dict(LS_TRAIN_CONFIG, max_epoch=2, warmup_epoch=1)
+    cfg_path = os.path.join(root, "kaldi_train.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    exp = os.path.join(root, "exp_kaldi")
+    _reset_counts()
+    state = train_cli.main(["--config", cfg_path, "--train_data", arks["cm"],
+                            "--cv_data", arks["fm"], "--dict", dict_path,
+                            "--bpe_model", bpe_path, "--exp_dir", exp,
+                            "--data_type", "kaldi", "--device", "cuda",
+                            "--num_workers", "2", "--save_optimizer",
+                            "false"])
+    out["train_launches"] = _counts()
+    losses = [r["loss"] for r in _train_records(exp)]
+    resolved = json.load(open(os.path.join(exp, "train.json")))
+    out["train_steps"], out["train_losses"] = state.step, losses
+    if state.step != 2 or len(losses) != 2 \
+            or not all(map(math.isfinite, losses)) \
+            or resolved["input_size"] != 80:
+        raise AssertionError(f"kaldi training: {out}")
+    _reset_counts()
+    hyps, wall, launches, _ = run_recognize(
+        ckpt_cfg, ckpt, arks["fm"], dict_path, "ctc_greedy_search",
+        "kaldi", ("--bpe_model", bpe_path, "--data_type", "kaldi"))
+    out["decode_launches"] = _counts()
+    # the same features in memory: padded as the collate pads them
+    cfg = json.load(open(ckpt_cfg))
+    model = recognize.load_model(cfg, ckpt, cfg["vocab_size"], dev)
+    fe = FrontendConfig.from_collate_conf(cfg["collate_conf"])
+    order = sorted(mats, key=lambda k: -mats[k].shape[0])
+    id2tok = {v: k for k, v in char_dict.items()}
+    want = {}
+    for i in range(0, len(order), BATCH):
+        part = order[i:i + BATCH]
+        pad, lens = pad_batch_2d([mats[k] for k in part], 0.0, 100,
+                                 np.float32)
+        x = torch.from_numpy(pad).to(dev)
+        xl = torch.from_numpy(lens).to(dev)
+        with torch.inference_mode():
+            enc, enc_lens = model.encode(
+                augment_features(x, xl, fe.without_augmentation()), xl)
+            toks, tok_lens = ctc_greedy_search(model.ctc_log_probs(enc),
+                                               enc_lens)
+        for j, k in enumerate(part):
+            want[k] = token_ids_to_text(toks[j][:int(tok_lens[j])].tolist(),
+                                        id2tok, eos_id=model.eos)
+    out["decode_wall_s"] = wall
+    out["decoded_equal_in_memory"] = sum(hyps.get(k) == v
+                                         for k, v in want.items())
+    if hyps != want:
+        raise AssertionError(f"kaldi decode differs from the in-memory "
+                             f"one: {hyps} vs {want}")
+    return out
+
+
+def librispeech(step_ms: float) -> dict:
+    """The LibriSpeech recipe (examples/librispeech/run.sh stages 1-4) on
+    the card at the recipe's full width; see the module docstring, item
+    16. `step_ms` is one CTC chain step's device time
+    (ctc.chain_step_ms). Every check raises."""
+    out = {"phase_s": {}}
+    clock = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        out["phase_s"][name] = now - clock[0]
+        clock[0] = now
+
+    rng = np.random.default_rng(SEED + 12)
+    corpus = write_librispeech_corpus(rng)
+    lap("corpus")
+    bpe_path, dict_path, vocab = librispeech_dict(corpus)
+    out["vocab"] = vocab
+    lap("bpe_dict")
+    out["native_reads"] = check_native_reads(corpus)
+    lap("native_vs_python")
+    root = corpus["root"]
+    out["audio_s"] = corpus["audio_s"]
+
+    # stage 2: train
+    cfg_path = os.path.join(root, "train_conformer.json")
+    with open(cfg_path, "w") as f:
+        json.dump(LS_TRAIN_CONFIG, f)
+    exp = os.path.join(root, "exp")
+    dc = LS_TRAIN_CONFIG["dataset_conf"]
+    char_dict, bpe = load_dict(dict_path), load_bpe(bpe_path)
+    n_batches = len(AudioDataset(
+        corpus["train"], char_dict, bpe, max_length=dc["max_length"],
+        min_length=dc["min_length"], batch_type="dynamic",
+        max_frames_in_batch=dc["max_frames_in_batch"]))
+    n_cv = len(AudioDataset(corpus["cv"], char_dict, bpe,
+                            batch_type="dynamic",
+                            max_frames_in_batch=dc["max_frames_in_batch"]))
+    epochs, accum = LS_TRAIN_CONFIG["max_epoch"], LS_TRAIN_CONFIG["accum_grad"]
+    _reset_counts()
+    with ReadTrace() as reads:
+        t0 = time.perf_counter()
+        state = train_cli.main(["--config", cfg_path, "--train_data",
+                                corpus["train"], "--cv_data", corpus["cv"],
+                                "--dict", dict_path, "--bpe_model", bpe_path,
+                                "--exp_dir", exp, "--device", "cuda",
+                                "--num_workers", "4"])
+        torch.cuda.synchronize()
+        out["train_wall_s"] = time.perf_counter() - t0
+    counts = out["launches"] = _counts()
+    # the run's launches at each shape, as each wrapper counted them
+    by_shape = {fn.__name__: dict(fn.shape_launches) for fn in COUNTED}
+    lap("train")
+    losses = [r["loss"] for r in _train_records(exp)]
+    out["step_losses"], out["steps"] = losses, state.step
+    if state.step != n_batches * epochs or len(losses) != state.step \
+            or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"LibriSpeech training: {state.step} steps "
+                             f"({n_batches} batches x {epochs}), {losses}")
+    want = ls_train_counts(state.step, n_cv * epochs, accum,
+                           LS_TRAIN_CONFIG["model_conf"]["encoder_num_blocks"])
+    n_ctc = counts["ctc_dp_shared"] + counts["ctc_dp_global"]
+    if any(counts[k] != v for k, v in want.items() if k != "ctc") \
+            or n_ctc != want["ctc"] or not counts["ctc_dp_global"]:
+        raise AssertionError(f"LibriSpeech launches {counts}, expected "
+                             f"{want} with K2")
+    k1, k2 = by_shape["ctc_dp_shared"], by_shape["ctc_dp_global"]
+    out["k2_max_t"] = max(t for _, t, _ in k2)
+    out["k2_max_s"] = max(s for _, _, s in k2)
+    out["max_s"] = max(s for _, _, s in [*k1, *k2])
+    if out["k2_max_t"] <= 600 or out["max_s"] <= 128:
+        raise AssertionError(f"K2 ran at T' {out['k2_max_t']}, S up to "
+                             f"{out['max_s']}")
+    # the collate read every waveform through the native library
+    n_utts = len(AudioDataset(corpus["train"], char_dict, bpe,
+                              max_length=dc["max_length"],
+                              min_length=dc["min_length"]).utts)
+    out["reads"] = {"native": reads.native, "python": reads.python}
+    if reads.python or reads.native < epochs * (
+            n_utts + len(LS_CV_SECONDS)):
+        raise AssertionError(f"the collate's reads: {out['reads']}")
+    # K3 at [B, T'+30, 256], K = 31; a dgrad and a wgrad for each
+    # forward that autograd recorded
+    k3_fwd, k3_dgrad, k3_wgrad = (by_shape[fn.__name__] for fn in COUNTED[:3])
+    out["k3_shapes"] = {f"{list(key[:3])} K={key[3]} {key[4]}": n
+                        for key, n in k3_fwd.items()}
+    ls_conf = LS_TRAIN_CONFIG["model_conf"]
+    if any(key[2:4] != (ls_conf["d_model"], ls_conf["cnn_module_kernel"])
+           for key in k3_fwd) or k3_dgrad != k3_wgrad \
+            or any(n > k3_fwd.get(key, 0) for key, n in k3_dgrad.items()):
+        raise AssertionError(f"K3 launches by shape: {by_shape}")
+    ctc_shapes = sorted({*k1, *k2})
+
+    # stage 3 and 4: average, then recognize --bpe_model in two modes
+    avg = average_model.main(["--exp_dir", exp, "--dst", "avg_3", "--num",
+                              "3", "--val_best"])
+    ckpt = os.path.join(exp, "avg_3.pt")
+    if not os.path.exists(ckpt):
+        raise AssertionError(f"average_model wrote no {ckpt} ({avg})")
+    refs = {k: v.upper() for k, v in manifest_texts(corpus["cv"]).items()}
+    cv_audio_s = corpus["audio_s"]["cv"]
+    decodes = []
+    for mode in ("ctc_greedy_search", "attention_rescoring"):
+        _reset_counts()
+        hyps, wall, launches, _ = run_recognize(
+            os.path.join(exp, "train.json"), ckpt, corpus["cv"], dict_path,
+            mode, f"ls_{mode}", ("--bpe_model", bpe_path, "--ctc_weight",
+                                 "0.5"))
+        if set(hyps) != set(refs) or any("▁" in h for h in hyps.values()) \
+                or launches != ls_conf["encoder_num_blocks"]:
+            raise AssertionError(f"LibriSpeech {mode}: {hyps}, K3 "
+                                 f"{launches}")
+        stats = corpus_wer(refs, hyps, char_mode=False)
+        decodes.append({"mode": mode, "wall_s": wall, "rtf": wall / cv_audio_s,
+                        "wer": stats.wer, "ref_words": stats.ref_len,
+                        "launches": _counts()})
+    out["decodes"] = decodes
+    avg_state = torch.load(ckpt, weights_only=True)
+    cv_batch = _feature_batch(corpus["cv"], dict_path, bpe_path,
+                              len(LS_CV_SECONDS), "cuda")
+    out["encoder_gpu_vs_cpu"] = encoder_gpu_vs_cpu(ls_conf, avg_state, vocab,
+                                                   cv_batch)
+    if out["encoder_gpu_vs_cpu"] > ENC_TOL:
+        raise AssertionError(f"LibriSpeech float32 encoder, card vs CPU: "
+                             f"{out['encoder_gpu_vs_cpu']}")
+    lap("recipe_tail")
+
+    # kaldi ark input, the other input layers, ctc_impl parallel
+    f32_cfg = os.path.join(root, "decode_f32.json")
+    with open(f32_cfg, "w") as f:
+        json.dump(dict(json.load(open(os.path.join(exp, "train.json"))),
+                       model_conf=dict(ls_conf, compute_dtype="float32")),
+                  f)
+    small = os.path.join(root, "kaldi_utts.data")
+    with open(corpus["train"], encoding="utf-8") as f:
+        lines = sorted(f.readlines(), key=lambda s: float(
+            s.split("\t")[2].split(":", 1)[1]))[:8]
+    with open(small, "w", encoding="utf-8") as f:
+        f.writelines(lines)
+    out["kaldi"] = kaldi_checks(f32_cfg, ckpt, small, dict_path, bpe_path,
+                                root)
+    lap("kaldi")
+    out["input_layers"] = input_layer_checks(cv_batch, vocab)
+    lap("input_layers")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    out["ctc_parallel"] = ctc_parallel_checks(ctc_shapes, vocab, gen)
+    lap("ctc_parallel")
+
+    # K1 and K2 bit for bit against the plain recursions at every
+    # (B, T, S) of the training run, timed at each one's largest T x S
+    # (an utterance's work); K2's plan at the run's widths
+    out["ctc_global_plans"] = check_global_plan(
+        sorted({s for _, _, s in ctc_shapes}))
+    timed_at = {variant: max(shapes, key=lambda b_t_s: (
+        b_t_s[1] * b_t_s[2], b_t_s[0]))
+        for variant, shapes in (("shared", k1), ("global", k2)) if shapes}
+    cases = []
+    for shape in ctc_shapes:
+        variant = "global" if shape in k2 else "shared"
+        b, t, s = shape
+        row = ctc_case(b, t, (s - 1) // 2, vocab, gen, step_ms,
+                       timed=shape == timed_at[variant])
+        if row["variant"] != variant:
+            raise AssertionError(f"CTC at {shape}: {row['variant']}, the "
+                                 f"run's {variant}")
+        row["launches"] = (k2 if variant == "global" else k1)[shape]
+        cases.append(row)
+    out["ctc_cases"] = cases
+    lap("ctc_cases")
+
+    # K3 at K = 31: the training run's largest shape and its most
+    # frequent other one, with that run's launches there
+    largest = max(k3_dgrad, key=lambda key: key[0] * key[1])
+    common = next((key for key, _ in Counter(k3_dgrad).most_common()
+                   if key != largest), largest)
+    cases = []
+    for b, tp, c, k, _ in dict.fromkeys([largest, common]):
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            fwd = kernel_case(b, tp, c, k, dtype, gen, exact=True)
+            bwd = dwconv_grad_case(b, tp, c, k, dtype, gen)
+            if bwd["dgrad_max_abs_err"] != 0.0:
+                raise AssertionError(f"K3 dgrad at K = 31 not bit-equal: "
+                                     f"{bwd}")
+            key = (b, tp, c, k, name)
+            cases.append({"shape": [b, tp, c], "dtype": name, "fwd": fwd,
+                          "bwd": bwd, "launches": {
+                              "fwd": k3_fwd.get(key, 0),
+                              "dgrad": k3_dgrad.get(key, 0),
+                              "wgrad": k3_wgrad.get(key, 0)}})
+    out["k31_cases"] = cases
+    lap("k31_cases")
+    # the training breakdown; its profile of one train step must name the
+    # K3 wrappers' regions, the K3 kernels and a CTC kernel
+    out["breakdown"] = train_breakdown(
+        corpus["train"], dict_path, n_steps=4, train_config=LS_TRAIN_CONFIG,
+        bpe=bpe, n_profiled=1)
+    names = set(out["breakdown"].pop("trace_names"))
+    out["trace_names"] = sorted(n for n in names
+                                if "dwconv1d" in n or "ctc_dp" in n)
+    if not {"openeat_dwconv1d_fwd", "openeat_dwconv1d_dgrad",
+            "openeat_dwconv1d_wgrad"} <= names or not all(
+            any(k in n for n in out["trace_names"]) for k in (
+                "dwconv1d_kernel<", "dwconv1d_wgrad_kernel<", "ctc_dp_")):
+        raise AssertionError(f"the profile's names {out['trace_names']}")
+    lap("breakdown")
+    return out
+
+
 def _kernel_row(name: str, source: str, replaces: str, launches: int,
                 row: dict, prefix: str = "") -> dict:
     return {"name": name, "route": "cuda", "source": source,
@@ -3422,6 +4151,20 @@ def main() -> None:
             {k: v for k, v in report["finetune"].items()
              if k not in ("step_losses", "cmvn_file_losses")}), flush=True)
         lap("finetune")
+
+        # ---- slice 12: the LibriSpeech recipe, kaldi ark input, the
+        # other input layers and ctc_impl parallel
+        report["librispeech"] = librispeech(step_ms)
+        print("librispeech " + json.dumps(
+            {k: v for k, v in report["librispeech"].items()
+             if k not in ("step_losses", "k3_shapes", "trace_names",
+                          "k31_cases", "ctc_cases",
+                          "ctc_global_plans")}), flush=True)
+        for case in report["librispeech"]["ctc_cases"]:
+            print("CTC LibriSpeech " + json.dumps(case), flush=True)
+        for case in report["librispeech"]["k31_cases"]:
+            print("K3 K=31 " + json.dumps(case), flush=True)
+        lap("librispeech")
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     report["wall_s"] = time.perf_counter() - t_start
@@ -3446,6 +4189,11 @@ def main() -> None:
         n.update(report["dist_two_ranks"][name]["launches"])
     n.update(report["dist_world1"]["pp1"]["launches"])
     n.update(report["finetune"]["launches"])
+    ls = report["librispeech"]
+    for run in ([ls["launches"], ls["kaldi"]["train_launches"],
+                 ls["kaldi"]["decode_launches"]]
+                + [d["launches"] for d in ls["decodes"]]):
+        n.update(run)
     kernels = [
         _kernel_row("depthwise_conv1d", "openeat_torch/csrc/depthwise_conv.cu",
                     "openeat_tpu/ops/depthwise_conv.py:39",
@@ -3484,6 +4232,35 @@ def main() -> None:
                         report["stream_k3_shapes"].get(shape, 0), case),
             shape=case["shape"], dtype=case["dtype"],
             copy_ms=case["copy_ms"]))
+    # K3 at K = 31 (the LibriSpeech model) at the training run's shapes in
+    # its dtype, with the launches each wrapper counted at that shape in
+    # that run; the float32 cases, which the run does not launch, are in
+    # chip_smoke.json
+    source = "openeat_torch/csrc/depthwise_conv.cu"
+    for case in ls["k31_cases"]:
+        if not case["launches"]["fwd"]:
+            continue
+        extra = {"shape": case["shape"], "k": 31, "dtype": case["dtype"]}
+        kernels.append(dict(_kernel_row(
+            "depthwise_conv1d", source,
+            "openeat_tpu/ops/depthwise_conv.py:39", case["launches"]["fwd"],
+            case["fwd"]), **extra))
+        for name, line in (("dgrad", 114), ("wgrad", 119)):
+            kernels.append(dict(_kernel_row(
+                f"depthwise_conv1d_{name}", source,
+                f"openeat_tpu/ops/depthwise_conv.py:{line}",
+                case["launches"][name], case["bwd"], f"{name}_"), **extra))
+    # K1 and K2 at the LibriSpeech run's largest T x S of each, with that
+    # run's launches there
+    for case in ls["ctc_cases"]:
+        if "ms" not in case:
+            continue
+        name, line = {"shared": ("ctc_dp_shared", 251),
+                      "global": ("ctc_dp_global", 139)}[case["variant"]]
+        kernels.append(dict(_kernel_row(
+            name, "openeat_torch/csrc/ctc_loss.cu",
+            f"openeat_tpu/ops/ctc_loss.py:{line}", case["launches"], case),
+            shape=case["shape"], chain_bound_ms=case["chain_bound_ms"]))
     report["kernels"] = kernels
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)

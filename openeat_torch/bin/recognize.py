@@ -32,8 +32,10 @@ encoder routing with the global batch's capacity, and the first rank
 gathers the rows and writes the result and timestamp files, the same
 bytes as --dp 1.
 
-Not ported yet, refused with NotImplementedError: --bpe_model and
---data_type feat/kaldi.
+--bpe_model tokenizes the references with a BPE model, and the written
+text re-joins the `▁` pieces into words; a wav.scp entry may be WAV or
+FLAC; --data_type feat (or kaldi) decodes precomputed kaldi ark
+features, through the frontend's feature-level tail only.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ import torch
 import torch.distributed as dist
 
 from openeat_torch.config import load_config
+from openeat_torch.dataset.bpe import load_bpe
 from openeat_torch.dataset.dataset import (AudioCollate, AudioDataset,
                                            PrefetchLoader)
 from openeat_torch.dataset.text import load_dict, token_ids_to_text
@@ -71,10 +74,12 @@ from openeat_torch.utils.wenet_convert import (convert_wenet_config,
 
 MODES = ["ctc_greedy_search", "ctc_prefix_beam_search", "attention",
          "attention_rescoring"]
-# ms of audio per encoder position: 10 ms frames through the conv2d x4
-# subsampling, the one input layer ported (build_asr_model refuses the
-# others)
-POS_MS = 40.0
+
+
+def position_ms(model: ASRModel) -> float:
+    """ms of audio per encoder position: 10 ms frames through the input
+    layer's subsampling."""
+    return 10.0 * model.encoder.embed.subsampling_rate
 
 
 def get_parser() -> argparse.ArgumentParser:
@@ -111,21 +116,6 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--timestamp_file", default=None)
     p.add_argument("--dp", type=int, default=1)
     return p
-
-
-def refuse_unported(args) -> None:
-    """Raise NotImplementedError for what this port does not do yet."""
-    later = {
-        "--bpe_model": (args.bpe_model is not None,
-                        "a later slice (BPE tokenizer)"),
-        "--data_type feat/kaldi": (args.data_type != "wav",
-                                   "a later slice (kaldi ark input)"),
-    }
-    for what, (asked, where) in later.items():
-        if asked:
-            raise NotImplementedError(
-                f"{what} is not ported to openeat_torch yet; it comes "
-                f"with {where}")
 
 
 def _read_checkpoint(checkpoint: str) -> dict:
@@ -185,7 +175,6 @@ def main(argv=None):
     args = get_parser().parse_args(argv)
     logger = init_logger()
     cfg = load_config(args.config)
-    refuse_unported(args)
     if is_wenet_config(cfg):
         cfg = convert_wenet_config(cfg)
     want_times = args.timestamp_file is not None
@@ -216,11 +205,12 @@ def _decode(args, cfg: dict, device: torch.device, mesh, logger) -> None:
     fe_conf = collate_conf.get("feature_extraction_conf", {}) or {}
     dataset_conf = dict(cfg.get("dataset_conf", {}) or {})
     test_ds = AudioDataset(
-        args.test_data, char_dict,
+        args.test_data, char_dict, load_bpe(args.bpe_model),
         max_length=dataset_conf.get("max_length", 10240),
         min_length=dataset_conf.get("min_length", 0),
         token_max_length=dataset_conf.get("token_max_length", 200),
-        batch_size=args.batch_size, sort=True)
+        batch_size=args.batch_size, sort=True,
+        data_type="wav" if args.data_type == "wav" else "feat")
     collate = AudioCollate(resample_rate=fe_conf.get("resample_rate", 16000))
     frontend = FrontendConfig.from_collate_conf(
         collate_conf).without_augmentation()
@@ -245,6 +235,7 @@ def _decode(args, cfg: dict, device: torch.device, mesh, logger) -> None:
         fout = open(args.result_file, "w", encoding="utf-8")
         if want_times:
             ts_out = open(args.timestamp_file, "w", encoding="utf-8")
+    pos_ms = position_ms(model)
     n_done = 0
     try:
         with torch.inference_mode():
@@ -267,7 +258,7 @@ def _decode(args, cfg: dict, device: torch.device, mesh, logger) -> None:
                             {"key": key,
                              "tokens": [id2tok.get(t, "<unk>")
                                         for t in toks],
-                             "times_ms": [float(t * POS_MS) for t in times]},
+                             "times_ms": [float(t * pos_ms) for t in times]},
                             ensure_ascii=False) + "\n")
                 logger.info("decoded %d utts", n_done)
     finally:

@@ -29,7 +29,7 @@ import numpy as np
 
 from openeat_torch.bin.recognize import load_model
 from openeat_torch.config import load_config
-from openeat_torch.dataset.audio import read_wav, resample
+from openeat_torch.dataset.audio import read_audio, resample
 from openeat_torch.dataset.manifest import parse_manifest, parse_wav_entry
 from openeat_torch.dataset.text import load_dict, token_ids_to_text
 from openeat_torch.decode.streaming import StreamingRecognizer
@@ -81,7 +81,7 @@ def _write_times(ts_out, key, tok_ids, times_ms, id2tok) -> None:
 
 def _read(u, sample_rate: int) -> np.ndarray:
     path, start, end = parse_wav_entry(u.path)
-    wav, rate = read_wav(path, start, end)
+    wav, rate = read_audio(path, start, end)
     if rate != sample_rate:
         wav = resample(wav, rate, sample_rate)
     return wav * 32768.0

@@ -59,8 +59,13 @@ Fine-tuning, as the JAX trainer does it:
   so a run with --profile_dir writes the checkpoints a run without it
   writes.
 
-Refused with NotImplementedError, each naming the slice that brings it:
---bpe_model and --data_type feat/kaldi.
+Inputs, as the JAX trainer takes them: --bpe_model tokenizes the
+transcripts with a BPE model (openeat_torch.bin.train_bpe's JSON, or a
+sentencepiece .model where sentencepiece is installed); a wav.scp entry
+may be WAV or FLAC; --data_type feat (or kaldi) reads precomputed kaldi
+ark features (`feat_shape: frames,dim` entries), the model's input_size
+is their dim, and the device runs only the frontend's feature-level
+tail (normalization, SpecAugment) on them.
 """
 
 from __future__ import annotations
@@ -77,6 +82,7 @@ import torch
 import torch.distributed as dist
 
 from openeat_torch.config import TrainConfig, load_config, mesh_layout
+from openeat_torch.dataset.bpe import load_bpe
 from openeat_torch.dataset.dataset import (AudioCollate, AudioDataset,
                                            PrefetchLoader)
 from openeat_torch.dataset.text import load_dict
@@ -130,21 +136,6 @@ def get_parser() -> argparse.ArgumentParser:
                    help="keep the rolling optimizer.pt so a --checkpoint "
                         "resume is exact")
     return p
-
-
-def refuse_unported(args) -> None:
-    """Raise NotImplementedError for what this port does not do yet."""
-    later = {
-        "--bpe_model": (args.bpe_model is not None,
-                        "a later slice (BPE tokenizer)"),
-        "--data_type feat/kaldi": (args.data_type != "wav",
-                                   "a later slice (kaldi ark input)"),
-    }
-    for what, (asked, where) in later.items():
-        if asked:
-            raise NotImplementedError(
-                f"{what} is not ported to openeat_torch yet; it comes "
-                f"with {where}")
 
 
 def dropout_seed(seed: int, epoch: int, data_rank: int | None = None
@@ -207,7 +198,6 @@ def file_logger(exp_dir: str, mesh):
 def main(argv=None) -> TrainState:
     args = get_parser().parse_args(argv)
     cfg = load_config(args.config)
-    refuse_unported(args)
     device = resolve_device(args.device)
     mesh, device = init_mesh(*mesh_layout(cfg, args.dp, args.tp), device,
                              args.multihost)
@@ -232,6 +222,8 @@ def _train(args, cfg: dict, device: torch.device, logger: logging.Logger,
 
     char_dict = load_dict(args.dict_path)
     vocab_size = len(char_dict)
+    bpe = load_bpe(args.bpe_model)
+    data_type = "wav" if args.data_type == "wav" else "feat"
     dataset_conf = dict(cfg.get("dataset_conf", {}) or {})
     collate_conf = dict(cfg.get("collate_conf", {}) or {})
     fe_conf = collate_conf.get("feature_extraction_conf", {}) or {}
@@ -243,13 +235,13 @@ def _train(args, cfg: dict, device: torch.device, logger: logging.Logger,
         batch_type=dataset_conf.get("batch_type", "dynamic"),
         batch_size=dataset_conf.get("batch_size", 12),
         max_frames_in_batch=dataset_conf.get("max_frames_in_batch", 10000),
-        sort=dataset_conf.get("sort", True), seed=seed)
+        sort=dataset_conf.get("sort", True), seed=seed, data_type=data_type)
     speeds = (0.9, 1.1, 0.1)
     train_ds = AudioDataset(
-        args.train_data, char_dict,
+        args.train_data, char_dict, bpe,
         speed_perturb=dataset_conf.get("speed_perturb", False),
         speeds=dataset_conf.get("speeds", speeds), **ds_kwargs)
-    cv_ds = AudioDataset(args.cv_data, char_dict, **ds_kwargs)
+    cv_ds = AudioDataset(args.cv_data, char_dict, bpe, **ds_kwargs)
     logger.info("train batches %d cv batches %d vocab %d", len(train_ds),
                 len(cv_ds), vocab_size)
     rate = fe_conf.get("resample_rate", 16000)
@@ -259,7 +251,8 @@ def _train(args, cfg: dict, device: torch.device, logger: logging.Logger,
         speeds=fe_conf.get("speeds", speeds), seed=seed)
     cv_collate = AudioCollate(resample_rate=rate)
     frontend = FrontendConfig.from_collate_conf(collate_conf)
-    input_size = fe_conf.get("mel_bins", 80)
+    input_size = (fe_conf.get("mel_bins", 80) if data_type == "wav"
+                  else train_ds.input_size)
 
     # the checkpoint is read before the model is built: its global CMVN
     # statistics (a converted WeNet release, a --cmvn_file run) decide

@@ -22,9 +22,8 @@ around to a multiple of dp x accum_grad, as the JAX trainer's
 shard_batch does, and each data rank takes its rows (of each
 micro-batch); the TP rules reach the LM's embed, attention, FFN and
 output layer by the ASR model's names. The first rank alone writes the
-files.
-
-Refused with NotImplementedError: --bpe_model (BPE).
+files. --bpe_model tokenizes the text with a BPE model, as the ASR
+trainer does.
 """
 
 from __future__ import annotations
@@ -41,6 +40,7 @@ import torch
 
 from openeat_torch.bin.train import dropout_seed, file_logger, writes_files
 from openeat_torch.config import TrainConfig, load_config, mesh_layout
+from openeat_torch.dataset.bpe import load_bpe
 from openeat_torch.dataset.dataset import (PrefetchLoader, TextCollate,
                                            TextDataset)
 from openeat_torch.dataset.text import load_dict
@@ -78,13 +78,6 @@ def get_parser() -> argparse.ArgumentParser:
     return p
 
 
-def refuse_unported(args) -> None:
-    if args.bpe_model is not None:
-        raise NotImplementedError(
-            "--bpe_model is not ported to openeat_torch yet; it comes "
-            "with a later slice (BPE tokenizer)")
-
-
 def lm_loss(model, batch: dict) -> dict[str, torch.Tensor]:
     return model(batch["tokens"], batch["tokens_length"],
                  batch.get("masked_targets"))
@@ -111,7 +104,6 @@ def to_device(batch: dict, device: torch.device, accum: int = 1,
 
 def main(argv=None):
     args = get_parser().parse_args(argv)
-    refuse_unported(args)
     cfg = load_config(args.config)
     device = resolve_device(args.device)
     mesh, device = init_mesh(*mesh_layout(cfg, args.dp, args.tp), device)
@@ -141,8 +133,9 @@ def _train(args, cfg: dict, device: torch.device, logger: logging.Logger,
         token_min_length=dataset_conf.get("token_min_length", 0),
         batch_size=dataset_conf.get("batch_size", 32),
         sort=dataset_conf.get("sort", True))
-    train_ds = TextDataset(args.train_data, char_dict, **ds_kwargs)
-    cv_ds = TextDataset(args.cv_data, char_dict, **ds_kwargs)
+    bpe = load_bpe(args.bpe_model)
+    train_ds = TextDataset(args.train_data, char_dict, bpe, **ds_kwargs)
+    cv_ds = TextDataset(args.cv_data, char_dict, bpe, **ds_kwargs)
     collate = TextCollate(len(char_dict),
                           model_conf.get("autoregressive", True), seed=seed)
     logger.info("train batches %d cv batches %d", len(train_ds), len(cv_ds))

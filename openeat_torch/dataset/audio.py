@@ -1,6 +1,6 @@
-"""Host audio IO: WAV reading and writing, resampling and sox-style
-speed perturbation. Port of openeat_tpu/dataset/audio.py for WAV; FLAC
-comes with a later slice."""
+"""Host audio IO: WAV reading and writing, reading by format (WAV or
+FLAC, by the file's magic bytes), resampling and sox-style speed
+perturbation. Port of openeat_tpu/dataset/audio.py."""
 
 from __future__ import annotations
 
@@ -11,6 +11,8 @@ from fractions import Fraction
 import numpy as np
 from scipy import signal as sps
 
+from openeat_torch.dataset.flac import read_flac
+
 
 def read_wav(path: str, start_s: float | None = None,
              end_s: float | None = None) -> tuple[np.ndarray, int]:
@@ -18,10 +20,6 @@ def read_wav(path: str, start_s: float | None = None,
     [start_s, end_s) slices a segment."""
     with open(path, "rb") as f:
         header = f.read(12)
-        if header[:4] == b"fLaC":
-            raise NotImplementedError(
-                f"{path}: FLAC input is not ported to openeat_torch yet "
-                "(a later slice); convert to WAV")
         if header[:4] != b"RIFF" or header[8:12] != b"WAVE":
             raise ValueError(f"{path}: not a RIFF/WAVE file")
         fmt = None
@@ -72,6 +70,17 @@ def read_wav(path: str, start_s: float | None = None,
         e = int(end_s * rate) if end_s is not None else len(x)
         x = x[s:e]
     return np.ascontiguousarray(x), rate
+
+
+def read_audio(path: str, start_s: float | None = None,
+               end_s: float | None = None) -> tuple[np.ndarray, int]:
+    """read_wav, or read_flac for a file that starts with `fLaC`
+    (LibriSpeech ships FLAC, AIShell WAV)."""
+    with open(path, "rb") as f:
+        magic = f.read(4)
+    if magic == b"fLaC":
+        return read_flac(path, start_s, end_s)
+    return read_wav(path, start_s, end_s)
 
 
 def write_wav(path: str, x: np.ndarray, rate: int) -> None:

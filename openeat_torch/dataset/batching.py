@@ -60,3 +60,14 @@ def pad_batch_1d(arrays: list[np.ndarray], pad_value,
     for i, a in enumerate(arrays):
         out[i, : len(a)] = a
     return out, lens
+
+
+def pad_batch_2d(arrays: list[np.ndarray], pad_value, bucket: int,
+                 dtype) -> tuple[np.ndarray, np.ndarray]:
+    """Stack [Ti, F] feature matrices into [B, round_up(maxT, bucket), F]."""
+    lens = np.array([a.shape[0] for a in arrays], np.int32)
+    width = round_up(int(lens.max()), bucket)
+    out = np.full((len(arrays), width, arrays[0].shape[1]), pad_value, dtype)
+    for i, a in enumerate(arrays):
+        out[i, : a.shape[0]] = a
+    return out, lens

@@ -1,6 +1,9 @@
-"""Text processing (host): CJK tokenization, punctuation stripping, dict
-IO. Port of openeat_tpu/dataset/text.py without BPE, which comes with a
-later slice."""
+"""Text processing (host): CJK + BPE tokenization, punctuation
+stripping, dict IO. Port of openeat_tpu/dataset/text.py: text is
+upper-cased and split on CJK characters; each CJK character is a token,
+and every other span is BPE-encoded into `▁` pieces
+(openeat_torch/dataset/bpe.py, or a sentencepiece processor: anything
+with encode_as_pieces) or kept whole without a BPE model."""
 
 from __future__ import annotations
 
@@ -22,27 +25,30 @@ def remove_punctuation(text: str) -> str:
     return _PUNCT_RE.sub("", text).replace("\\", "")
 
 
-def tokenize(text: str) -> list[str]:
-    """CJK characters one by one; other spans kept whole."""
+def tokenize(text: str, bpe=None) -> list[str]:
+    """CJK characters one by one; other spans BPE-encoded with `bpe`
+    (anything with encode_as_pieces), or kept whole without one."""
     tokens: list[str] = []
     for span in CJK_PATTERN.split(text.upper()):
         if len(span.strip()) == 0:
             continue
         if "#" in span or CJK_PATTERN.fullmatch(span) is not None:
             tokens.append(span)
+        elif bpe is not None:
+            tokens.extend(bpe.encode_as_pieces(span))
         else:
             tokens.append(span.strip())
     return tokens
 
 
-def text_to_token_ids(text: str, char_dict: dict[str, int],
+def text_to_token_ids(text: str, char_dict: dict[str, int], bpe=None,
                       unk: str = "<unk>") -> list[int]:
     """Protect <unk>, strip punctuation, tokenize, map with unk fallback."""
     text = text.replace(unk, "\x00")
     text = remove_punctuation(text)
     text = text.replace("\x00", "#")
     unk_id = char_dict.get(unk, 1)
-    return [char_dict.get(t, unk_id) for t in tokenize(text)]
+    return [char_dict.get(t, unk_id) for t in tokenize(text, bpe)]
 
 
 def load_dict(path: str) -> dict[str, int]:

@@ -171,7 +171,12 @@ class HostFrontend:
 
 
 def check_streamable(model: ASRModel, num_left_chunks: int) -> None:
-    """A streaming runtime needs causal convs and a finite history."""
+    """A streaming runtime needs the conv2d x4 input layer (its window is
+    4c + 3 frames, as in both JAX runtimes), causal convs and a finite
+    history."""
+    if model.input_layer != "conv2d":
+        raise ValueError("streaming supports the conv2d input layer only "
+                         f"(model_conf input_layer: {model.input_layer})")
     if not model.causal:
         raise ValueError("streaming needs a model with causal convs "
                          "(model_conf causal: true)")

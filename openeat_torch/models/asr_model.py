@@ -57,16 +57,6 @@ from openeat_torch.utils.mask import make_attn_mask, make_non_pad_mask
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-# model_conf values whose paths are not ported yet, with the slice that
-# brings them. A config that sets one of them is refused, not silently
-# decoded with a different model.
-_NOT_PORTED = {
-    "input_layer": ("conv2d", "a later slice (linear, conv2d6, conv2d8)"),
-    "pos_enc_layer_type": (("rel_pos", "abs_pos"),
-                           "a later slice (no_pos)"),
-}
-
-
 def deterministic(method):
     """Run a decode method with every submodule in eval mode."""
     @functools.wraps(method)
@@ -87,6 +77,7 @@ class ASRModel(nn.Module):
                  encoder_num_blocks_share: int = 1,
                  decoder_num_blocks: int = 3, r_decoder_num_blocks: int = 0,
                  decoder_num_blocks_share: int = 1,
+                 input_layer: str = "conv2d",
                  pos_enc_layer_type: str = "rel_pos", d_model: int = 256,
                  attention_heads: int = 4, linear_units: int = 1024,
                  activation_type: str = "swish", macaron_style: bool = True,
@@ -99,6 +90,7 @@ class ASRModel(nn.Module):
                  ctc_weight: float = 0.3, lsm_weight: float = 0.1,
                  reverse_weight: float = 0.0,
                  length_normalized_loss: bool = False,
+                 ctc_impl: str = "optax",
                  static_chunk_size: int = 0, num_left_chunks: int = -1,
                  use_dynamic_chunk: bool = False, moe_experts: int = 0,
                  moe_top_k: int = 2, moe_capacity_factor: float = 1.25,
@@ -110,6 +102,7 @@ class ASRModel(nn.Module):
         super().__init__()
         act = get_activation(activation_type)
         self.input_size = input_size
+        self.input_layer = input_layer
         self.vocab_size = vocab_size
         self.d_model = d_model
         self.attention_heads = attention_heads
@@ -129,14 +122,14 @@ class ASRModel(nn.Module):
         self.generator: torch.Generator | None = None
         self.encoder = TransformerEncoder(
             input_size, d_model, attention_heads, linear_units, act,
-            pos_enc_layer_type, macaron_style, use_cnn_module,
+            input_layer, pos_enc_layer_type, macaron_style, use_cnn_module,
             cnn_module_kernel, causal, encoder_num_blocks,
             encoder_num_blocks_share, use_global_cmvn, compute_dtype,
             dropout_rate, positional_dropout_rate, static_chunk_size,
             num_left_chunks, use_dynamic_chunk, moe_experts, moe_top_k,
             moe_capacity_factor, encoder_use_adapter, down_size, scalar)
         self.ctc = CTCHead(d_model, vocab_size, compute_dtype,
-                           length_normalized_loss)
+                           length_normalized_loss, impl=ctc_impl)
         self.decoder = BiTransformerDecoder(
             vocab_size, d_model, attention_heads, linear_units, act,
             decoder_num_blocks, r_decoder_num_blocks,
@@ -296,12 +289,6 @@ def build_asr_model(model_conf: dict, input_size: int, vocab_size: int,
     """Construct ASRModel from a `model_conf` dict (defaults as in the
     JAX package's build_asr_model)."""
     mc = dict(model_conf)
-    for key, (ok, where) in _NOT_PORTED.items():
-        if key in mc and mc[key] not in (ok if isinstance(ok, tuple)
-                                         else (ok,)):
-            raise NotImplementedError(
-                f"model_conf {key}={mc[key]!r} is not ported to "
-                f"openeat_torch yet; it comes with {where}")
     dtype_name = mc.get("compute_dtype", "bfloat16")
     if dtype_name not in DTYPES:
         raise ValueError(f"compute_dtype {dtype_name!r}; have {list(DTYPES)}")
@@ -313,6 +300,7 @@ def build_asr_model(model_conf: dict, input_size: int, vocab_size: int,
         decoder_num_blocks=mc.get("decoder_num_blocks", 3),
         r_decoder_num_blocks=mc.get("r_decoder_num_blocks", 0),
         decoder_num_blocks_share=mc.get("decoder_num_blocks_share", 1),
+        input_layer=mc.get("input_layer", "conv2d"),
         pos_enc_layer_type=mc.get("pos_enc_layer_type", "rel_pos"),
         d_model=mc.get("d_model", 256),
         attention_heads=mc.get("attention_heads", 4),
@@ -332,6 +320,7 @@ def build_asr_model(model_conf: dict, input_size: int, vocab_size: int,
         lsm_weight=mc.get("lsm_weight", 0.1),
         reverse_weight=mc.get("reverse_weight", 0.0),
         length_normalized_loss=mc.get("length_normalized_loss", False),
+        ctc_impl=mc.get("ctc_impl", "optax"),
         static_chunk_size=mc.get("static_chunk_size", 0),
         num_left_chunks=mc.get("num_left_chunks", -1),
         use_dynamic_chunk=mc.get("use_dynamic_chunk", False),

@@ -1,11 +1,12 @@
 """CTC head (PyTorch): projection, frame log-posteriors and the loss.
 Port of openeat_tpu/modules/ctc.py.
 
-The loss always runs the port's own CTC, openeat_torch/ops/ctc_loss.py
-(kernels K1/K2 on the card, their plain version on the CPU). The JAX
-head's ``ctc_impl`` choice (optax, the Pallas kernel or the parallel
-scan) computes the same function; a config may still set it, and the
-port ignores it.
+`impl` is model_conf.ctc_impl, as in the JAX head: "parallel" runs the
+log-semiring scan of openeat_torch/ops/ctc_parallel.py (plain torch
+ops); every other value ("optax", the default, and "native", JAX's
+Pallas kernel) runs the port's own CTC, openeat_torch/ops/ctc_loss.py
+(kernels K1/K2 on the card, their plain version on the CPU). Both
+compute the same function.
 """
 
 from __future__ import annotations
@@ -15,15 +16,18 @@ from torch import nn
 
 from openeat_torch.modules.layers import Dense
 from openeat_torch.ops.ctc_loss import ctc_loss
+from openeat_torch.ops.ctc_parallel import ctc_loss_parallel
 from openeat_torch.parallel.tensor_parallel import global_count
 
 
 class CTCHead(nn.Module):
     def __init__(self, d_model: int, vocab_size: int,
                  dtype: torch.dtype = torch.float32,
-                 length_normalized_loss: bool = False, blank_id: int = 0):
+                 length_normalized_loss: bool = False, blank_id: int = 0,
+                 impl: str = "optax"):
         super().__init__()
         self.ctc_lo = Dense(d_model, vocab_size, dtype=dtype)
+        self.impl = impl
         self.length_normalized_loss = length_normalized_loss
         self.blank_id = blank_id
 
@@ -43,11 +47,18 @@ class CTCHead(nn.Module):
         the group's global batch and the result this rank's share
         (openeat_torch/parallel/tensor_parallel.py)."""
         log_probs = self.log_softmax(hs)
-        b = log_probs.shape[0]
+        b, t = log_probs.shape[:2]
         l = ys.shape[1]
         pos = torch.arange(l, device=ys.device)[None, :]
         labels = torch.where(pos >= ys_lens[:, None], 0, ys).long()
-        per_seq = ctc_loss(log_probs, hlens, labels, ys_lens, self.blank_id)
+        if self.impl == "parallel":
+            frames = torch.arange(t, device=hlens.device)[None, :]
+            per_seq = ctc_loss_parallel(
+                log_probs, (frames >= hlens[:, None]).float(), labels,
+                (pos >= ys_lens[:, None]).float(), self.blank_id)
+        else:
+            per_seq = ctc_loss(log_probs, hlens, labels, ys_lens,
+                               self.blank_id)
         repeats = ((labels[:, 1:] == labels[:, :-1])
                    & (pos[:, 1:] < ys_lens[:, None])).sum(dim=1)
         feasible = hlens >= ys_lens + repeats

@@ -1,5 +1,5 @@
-"""Sinusoidal positional encodings (PyTorch).
-Port of openeat_tpu/modules/embedding.py; each encoding drops out its
+"""Positional encodings (PyTorch): absolute and relative sinusoidal, and
+none. Port of openeat_tpu/modules/embedding.py; each encoding drops out its
 scaled input at positional_dropout_rate (0.0 in the flagship, as in the
 reference). `offset` gives the rows from an absolute position on: a
 streaming chunk's, or one per stream in a batched chunk step."""
@@ -71,7 +71,23 @@ class RelPositionalEncoding(nn.Module):
         return self.dropout(x * self.d_model ** 0.5), pe
 
 
+class NoPositionalEncoding(nn.Module):
+    """No position: returns (dropout(x), zeros [1, T, d])."""
+
+    def __init__(self, d_model: int, dropout_rate: float = 0.0):
+        super().__init__()
+        self.d_model = d_model
+        self.dropout = Dropout(dropout_rate)
+
+    def forward(self, x: torch.Tensor, offset: int | torch.Tensor = 0
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        pe = torch.zeros((1, x.shape[1], self.d_model), dtype=x.dtype,
+                         device=x.device)
+        return self.dropout(x), pe
+
+
 POS_ENC_CLASSES = {
     "abs_pos": PositionalEncoding,
     "rel_pos": RelPositionalEncoding,
+    "no_pos": NoPositionalEncoding,
 }

@@ -2,7 +2,8 @@
 TransformerEncoder and its block stack, the streaming `forward_chunk`
 of both included.
 
-Optional GlobalCMVN -> conv2d x4 subsampling embed -> N blocks -> final
+Optional GlobalCMVN -> the input layer's embed (`input_layer`: linear,
+conv2d x4, conv2d6 or conv2d8 subsampling) -> N blocks -> final
 LayerNorm (eps 1e-5). With num_blocks_share = s, num_blocks // s
 physical layers `layer_{i}` are each applied s times in a row.
 
@@ -43,7 +44,7 @@ from openeat_torch.modules.embedding import POS_ENC_CLASSES, sinusoid_table
 from openeat_torch.modules.encoder_layer import EncoderLayer
 from openeat_torch.modules.feed_forward import MoEPositionwiseFeedForward
 from openeat_torch.modules.layers import LayerNorm
-from openeat_torch.modules.subsampling import Conv2dSubsampling4
+from openeat_torch.modules.subsampling import SUBSAMPLE_CLASSES
 from openeat_torch.parallel import tensor_parallel as tp
 from openeat_torch.utils.mask import (chunk_mask, dynamic_chunk_mask,
                                       make_non_pad_mask)
@@ -141,6 +142,7 @@ class Encoder(nn.Module):
 class TransformerEncoder(nn.Module):
     def __init__(self, input_size: int, d_model: int, attention_heads: int,
                  linear_units: int, activation: Callable,
+                 input_layer: str = "conv2d",
                  pos_enc_layer_type: str = "rel_pos",
                  macaron_style: bool = True, use_cnn_module: bool = True,
                  cnn_module_kernel: int = 15, causal: bool = False,
@@ -165,11 +167,12 @@ class TransformerEncoder(nn.Module):
         if use_global_cmvn:
             self.global_cmvn = GlobalCMVN(input_size)
         self.use_global_cmvn = use_global_cmvn
-        self.embed = Conv2dSubsampling4(
-            input_size, d_model,
-            POS_ENC_CLASSES[pos_enc_layer_type](d_model,
-                                                positional_dropout_rate),
-            dtype)
+        pos_enc = POS_ENC_CLASSES[pos_enc_layer_type](
+            d_model, positional_dropout_rate)
+        extra = {"dropout_rate": dropout_rate} if input_layer == "linear" \
+            else {}
+        self.embed = SUBSAMPLE_CLASSES[input_layer](input_size, d_model,
+                                                    pos_enc, dtype, **extra)
         self.encoders = Encoder(
             d_model, attention_heads, linear_units, activation,
             macaron_style, use_cnn_module, cnn_module_kernel, causal,

@@ -268,6 +268,14 @@ def chain_step_ms() -> float:
     return per[reps // 2]
 
 
+def _count(wrapper, label_logp: torch.Tensor) -> None:
+    """One launch of `wrapper`'s kernel: one more in ``wrapper.launches``
+    and in ``wrapper.shape_launches`` under (B, T, S)."""
+    wrapper.launches += 1
+    key = tuple(label_logp.shape)
+    wrapper.shape_launches[key] = wrapper.shape_launches.get(key, 0) + 1
+
+
 def ctc_dp_shared(label_logp, input_lens, s_lens, allow2):
     """K1's counterpart: alpha and beta at once, both histories in
     shared memory. CUDA only; every launch adds one to
@@ -277,7 +285,7 @@ def ctc_dp_shared(label_logp, input_lens, s_lens, allow2):
         raise ValueError(f"{tuple(label_logp.shape)} does not fit K1's "
                          f"block (S <= {PAIR_MAX_S}, shared memory); use "
                          f"ctc_dp_global")
-    ctc_dp_shared.launches += 1
+    _count(ctc_dp_shared, label_logp)
     return _launch(label_logp, input_lens, s_lens, allow2, True)
 
 
@@ -287,12 +295,13 @@ def ctc_dp_global(label_logp, input_lens, s_lens, allow2):
     only; every launch adds one to ``ctc_dp_global.launches``."""
     _check_cuda(label_logp)
     dispatch_variant(*label_logp.shape)   # raises for S > MAX_S
-    ctc_dp_global.launches += 1
+    _count(ctc_dp_global, label_logp)
     return _launch(label_logp, input_lens, s_lens, allow2, False)
 
 
-ctc_dp_shared.launches = 0
-ctc_dp_global.launches = 0
+for _wrapper in (ctc_dp_shared, ctc_dp_global):
+    _wrapper.launches = 0
+    _wrapper.shape_launches = {}
 
 
 def _check_cuda(label_logp: torch.Tensor) -> None:

@@ -264,11 +264,20 @@ def launch(src: torch.Tensor, w: torch.Tensor,
     return out
 
 
+def _count(wrapper, x_shape: tuple, k: int, dtype: torch.dtype) -> None:
+    """One launch of `wrapper`'s kernel: one more in ``wrapper.launches``
+    and in ``wrapper.shape_launches`` under the forward's input shape
+    (B, T+K-1, C), K and the dtype's name."""
+    wrapper.launches += 1
+    key = (*x_shape, k, str(dtype).split(".")[-1])
+    wrapper.shape_launches[key] = wrapper.shape_launches.get(key, 0) + 1
+
+
 def _forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return depthwise_conv1d_plain(x, w)
     plan = device_plan(x, w.shape[0], dgrad=False)
-    depthwise_conv1d.launches += 1
+    _count(depthwise_conv1d, x.shape, w.shape[0], x.dtype)
     return launch(x, w, plan)
 
 
@@ -284,7 +293,9 @@ def depthwise_conv1d_dgrad(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if dy.device.type == "cpu":
         return depthwise_conv1d_dgrad_plain(dy, w)
     plan = device_plan(dy, w.shape[0], dgrad=True)
-    depthwise_conv1d_dgrad.launches += 1
+    b, t, c = dy.shape
+    _count(depthwise_conv1d_dgrad, (b, t + w.shape[0] - 1, c), w.shape[0],
+           dy.dtype)
     return launch(dy, w, plan)
 
 
@@ -431,7 +442,7 @@ def depthwise_conv1d_wgrad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     dw = torch.empty((k, c), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device), \
             nvcc.launch_region("openeat_dwconv1d_wgrad"):
-        depthwise_conv1d_wgrad.launches += 1
+        _count(depthwise_conv1d_wgrad, x.shape, k, x.dtype)
         rc = _entry("openeat_dwconv1d_wgrad", _WGRAD_ARGS)(
             x.data_ptr(), dy.data_ptr(), ws.data_ptr(), ws.numel(),
             dw.data_ptr(), b, tp, c, k, _DTYPE_CODE[x.dtype],
@@ -474,6 +485,7 @@ def depthwise_conv1d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _DepthwiseConv1d.apply(x, w)
 
 
-depthwise_conv1d.launches = 0
-depthwise_conv1d_dgrad.launches = 0
-depthwise_conv1d_wgrad.launches = 0
+for _wrapper in (depthwise_conv1d, depthwise_conv1d_dgrad,
+                 depthwise_conv1d_wgrad):
+    _wrapper.launches = 0
+    _wrapper.shape_launches = {}

@@ -2,7 +2,10 @@
 Port of openeat_tpu/pipeline.py:DeviceFeeder.
 
 Each host batch of padded waveforms (and targets) is copied to the
-device and run through the frontend. In training (train=True) the
+device and run through the frontend; a batch of precomputed features
+(kaldi ark input) goes through the frontend's feature-level tail only
+(openeat_torch/ops/frontend.py:augment_features), as the JAX feeder
+passes it. In training (train=True) the
 frontend's augmentation draws from a generator on the device seeded with
 seed + the number of passes already made, as the JAX feeder keys its
 PRNG. With accum_grad > 1 every array is reshaped to [accum_grad, micro,
@@ -24,7 +27,8 @@ from typing import Iterable, Iterator
 import numpy as np
 import torch
 
-from openeat_torch.ops.frontend import FrontendConfig, compute_features
+from openeat_torch.ops.frontend import (FrontendConfig, augment_features,
+                                        compute_features)
 from openeat_torch.utils.common import make_generator
 
 
@@ -73,6 +77,15 @@ class DeviceFeeder:
         return {k: v.reshape((a, v.shape[0] // a) + v.shape[1:])
                 for k, v in batch.items()}
 
+    def _micro(self, x: torch.Tensor, lens: torch.Tensor,
+                batch_lens: torch.Tensor | None):
+        """(x, lens, the whole batch's lens) of each micro-batch in turn:
+        one for the batch itself without gradient accumulation."""
+        if self.accum_grad == 1:
+            return [(x, lens, batch_lens)]
+        return [(x[i], lens[i], None if batch_lens is None
+                 else batch_lens[i]) for i in range(self.accum_grad)]
+
     def __iter__(self) -> Iterator[tuple[list, dict]]:
         gen = (make_generator(self.seed + self.epoch, self.device)
                if self.train else None)
@@ -83,27 +96,30 @@ class DeviceFeeder:
                              * self.accum_grad)
             if accum:
                 batch = self._split_accum(batch)
+            wav_in = "wav" in batch
+            len_key = "wav_lens" if wav_in else "features_length"
             batch_lens, rows = None, slice(None)
             if self.mesh is not None:
-                batch_lens = torch.from_numpy(batch["wav_lens"]).to(
+                batch_lens = torch.from_numpy(batch[len_key]).to(
                     self.device)
-                rows = self.mesh.rows(batch["wav_lens"].shape[-1])
+                rows = self.mesh.rows(batch[len_key].shape[-1])
                 batch = {k: v[:, rows] if accum else v[rows]
                          for k, v in batch.items()}
             dev = {k: torch.from_numpy(v).to(self.device)
                    for k, v in batch.items()}
-            if accum:
-                parts = [compute_features(
-                    w, l, self.frontend, self.train, gen,
-                    None if batch_lens is None else batch_lens[i], rows)
-                    for i, (w, l) in enumerate(zip(dev["wav"],
-                                                   dev["wav_lens"]))]
-                feats = torch.stack([p[0] for p in parts])
-                flens = torch.stack([p[1] for p in parts])
+            if wav_in:
+                parts = [compute_features(w, l, self.frontend, self.train,
+                                          gen, bl, rows)
+                         for w, l, bl in self._micro(
+                             dev["wav"], dev["wav_lens"], batch_lens)]
             else:
-                feats, flens = compute_features(dev["wav"], dev["wav_lens"],
-                                                self.frontend, self.train,
-                                                gen, batch_lens, rows)
+                parts = [(augment_features(f, l, self.frontend, self.train,
+                                           gen, bl, rows), l)
+                         for f, l, bl in self._micro(
+                             dev["features"], dev["features_length"],
+                             batch_lens)]
+            feats, flens = ([torch.stack(x) for x in zip(*parts)] if accum
+                            else parts[0])
             out = {"features": feats, "features_length": flens}
             if "targets" in dev:
                 out["targets"] = dev["targets"]

@@ -97,15 +97,22 @@ def test_bridge_owns_the_depthwise_layout():
 
 
 def test_unported_options_raise():
-    """Input layers other than conv2d and the no_pos encoding are
-    refused. sequence_sharding is ported: it builds, and with no model
-    group (apply_mesh gives none) the model computes what the plain one
-    computes."""
-    for key, value in (("input_layer", "linear"),
-                       ("pos_enc_layer_type", "no_pos")):
-        with pytest.raises(NotImplementedError, match=value):
-            build_asr_model(dict(TINY_CONF, **{key: value}), FEAT_DIM,
-                            VOCAB)
+    """Every input layer and the no_pos encoding are ported: they build
+    (tests/test_torch_subsampling.py holds them to JAX), and an input
+    layer that exists in neither package raises. sequence_sharding is
+    ported: it builds, and with no model group (apply_mesh gives none)
+    the model computes what the plain one computes."""
+    for key, value, attr in (("input_layer", "linear", "embed"),
+                             ("pos_enc_layer_type", "no_pos", "pos_enc")):
+        m = build_asr_model(dict(TINY_CONF, **{key: value}), FEAT_DIM, VOCAB)
+        built = getattr(m.encoder.embed, "pos_enc") if attr == "pos_enc" \
+            else m.encoder.embed
+        assert type(built).__name__ == {
+            "linear": "LinearNoSubsampling",
+            "no_pos": "NoPositionalEncoding"}[value]
+    with pytest.raises(KeyError, match="conv2d5"):
+        build_asr_model(dict(TINY_CONF, input_layer="conv2d5"), FEAT_DIM,
+                        VOCAB)
     _, _, _, tm = tiny_models(0)
     ts = build_asr_model(dict(TINY_CONF, sequence_sharding=True), FEAT_DIM,
                          VOCAB)

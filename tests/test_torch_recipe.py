@@ -1,8 +1,8 @@
 """The rest of the AIShell recipe on openeat_torch, on the CPU:
 - bin.train_lm (--device cpu) trains a tiny LM, autoregressive and
   masked, and with accum_grad 2, for 2 epochs: epoch_N.pt + .json,
-  train.json, metrics.jsonl with finite losses, and the flags it does
-  not take yet refused;
+  train.json, metrics.jsonl with finite losses, and a sentencepiece
+  --bpe_model without sentencepiece refused as JAX refuses it;
 - average_checkpoints over three weight sets saved by each package
   (orbax + .yaml there, .pt + .json here), with --val_best on cv_loss
   and without: bit-equal to JAX's average, and bin.average_model writes
@@ -24,6 +24,7 @@ import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
+from openeat_tpu.dataset.bpe import load_bpe as jax_load_bpe
 from openeat_tpu.utils import checkpoint as jax_ckpt
 from openeat_tpu.utils.checkpoint import _flatten
 from openeat_tpu.utils.wer import corpus_wer as jax_corpus_wer
@@ -87,8 +88,20 @@ def test_train_lm_two_epochs(corpus, autoregressive, accum_grad):
 @pytest.mark.parametrize("extra,match", [(["--bpe_model", "b.model"],
                                           "bpe")])
 def test_train_lm_refuses_unported_flags(corpus, extra, match):
-    with pytest.raises(NotImplementedError, match=match):
-        _train_lm(corpus, corpus["root"] / "refused", LM_CONF, extra)
+    """--bpe_model is ported; a sentencepiece .model without
+    sentencepiece raises ImportError, as the JAX trainer's load_bpe
+    does, before any file is written."""
+    try:
+        import sentencepiece  # noqa: F401
+        pytest.skip("sentencepiece is installed")
+    except ImportError:
+        pass
+    exp = corpus["root"] / "refused"
+    with pytest.raises(ImportError, match=match):
+        _train_lm(corpus, exp, LM_CONF, extra)
+    with pytest.raises(ImportError, match=match):
+        jax_load_bpe(extra[1])
+    assert not (exp / "epoch_1.pt").exists()
 
 
 @pytest.mark.parametrize("val_best", [True, False],

@@ -9,7 +9,8 @@ in the attention mode, and with the host n-gram fused into rescoring.
 The --timestamp_file JSONL equals the JAX CLI's on the same weights, and
 both CLIs refuse --timestamp_file in the attention mode alike. With
 --quantize int8 the result and timestamp files equal the JAX CLI's in
-every mode.
+every mode. --data_type kaldi / feat decodes an ark of the corpus's
+fbank as the same features decode in memory.
 """
 
 import json
@@ -37,12 +38,14 @@ from openeat_tpu.lm.ngram import load_lm
 from openeat_tpu.models.asr_model import ASRModel
 from openeat_tpu.utils import checkpoint as jax_ckpt
 from openeat_torch.bin import recognize
+from openeat_torch.decode.ctc_greedy import ctc_greedy_search as torch_greedy
 from openeat_torch.dataset.dataset import (AudioCollate, AudioDataset,
                                            PrefetchLoader)
 from openeat_torch.ops.frontend import FrontendConfig
 from openeat_torch.pipeline import DeviceFeeder
 from tests._torch_parity import TINY_CONF, VOCAB, tiny_models
 from tests.make_tiny_data import build as build_tiny
+from tests.test_torch_kaldi_io import fbank_ark_manifest
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -237,12 +240,48 @@ def test_int8_writes_the_jax_cli_files(setup, mode):
     (["--data_type", "feat"], "feat"),
 ])
 def test_unported_flags_raise(setup, extra, match):
-    extra = [setup[a[1:]] if a.startswith("@") else a for a in extra]
-    with pytest.raises(NotImplementedError, match=match):
-        recognize.main(["--config", setup["cfg"], "--checkpoint",
-                        setup["npz"], "--test_data", "unused", "--dict",
-                        "unused", "--result_file", "unused",
-                        "--device", "cpu"] + extra)
+    """The flags are ported. --data_type kaldi / feat decodes an ark of
+    the corpus's raw fbank as the port decodes the same features in
+    memory (same batches, greedy tokens equal); a sentencepiece .model
+    without sentencepiece raises ImportError, as in JAX."""
+    s = setup
+    if match == "bpe":
+        try:
+            import sentencepiece  # noqa: F401
+            pytest.skip("sentencepiece is installed")
+        except ImportError:
+            pass
+        with pytest.raises(ImportError, match=match):
+            _run_port(s, "ctc_greedy_search", s["npz"], "bpe", extra)
+        return
+    char_dict = load_dict(s["data"]["dict"])
+    manifest, feats = fbank_ark_manifest(s["data"]["manifest"], char_dict,
+                                         str(s["root"] / f"ark_{match}"))
+    out = str(s["root"] / f"{match}.txt")
+    argv = _argv(s, "ctc_greedy_search", s["npz"], out, extra)
+    argv[argv.index("--test_data") + 1] = manifest
+    recognize.main(argv + ["--device", "cpu"])
+    got = dict(line.rstrip("\n").split(" ", 1)
+               for line in open(out, encoding="utf-8"))
+    model = recognize.load_model(json.load(open(s["cfg"])), s["pt"], VOCAB,
+                                 torch.device("cpu"))
+    fe = FrontendConfig.from_collate_conf({"spec_aug": True})
+    feeder = DeviceFeeder(PrefetchLoader(
+        AudioDataset(manifest, char_dict, batch_size=BATCH, data_type="feat"),
+        AudioCollate()), fe.without_augmentation(), torch.device("cpu"),
+        pad_batch_multiple=BATCH)
+    id2tok = {v: k for k, v in char_dict.items()}
+    want = {}
+    with torch.inference_mode():
+        for keys, batch in feeder:
+            enc, lens = model.encode(batch["features"],
+                                     batch["features_length"])
+            hyps, hyp_lens = torch_greedy(model.ctc_log_probs(enc), lens)
+            for i, k in enumerate(keys):
+                want[k] = token_ids_to_text(hyps[i][: hyp_lens[i]].tolist(),
+                                            id2tok, eos_id=model.eos)
+    assert set(got) == set(want) == set(feats) == set(s["data"]["texts"])
+    assert {k: v.strip() for k, v in got.items()} == want
 
 
 def test_cuda_without_a_card_raises(setup, monkeypatch):

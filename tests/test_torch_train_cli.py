@@ -6,14 +6,15 @@ epochs write epoch_1/2.pt, their .json info, optimizer.pt, train.json
 and metrics.jsonl with finite losses; resuming from epoch_1.pt restores
 the optimizer and continues the step count, and with the same seeds
 reproduces the uninterrupted run's second epoch; recognize decodes from
-epoch_2.pt and train.json. Every flag the port does not take yet
-(--bpe_model, --data_type feat/kaldi) raises NotImplementedError naming
-its slice.
+epoch_2.pt and train.json. --data_type feat trains on an ark of the
+corpus's fbank, and a sentencepiece --bpe_model without sentencepiece
+raises ImportError, as in JAX.
 """
 
 import json
 import os
 
+import numpy as np
 import pytest
 import torch
 
@@ -21,6 +22,7 @@ from openeat_torch.bin import recognize, train
 from openeat_torch.dataset.text import load_dict
 from tests._torch_parity import TINY_CONF
 from tests.make_tiny_data import build as build_tiny
+from tests.test_torch_kaldi_io import fbank_ark_manifest
 
 torch.set_num_threads(1)
 
@@ -102,16 +104,37 @@ def test_train_resume_and_decode(corpus):
     (["--data_type", "feat"], {}, "feat"),
 ])
 def test_unported_flags_raise(corpus, tmp_path, extra, cfg_extra, match):
+    """The flags are ported. --data_type feat trains an epoch on an ark
+    of the corpus's fbank (finite losses, input_size the features' dim
+    in train.json); a sentencepiece .model without sentencepiece raises
+    ImportError, as the JAX trainer's load_bpe does."""
     cfg = dict(json.loads(open(corpus["cfg"]).read()), **cfg_extra)
     cfg_path = str(tmp_path / "c.json")
     with open(cfg_path, "w") as f:
         json.dump(cfg, f)
-    with pytest.raises(NotImplementedError, match=match):
-        train.main(["--config", cfg_path, "--train_data",
-                    corpus["data"]["manifest"], "--cv_data",
-                    corpus["data"]["manifest"], "--exp_dir",
-                    str(tmp_path / "exp"), "--dict", corpus["data"]["dict"],
-                    "--device", "cpu", "--max_epoch", "1", *extra])
+    data = corpus["data"]["manifest"]
+    if match == "feat":
+        data, _ = fbank_ark_manifest(data, load_dict(corpus["data"]["dict"]),
+                                     str(tmp_path / "fbank"))
+    argv = ["--config", cfg_path, "--train_data", data, "--cv_data", data,
+            "--exp_dir", str(tmp_path / "exp"), "--dict",
+            corpus["data"]["dict"], "--device", "cpu", "--max_epoch", "1",
+            "--num_workers", "1", *extra]
+    if match == "bpe":
+        try:
+            import sentencepiece  # noqa: F401
+            pytest.skip("sentencepiece is installed")
+        except ImportError:
+            pass
+        with pytest.raises(ImportError, match=match):
+            train.main(argv)
+        return
+    state = train.main(argv)
+    steps = [r for r in _records(tmp_path / "exp") if r["kind"] == "train"]
+    assert len(steps) == state.step > 0
+    assert all(np.isfinite(r["loss"]) for r in steps)
+    resolved = json.loads((tmp_path / "exp" / "train.json").read_text())
+    assert resolved["input_size"] == 80
 
 
 def test_cuda_without_a_card_raises(corpus, tmp_path, monkeypatch):
