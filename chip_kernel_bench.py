@@ -4,22 +4,23 @@ one checkout.
     python3 chip_kernel_bench.py [TREE]
 
 Runs with TREE's openeat_torch and chip_smoke.py (default: the checkout
-that holds this script). At the main path's shapes, in float32 and
-bfloat16, chip_smoke's kernel_case (K3's forward) and dwconv_grad_case
-(K3's dgrad and wgrad) check each kernel against its plain version and
-time the kernel, the plain version and the library call from CUDA-graph
-replays; ctc_row checks the CTC kernel that dispatch_variant picks bit
-for bit and times it alone at the training batches' [B, T, S] (K1 at
-[22, 148, 33], [14, 198, 49] and the TPU batch [256, 77, 49]; K2 at the
-flagship's long batch [6, 498, 241] and the JAX package's large shape
-[8, 1024, 241]). Beside them it times a ``Tensor.copy_`` of the kernel's
-input (for the wgrad, of x and of dy: what moving those bytes costs at
-this size) and the host's microseconds per call of ``depthwise_conv1d``
-and ``depthwise_conv1d_dgrad``: the wrapper's whole host path, launch
-included, median of 400 calls. Prints one JSON line per case and appends
-them, with the card and TREE, to chiprun_out/kernel_bench.jsonl. To
-compare two checkouts, run both in one call on one card, in the order
-parent, change, change, parent.
+that holds this script). At the main path's shapes (K3 at K = 15, and
+at K = 31 at the LibriSpeech Conformer's training micro-batches), in
+float32 and bfloat16, chip_smoke's kernel_case (K3's forward) and
+dwconv_grad_case (K3's dgrad and wgrad) check each kernel against its
+plain version and time the kernel, the plain version and the library
+call from CUDA-graph replays; ctc_row checks the CTC kernel that
+dispatch_variant picks bit for bit and times it alone at the training
+batches' [B, T, S] (K1 at [22, 148, 33], [14, 198, 49] and the TPU
+batch [256, 77, 49]; K2 at the flagship's long batch [6, 498, 241] and
+the JAX package's large shape [8, 1024, 241]). Beside them it times a
+``Tensor.copy_`` of the kernel's input (for the wgrad, of x and of dy:
+what moving those bytes costs at this size) and the host's microseconds
+per call of ``depthwise_conv1d`` and ``depthwise_conv1d_dgrad``: the
+wrapper's whole host path, launch included, median of 400 calls.
+Prints one JSON line per case and appends them, with the card and TREE,
+to chiprun_out/kernel_bench.jsonl. To compare two checkouts, run both
+in one call on one card, in the order parent, change, change, parent.
 """
 
 from __future__ import annotations
@@ -34,11 +35,13 @@ import time
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "chiprun_out")
 # (B, T+K-1, C, K): the decode batches, then the training batches (the
-# forward and the backward of each) and one larger one
+# forward and the backward of each) and one larger one; then the
+# LibriSpeech Conformer's training micro-batches at K = 31
+K31_SHAPES = [(4, 353, 256, 31), (3, 428, 256, 31), (2, 453, 256, 31)]
 FORWARD_SHAPES = [(8, 162, 256, 15), (8, 212, 256, 15), (22, 162, 256, 15),
-                  (14, 212, 256, 15), (6, 512, 256, 15)]
+                  (14, 212, 256, 15), (6, 512, 256, 15)] + K31_SHAPES
 BACKWARD_SHAPES = [(22, 162, 256, 15), (14, 212, 256, 15), (6, 512, 256, 15),
-                   (12, 212, 256, 15)]
+                   (12, 212, 256, 15)] + K31_SHAPES
 # (B, T, L): K1 at the flagship's training batches and the TPU batch, K2
 # at the flagship's long batch and the JAX package's large shape
 CTC_SHAPES = [(22, 148, 16), (14, 198, 24), (256, 77, 24), (6, 498, 120),

@@ -444,11 +444,12 @@ def offset_view(t: torch.Tensor) -> torch.Tensor:
 
 
 def kernel_case(b: int, tp: int, c: int, k: int, dtype, gen,
-                offset: bool = False, exact: bool = False) -> dict:
+                offset: bool = False, exact: bool = False,
+                timed: bool = True) -> dict:
     """K3's forward against its plain version; times it, a copy of its
     input, the plain version and the library call, unless `offset` (the
-    input at a 2-byte offset, checked only). `exact` asks bit-equality
-    in bfloat16 too."""
+    input at a 2-byte offset) or not `timed` (checked only). `exact`
+    asks bit-equality in bfloat16 too."""
     dev = torch.device("cuda")
     x32 = torch.randn((b, tp, c), generator=gen, device=dev)
     w32 = torch.randn((k, c), generator=gen, device=dev) * 0.3
@@ -471,7 +472,7 @@ def kernel_case(b: int, tp: int, c: int, k: int, dtype, gen,
         ok = row["max_err_ulps"] <= 1.0
     if not ok:
         raise AssertionError(f"K3 disagrees with its plain version: {row}")
-    if offset:
+    if offset or not timed:
         return row
 
     t_out = tp - k + 1
@@ -1845,9 +1846,10 @@ def _n_copies(nbytes: int) -> int:
 # ---------------------------------------------------------- K3 backward
 
 def dwconv_grad_case(b: int, tp: int, c: int, k: int, dtype, gen,
-                     offset: bool = False) -> dict:
+                     offset: bool = False, timed: bool = True) -> dict:
     """K3 dgrad and wgrad against their plain versions; times them, unless
-    `offset` (x and dy at a 2-byte offset, checked only)."""
+    `offset` (x and dy at a 2-byte offset) or not `timed` (checked
+    only)."""
     dev = torch.device("cuda")
     t = tp - k + 1
     x = torch.randn((b, tp, c), generator=gen, device=dev).to(dtype)
@@ -1894,7 +1896,7 @@ def dwconv_grad_case(b: int, tp: int, c: int, k: int, dtype, gen,
     if not ok:
         raise AssertionError(f"K3 backward disagrees with its plain "
                              f"version: {row}")
-    if offset:
+    if offset or not timed:
         return row
 
     item = x.element_size()
@@ -1928,6 +1930,47 @@ def dwconv_grad_case(b: int, tp: int, c: int, k: int, dtype, gen,
     row["wgrad_bound_ms"], row["wgrad_bound_by"] = _bound(
         (x.numel() + dy.numel() + w.numel()) * item, 2 * b * t * c * k)
     return row
+
+
+# K3 at K = 31 (the taps in registers) at fixed shapes, (B, T+K-1, C,
+# dtype, 2-byte offset, the routes of the forward and of the dgrad): the
+# LibriSpeech micro-batches, timed; then ragged cases on every route,
+# checked only: cp.async (C = 100 bf16), element loads (C = 99 bf16, an
+# input at a 2-byte offset) and a dgrad with T < K
+K31_TIMED = [(4, 353, 256), (2, 453, 256)]
+K31_RAGGED = [
+    ((3, 60, 100), torch.bfloat16, False, "cp.async", "cp.async"),
+    ((3, 60, 99), torch.bfloat16, False, "element", "element"),
+    ((2, 60, 256), torch.bfloat16, True, "element", "element"),
+    ((1, 35, 4), torch.float32, False, "tma", "tma"),
+    ((1, 35, 4), torch.bfloat16, False, "cp.async", "cp.async"),
+]
+
+
+def k31_cases(gen) -> list:
+    """K3's forward and dgrad at K = 31 bit-equal to their plain versions
+    in both dtypes on every route (the wgrad as dwconv_grad_case holds
+    it), at K31_TIMED and K31_RAGGED."""
+    cases = [(shape, dtype, False, "tma", "tma", True)
+             for shape in K31_TIMED
+             for dtype in (torch.float32, torch.bfloat16)]
+    cases += [(*case, False) for case in K31_RAGGED]
+    rows = []
+    for (b, tp, c), dtype, offset, fwd_route, dgrad_route, timed in cases:
+        fwd = kernel_case(b, tp, c, 31, dtype, gen, offset=offset,
+                          exact=True, timed=timed)
+        bwd = dwconv_grad_case(b, tp, c, 31, dtype, gen, offset=offset,
+                               timed=timed)
+        if (fwd["route"], bwd["dgrad_route"]) != (fwd_route, dgrad_route):
+            raise AssertionError(f"K = 31 at {[b, tp, c]}: routes "
+                                 f"{fwd['route']}, {bwd['dgrad_route']}")
+        if bwd["dgrad_max_abs_err"] != 0.0:
+            raise AssertionError(f"K3 dgrad at K = 31 not bit-equal: {bwd}")
+        row = {"shape": [b, tp, c], "dtype": fwd["dtype"], "fwd": fwd,
+               "bwd": bwd}
+        rows.append(row)
+        print("K3 K=31 " + json.dumps(row), flush=True)
+    return rows
 
 
 def _device_kernels(call, attempts: int = 3) -> dict:
@@ -3955,6 +3998,9 @@ def main() -> None:
             print("K3 bwd " + json.dumps(row), flush=True)
         report["k3_backward_cases"] = grad_rows
         lap("k3_backward_cases")
+        report["k3_k31_cases"] = k31_cases(gen)
+        lap("k3_k31_cases")
+        print(f"K3 K = 31 cases {phase_s['k3_k31_cases']:.2f} s", flush=True)
         report["k3_kernels_per_call"] = k3_kernels_per_call(
             [(8, 212, 256, 15, torch.float32),
              (8, 212, 256, 15, torch.bfloat16),

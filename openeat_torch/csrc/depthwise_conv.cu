@@ -37,9 +37,13 @@
 // four blocks per SM) measured no faster on the H100 (PERF.md).
 // - A block owns one channel tile (C_TILE = 64 channels) for its whole
 //   life, keeps that tile's K x VEC taps in float32 registers (the
-//   compile-time K = 15 instance; other K read them from shared memory),
-//   and walks (batch row, time tile) items with a stride of gridDim.y: a
-//   persistent grid of at most two blocks per SM.
+//   compile-time instances K = 15 and K = 31, the AIShell and the
+//   LibriSpeech Conformers' kernels; other K read them from shared
+//   memory), and walks (batch row, time tile) items with a stride of
+//   gridDim.y: a persistent grid of at most two blocks per SM. At K = 31
+//   the taps take 124 registers a thread, loaded once, all in flight
+//   beside the first windows; the shared-memory route would reload a tap
+//   vector and RT input vectors for every tap of every item.
 // - Each item's input window, rows [t0 - pad_left, t0 - pad_left + rows)
 //   with rows = T_TILE + K - 1, lands in a ring of STAGES tiles in shared
 //   memory, asynchronously: the first STAGES windows are requested before
@@ -89,7 +93,8 @@ constexpr int C_TILE = 64;       // most channels per block (wgrad: exactly)
 constexpr int T_TILE = 32;       // output rows per item (wgrad: per block)
 constexpr int STAGES = 2;        // ring of input windows per block
 constexpr int BLOCKS_PER_SM = 2; // the persistent grid's occupancy
-constexpr int K_FIXED = 15;      // the compile-time K (the Conformer's)
+constexpr int K_FIXED = 15;      // compile-time K: the Conformer's (wgrad too)
+constexpr int K_WIDE = 31;       // compile-time K: LibriSpeech's (fwd, dgrad)
 constexpr int THREADS = C_TILE / VEC * (T_TILE / RT);  // at most
 constexpr int MAX_BOX = 256;     // a TMA box dimension's limit
 constexpr int SMEM_MAX = 232448; // dynamic shared memory a block may use
@@ -314,9 +319,9 @@ __device__ __forceinline__ void conv_smem_taps(const T* xs, int stride,
 }
 
 // G = 0: windows arrive by TMA through `map`; G = 4, 8 or 16: by cp.async
-// copies of G bytes from p.x (map unused). KC = K_FIXED keeps the taps in
-// registers; KC = 0 takes p.k at run time. A thread computes VEC channels
-// of RT output rows.
+// copies of G bytes from p.x (map unused). KC = K_FIXED or K_WIDE keeps
+// the taps in registers; KC = 0 takes p.k at run time. A thread computes
+// VEC channels of RT output rows.
 template <typename T, int KC, int G>
 __global__ void __launch_bounds__(THREADS)
     dwconv1d_kernel(const __grid_constant__ CUtensorMap map, const Params p) {
@@ -519,13 +524,19 @@ int launch_route(int copy_bytes, const CUtensorMap& map, const Params& p,
   }
 }
 
-// the taps in registers for the compile-time K, else in shared memory
+bool taps_in_registers(int k) { return k == K_FIXED || k == K_WIDE; }
+
+// the taps in registers for a compile-time K, else in shared memory
 template <typename T>
 int launch_typed(int copy_bytes, const CUtensorMap& map, const Params& p,
                  dim3 grid, dim3 block, int smem, cudaStream_t stream) {
   if (p.k == K_FIXED) {
     return launch_route<T, K_FIXED>(copy_bytes, map, p, grid, block, smem,
                                     stream);
+  }
+  if (p.k == K_WIDE) {
+    return launch_route<T, K_WIDE>(copy_bytes, map, p, grid, block, smem,
+                                   stream);
   }
   return launch_route<T, 0>(copy_bytes, map, p, grid, block, smem, stream);
 }
@@ -583,9 +594,9 @@ int launch_conv(const void* x, const void* w, void* out, int batch, int t_in,
   const int sms = num_sms();
   const long long stage_bytes =
       ((long long)rows * c_tile * item + 127) / 128 * 128;
-  const long long smem = 128 + STAGES * stage_bytes +
-                         (k == K_FIXED ? 0 : (long long)k * c_tile * 4) +
-                         STAGES * 8;
+  const long long tap_bytes =
+      taps_in_registers(k) ? 0 : (long long)k * c_tile * 4;
+  const long long smem = 128 + STAGES * stage_bytes + tap_bytes + STAGES * 8;
   if (rows > MAX_BOX || n_items > 0x7fffffffLL || sms <= 0 ||
       smem > SMEM_MAX) {
     return (int)cudaErrorInvalidValue;

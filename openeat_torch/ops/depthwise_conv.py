@@ -15,8 +15,10 @@ are one kernel body with two entries (openeat_torch/csrc/
 depthwise_conv.cu): each block loads zero-filled input windows into a
 ring in shared memory asynchronously (TMA, or cp.async where the rows
 are not 16-byte multiples; synchronous 2-byte element loads where no
-4-byte copy fits), keeps its taps in registers, and moves four channels
-per thread per access (16 bytes of float32, 8 of bfloat16). The dgrad
+4-byte copy fits), keeps its taps in registers (compile-time instances
+for K = 15 and K = 31, the AIShell and LibriSpeech Conformers' kernels;
+other K read them from shared memory), and moves four channels per
+thread per access (16 bytes of float32, 8 of bfloat16). The dgrad
 reads dy and the forward's w as they are: its K-1 halo is the loads'
 zero fill and its reversed taps a read order, so it is one launch.
 wgrad is one launch too: blocks stage long spans of x and dy by the
@@ -100,7 +102,8 @@ def _check(x: torch.Tensor, w: torch.Tensor, name: str) -> None:
 # The kernel's fixed tiling (openeat_torch/csrc/depthwise_conv.cu): VEC
 # channels and RT output rows per thread, at most C_TILE channels and
 # T_TILE output rows per item, a ring of STAGES input windows per block,
-# BLOCKS_PER_SM blocks per SM, the taps in registers for K_FIXED.
+# BLOCKS_PER_SM blocks per SM, the taps in registers for K_FIXED and
+# K_WIDE (the wgrad reads K_FIXED alone).
 VEC = 4
 RT = 4
 C_TILE = 64
@@ -108,6 +111,7 @@ T_TILE = 32
 STAGES = 2
 BLOCKS_PER_SM = 2
 K_FIXED = 15
+K_WIDE = 31
 K_MAX = 64
 H100_SMS = 132
 SMEM_MAX = 232448
@@ -193,7 +197,7 @@ def launch_plan(batch: int, t_in: int, c: int, k: int, itemsize: int, *,
                          f"K={k}")
     route, copy_bytes = pick_route(c * itemsize, itemsize, x_ptr)
     c_tile = channel_tile(c, itemsize)
-    taps_in_registers = k == K_FIXED
+    taps_in_registers = k in (K_FIXED, K_WIDE)
     rows = T_TILE + k - 1
     t_tiles = -(-t_out // T_TILE)
     n_items = batch * t_tiles

@@ -7,6 +7,8 @@ ConvolutionModule against flax's, causal and not, within 1e-5; and the
 wrapper's CPU route, which never touches the launch counter or nvcc.
 """
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -153,7 +155,7 @@ def test_launch_plan_routes_and_limits(k, c, itemsize, route, copy_bytes,
     assert p.pad_left == (k - 1 if dgrad else 0)
     assert p.t_out == (t + k - 1 if dgrad else t - k + 1)
     assert p.rows == dw.T_TILE + k - 1
-    assert p.taps_in_registers == (k == 15)
+    assert p.taps_in_registers == (k in (15, 31))
     _within_kernel_limits(p, itemsize)
 
 
@@ -171,6 +173,26 @@ def test_launch_plan_at_the_main_path_shapes():
     assert (p.route, p.c_tile, p.grid, p.block) == ("tma", 64, (4, 66),
                                                     (16, 8))
     assert p.smem_bytes == 128 + 2 * 46 * 128 + 16
+
+
+@pytest.mark.parametrize("b,tp,grid_y", [(4, 353, 44), (3, 428, 39),
+                                          (2, 453, 28)])
+@pytest.mark.parametrize("itemsize", [4, 2])
+def test_launch_plan_at_the_librispeech_shapes(b, tp, grid_y, itemsize):
+    """K = 31 at the LibriSpeech Conformer's training micro-batches:
+    the taps in registers, no shared memory for them, one item a block
+    (grid_y = n_items) on 4 channel tiles, the forward and the dgrad."""
+    for dgrad in (False, True):
+        p = _plan(b, tp, 256, 31, itemsize, dgrad)
+        t_out = tp + 30 if dgrad else tp - 30
+        assert p.taps_in_registers and p.route == "tma"
+        assert p.t_out == t_out and p.rows == 62
+        assert p.n_items == b * -(-t_out // 32)
+        assert p.grid == (4, min(p.n_items, 66))
+        assert p.smem_bytes == 128 + 2 * 62 * 64 * itemsize + 16
+        if not dgrad:
+            assert p.grid[1] == grid_y
+        _within_kernel_limits(p, itemsize)
 
 
 def test_launch_plan_grid_limits_at_large_batch_and_length():
@@ -222,18 +244,45 @@ def test_kernel_source_and_plan_share_their_constants():
     values."""
     src = (nvcc.CSRC_DIR / dw.SOURCE).read_text()
     for name in ("VEC", "RT", "C_TILE", "T_TILE", "STAGES", "BLOCKS_PER_SM",
-                 "K_FIXED", "SMEM_MAX", "MAX_BOX"):
+                 "K_FIXED", "K_WIDE", "SMEM_MAX", "MAX_BOX"):
         assert f"constexpr int {name} = {getattr(dw, name)};" in src, name
     assert dw.C_TILE <= dw.MAX_BOX
+
+
+def test_kernel_source_and_plan_take_the_same_register_taps():
+    """The C launcher keeps the taps in registers for the K its
+    taps_in_registers names, and has an instance for each; launch_plan
+    says so for exactly those K in 1..K_MAX. The wgrad's one-pass
+    instance stays K_FIXED alone."""
+    src = (nvcc.CSRC_DIR / dw.SOURCE).read_text()
+    body = re.search(r"bool taps_in_registers\(int k\) \{ return (.*?); \}",
+                     src).group(1)
+    names = re.findall(r"k == (\w+)", body)
+    assert body == " || ".join(f"k == {n}" for n in names)
+    c_set = {getattr(dw, n) for n in names}
+    for n in names:
+        assert f"if (p.k == {n}) {{\n    return launch_route<T, {n}>(" in src
+    py_set = {k for k in range(1, dw.K_MAX + 1)
+              if _plan(2, 100, 256, k, 4).taps_in_registers}
+    assert c_set == py_set == {15, 31}
+    assert src.count("k == K_FIXED\n") == 2       # the wgrad's dispatch
+    assert dw.wgrad_plan(2, 100, 256, 31, 4).kc == dw.W_KC
+    assert dw.wgrad_plan(2, 100, 256, 15, 4).kc == dw.K_FIXED
 
 
 def _walk(plan, xin, w, dgrad, itemsize):
     """numpy run of the kernel as planned: every block, every item it
     walks, each item's zero-filled input window as the TMA box or the
-    cp.async copies build it, each thread's RT x VEC outputs. Returns
-    the float32 output and how many times each element was written."""
+    cp.async copies build it, each thread's rt x VEC outputs, all by
+    the plan's own tiling (t_tile output rows an item, rt a thread).
+    Returns the float32 output and how many times each element was
+    written."""
     b_, t_in, c = xin.shape
     k = w.shape[0]
+    t_tile = plan.rows - k + 1
+    rt = t_tile // plan.block[1]
+    assert rt * plan.block[1] == t_tile and plan.t_tiles == -(-plan.t_out
+                                                             // t_tile)
     taps = w[::-1] if dgrad else w
     out = np.full((b_, plan.t_out, c), np.nan, np.float32)
     writes = np.zeros(out.shape, np.int64)
@@ -242,7 +291,7 @@ def _walk(plan, xin, w, dgrad, itemsize):
         for by in range(plan.grid[1]):
             for item in range(by, plan.n_items, plan.grid[1]):
                 b, tt = divmod(item, plan.t_tiles)
-                t0 = tt * dw.T_TILE
+                t0 = tt * t_tile
                 lo = t0 - plan.pad_left
                 win = np.full((plan.rows, plan.c_tile), np.nan, np.float32)
                 if plan.route == "tma":
@@ -264,13 +313,13 @@ def _walk(plan, xin, w, dgrad, itemsize):
                                 if 0 <= lo + r < t_in else 0.0)
                 tp = np.zeros((k, plan.c_tile), np.float32)
                 tp[:, :min(plan.c_tile, c - c0)] = taps[:, c0:c0 + plan.c_tile]
-                acc = win[0:dw.T_TILE] * tp[0]
+                acc = win[0:t_tile] * tp[0]
                 for j in range(1, k):
-                    acc = acc + win[j:j + dw.T_TILE] * tp[j]
+                    acc = acc + win[j:j + t_tile] * tp[j]
                 for ty in range(plan.block[1]):
                     for tx in range(plan.block[0]):
-                        r0, cl = ty * dw.RT, tx * dw.VEC
-                        t_hi = min(t0 + r0 + dw.RT, plan.t_out)
+                        r0, cl = ty * rt, tx * dw.VEC
+                        t_hi = min(t0 + r0 + rt, plan.t_out)
                         c_hi = min(c0 + cl + dw.VEC, c)
                         if t0 + r0 >= t_hi or c0 + cl >= c_hi:
                             continue
@@ -304,6 +353,19 @@ def _walk(plan, xin, w, dgrad, itemsize):
     (3, 34, 99, 7, torch.bfloat16, True, {}),
     (2, 40, 256, 15, torch.bfloat16, False, {"x_ptr": 2}),
     (2, 30, 72, 15, torch.bfloat16, True, {"x_ptr": 6, "num_sms": 2}),
+    # K = 31, the taps in registers: TMA, cp.async and element loads,
+    # dgrad with T < K, and cards with few SMs
+    (2, 93, 64, 31, torch.float32, False, {}),
+    (2, 70, 136, 31, torch.bfloat16, True, {}),
+    (3, 60, 100, 31, torch.bfloat16, False, {}),
+    (3, 40, 100, 31, torch.bfloat16, True, {}),
+    (2, 50, 99, 31, torch.bfloat16, False, {}),
+    (2, 40, 72, 31, torch.bfloat16, True, {"x_ptr": 2}),
+    (1, 5, 4, 31, torch.float32, True, {}),
+    (1, 5, 4, 31, torch.bfloat16, True, {}),
+    (3, 100, 72, 31, torch.float32, False, {"num_sms": 1}),
+    (4, 40, 64, 31, torch.bfloat16, True, {"num_sms": 2}),
+    (2, 80, 136, 31, torch.float32, True, {"num_sms": 3}),
 ])
 def test_plan_walk_is_the_plain_version_bit_for_bit(b, t_in, c, k, dtype,
                                                     dgrad, device):
