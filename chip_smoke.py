@@ -28,7 +28,13 @@
    yardstick. torch.profiler shows that one call of depthwise_conv1d,
    depthwise_conv1d_dgrad, depthwise_conv1d_wgrad, ctc_dp_shared and
    ctc_dp_global each runs exactly one device kernel. K2's launch plan
-   (openeat_ctc_global_plan) must equal ctc.global_plan. Then the CTC
+   (openeat_ctc_global_plan) must equal ctc.global_plan. K3 at K = 31
+   (k31_cases): forward, dgrad and wgrad at the LibriSpeech micro-batches
+   [4, 353, 256], [3, 428, 256] and [2, 453, 256] (timed) and at ragged
+   shapes on every route, each case's three routes checked, by the rules
+   above (forward and dgrad bit-equal in both dtypes); the wgrad's plan
+   (openeat_dwconv1d_wgrad_plan) must equal dw.wgrad_plan at every K
+   kind, both dtypes and two SM counts. Then the CTC
    forward-backward K1/K2 counterparts (openeat_torch/csrc/ctc_loss.cu)
    against the plain recursions, bit for bit in loss and gamma (NEG_INF
    entries equal), with repeats, an infeasible row, len == 1 and an
@@ -262,9 +268,11 @@ from __future__ import annotations
 
 import copy
 import ctypes
+import itertools
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -1932,45 +1940,99 @@ def dwconv_grad_case(b: int, tp: int, c: int, k: int, dtype, gen,
     return row
 
 
-# K3 at K = 31 (the taps in registers) at fixed shapes, (B, T+K-1, C,
-# dtype, 2-byte offset, the routes of the forward and of the dgrad): the
-# LibriSpeech micro-batches, timed; then ragged cases on every route,
-# checked only: cp.async (C = 100 bf16), element loads (C = 99 bf16, an
-# input at a 2-byte offset) and a dgrad with T < K
-K31_TIMED = [(4, 353, 256), (2, 453, 256)]
+# K3 at K = 31 (the taps in registers; the wgrad's cluster instance) at
+# fixed shapes, (B, T+K-1, C, dtype, 2-byte offset, the routes of the
+# forward, the dgrad and the wgrad): the LibriSpeech micro-batches, timed;
+# then ragged cases on every route, checked only: cp.async (C = 100 bf16;
+# C = 4 bf16, whose rows take 8-byte copies), element loads (C = 99 bf16,
+# an input at a 2-byte offset) and a dgrad with T < K
+K31_TIMED = [(4, 353, 256), (3, 428, 256), (2, 453, 256)]
 K31_RAGGED = [
-    ((3, 60, 100), torch.bfloat16, False, "cp.async", "cp.async"),
-    ((3, 60, 99), torch.bfloat16, False, "element", "element"),
-    ((2, 60, 256), torch.bfloat16, True, "element", "element"),
-    ((1, 35, 4), torch.float32, False, "tma", "tma"),
-    ((1, 35, 4), torch.bfloat16, False, "cp.async", "cp.async"),
+    ((3, 60, 100), torch.bfloat16, False, "cp.async", "cp.async",
+     "cp.async"),
+    ((3, 60, 99), torch.bfloat16, False, "element", "element", "element"),
+    ((2, 60, 256), torch.bfloat16, True, "element", "element", "element"),
+    ((1, 35, 4), torch.float32, False, "tma", "tma", "tma"),
+    ((1, 35, 4), torch.bfloat16, False, "cp.async", "cp.async", "cp.async"),
 ]
 
 
 def k31_cases(gen) -> list:
     """K3's forward and dgrad at K = 31 bit-equal to their plain versions
-    in both dtypes on every route (the wgrad as dwconv_grad_case holds
-    it), at K31_TIMED and K31_RAGGED."""
-    cases = [(shape, dtype, False, "tma", "tma", True)
+    in both dtypes on every route, and its wgrad within dwconv_grad_case's
+    tolerance and bit-equal between two runs, at K31_TIMED and
+    K31_RAGGED; each case's three routes are checked against the
+    table."""
+    cases = [(shape, dtype, False, "tma", "tma", "tma", True)
              for shape in K31_TIMED
              for dtype in (torch.float32, torch.bfloat16)]
     cases += [(*case, False) for case in K31_RAGGED]
     rows = []
-    for (b, tp, c), dtype, offset, fwd_route, dgrad_route, timed in cases:
+    for (b, tp, c), dtype, offset, *routes, timed in cases:
         fwd = kernel_case(b, tp, c, 31, dtype, gen, offset=offset,
                           exact=True, timed=timed)
         bwd = dwconv_grad_case(b, tp, c, 31, dtype, gen, offset=offset,
                                timed=timed)
-        if (fwd["route"], bwd["dgrad_route"]) != (fwd_route, dgrad_route):
-            raise AssertionError(f"K = 31 at {[b, tp, c]}: routes "
-                                 f"{fwd['route']}, {bwd['dgrad_route']}")
+        got = [fwd["route"], bwd["dgrad_route"], bwd["wgrad_route"]]
+        if got != routes:
+            raise AssertionError(f"K = 31 at {[b, tp, c]}: routes {got}, "
+                                 f"not {routes}")
         if bwd["dgrad_max_abs_err"] != 0.0:
             raise AssertionError(f"K3 dgrad at K = 31 not bit-equal: {bwd}")
+        plan = dw.wgrad_plan(b, tp, c, 31, 4 if dtype == torch.float32
+                             else 2)
         row = {"shape": [b, tp, c], "dtype": fwd["dtype"], "fwd": fwd,
-               "bwd": bwd}
+               "bwd": bwd, "wgrad_plan": {
+                   "grid": plan.grid, "block": plan.block, "per": plan.per,
+                   "rows": plan.rows, "cluster": plan.cluster}}
         rows.append(row)
         print("K3 K=31 " + json.dumps(row), flush=True)
+        if timed:
+            print(f"K3 K=31 wgrad {[b, tp, c]} {fwd['dtype']}: "
+                  f"{bwd['wgrad_ms'] * 1e3:.2f} us, bound "
+                  f"{bwd['wgrad_bound_ms'] * 1e3:.3f} us "
+                  f"({bwd['wgrad_bound_by']}), aten.convolution_backward dw "
+                  f"{bwd['wgrad_library_ms'] * 1e3:.2f} us, plain "
+                  f"{bwd['wgrad_plain_ms'] * 1e3:.1f} us, grid "
+                  f"{plan.grid} x {plan.block}", flush=True)
     return rows
+
+
+# the wgrad instances' route parameter G, as ptxas names them
+WGRAD_ROUTES = {"0": "tma", "2": "element", "4": "cp.async 4",
+                "8": "cp.async 8"}
+
+
+def check_wgrad_plan(sms: int) -> int:
+    """The wgrad's plan as the C launcher makes it
+    (openeat_dwconv1d_wgrad_plan) against dw.wgrad_plan over batches,
+    lengths, widths and K (K_FIXED, K_WIDE and run-time K), both dtypes,
+    on this card's `sms` SMs and on 3. Returns the number of plans
+    compared."""
+    fn = dw._entry("openeat_dwconv1d_wgrad_plan",
+                   (ctypes.c_int,) * 6 + (ctypes.c_void_p,))
+    out = (ctypes.c_longlong * len(dw.WGRAD_PLAN_FIELDS))()
+    n = 0
+    for b, tp, c, k in itertools.product(
+            (1, 2, 3, 4, 9, 22), (31, 60, 162, 353, 428, 453, 700),
+            (4, 99, 100, 256), (7, 15, 23, 31, 64)):
+        if tp < k:
+            continue
+        for code, item in ((0, 4), (1, 2)):
+            for n_sms in (sms, 3):
+                rc = fn(b, tp, c, k, code, n_sms, ctypes.addressof(out))
+                try:
+                    py = dw.wgrad_plan_fields(dw.wgrad_plan(
+                        b, tp, c, k, item, num_sms=n_sms))
+                except ValueError:
+                    py = None
+                got = tuple(out) if rc == 0 else None
+                if got != py:
+                    raise AssertionError(
+                        f"wgrad plan at B={b}, T={tp}, C={c}, K={k}, "
+                        f"{item}-byte, {n_sms} SMs: C {got}, Python {py}")
+                n += 1
+    return n
 
 
 def _device_kernels(call, attempts: int = 3) -> dict:
@@ -3934,6 +3996,16 @@ def main() -> None:
         for source, entries in report["ptxas"].items():
             for e in entries:
                 print(f"ptxas {source} {json.dumps(e)}", flush=True)
+        for e in report["ptxas"][dw.SOURCE]:
+            m = re.search(r"wgrad_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E",
+                          e["entry"])
+            if m:
+                kf = {"0": "run-time K"}.get(m[2], f"K = {m[2]}")
+                print(f"ptxas wgrad {kf} "
+                      f"{'float32' if m[1] == 'f' else 'bfloat16'} "
+                      f"{WGRAD_ROUTES[m[3]]}: {e['registers']} registers, "
+                      f"spills {e['spill_stores']} / {e['spill_loads']} "
+                      f"bytes", flush=True)
         spilled = [e for entries in report["ptxas"].values() for e in entries
                    if e["spill_stores"] or e["spill_loads"]]
         if spilled:
@@ -3999,6 +4071,8 @@ def main() -> None:
         report["k3_backward_cases"] = grad_rows
         lap("k3_backward_cases")
         report["k3_k31_cases"] = k31_cases(gen)
+        report["wgrad_plans_checked"] = check_wgrad_plan(
+            torch.cuda.get_device_properties(0).multi_processor_count)
         lap("k3_k31_cases")
         print(f"K3 K = 31 cases {phase_s['k3_k31_cases']:.2f} s", flush=True)
         report["k3_kernels_per_call"] = k3_kernels_per_call(

@@ -656,33 +656,73 @@ int launch_conv(const void* x, const void* w, void* out, int batch, int t_in,
 // - Each item's x window (rows + K - 1 rows) and dy rows land in a ring
 //   of W_STAGES stages in shared memory by the forward's routes: TMA
 //   through two tensor maps, else cp.async or element copies.
-// - A thread owns VEC channels and a contiguous share of the item's rows
-//   (one of W_GROUPS row groups). It keeps KC x VEC float32 accumulators
-//   and a sliding window of KC x rows in registers (the compile-time
-//   K = 15: one pass of KC = 15 taps; other K: passes of W_KC taps), so
-//   each x row and each dy row is one vector load from shared memory per
-//   pass. With K = 15 the sums stay in registers over all of the block's
-//   items and go to the thread's own slots of red [row group][K][c_tile]
-//   in shared memory once; other K add each item's passes into them.
-// - The block adds its row groups in order and writes its K x c_tile
-//   partial to the workspace. Across blocks the sum is taken by the last
-//   block to finish (way (b)): each block takes a ticket, an integer
-//   atomic per channel tile, once its partial is visible; the block that
-//   takes the last one adds the tile's partials in split order, rounds
-//   once to dw's dtype and resets the ticket; it loads up to W_FINAL
-//   partials at once, so the sum waits on few round trips. A cluster
-//   (way (a)) would cap a channel tile at 8 blocks (16 non-portable):
-//   64 blocks on 132 SMs at C = 256; a ticket takes any number. No
-//   float atomics: two runs give the same bits.
+// - A thread owns VEC channels, a contiguous share of the item's rows
+//   (one of W_GROUPS row groups) and KC of the taps. It keeps KC x VEC
+//   float32 accumulators and a sliding window of KC x rows in registers,
+//   so each x row and each dy row is one vector load from shared memory
+//   per pass. The compile-time instances take one pass and keep their
+//   sums in registers over all of the block's items: K_FIXED = 15 in one
+//   group of KC = 15 taps; K_WIDE = 31 in W_TAP_GROUPS = 2 groups of
+//   KC = 16 taps (blockDim.z; taps 0-15 and 16-30, the 32nd a dropped
+//   product of clamped rows), both groups reading the same staged rows,
+//   since 31 x VEC sums beside a 31 x VEC window would not fit in
+//   registers. Any other K takes passes of W_KC taps and adds each
+//   item's passes into the thread's slots of red [row group][K][c_tile]
+//   in shared memory; the one-pass instances write their slots once.
+// - The block adds its row groups in order into its K x c_tile partial.
+//   Across blocks, K_WIDE's splits (at most W_CLUSTER) are one
+//   thread-block cluster: each block stores its partial of output i into
+//   the shared memory of block i % splits, and after one cluster barrier
+//   each block adds its outputs' partials in split order and rounds once
+//   to dw's dtype. Other K write their partials to the workspace, and
+//   the last block of the tile to finish takes the sum: each block takes
+//   a ticket, an integer atomic per channel tile, once its partial is
+//   visible; the block that takes the last one adds the tile's partials
+//   in split order, rounds once and resets the ticket; it loads up to
+//   W_FINAL partials at once, so the sum waits on few round trips. No
+//   float atomics either way: two runs give the same bits.
+// - K_WIDE's tiling, measured on the H100 against the K = 15 one
+//   (PERF.md): 16-channel tiles and items of up to W_WIDE_ROWS rows, at
+//   least W_CLUSTER / batch a batch row, give 96-128 blocks of 128
+//   threads at the LibriSpeech micro-batches, all resident at once (256
+//   threads a block ran the clusters in two waves); the cluster's sum
+//   replaced a store, a fence, a ticket and the last block's loads, the
+//   largest share of the time with the workspace route.
 
 constexpr int W_C_TILE = 32;        // most channels per block
 constexpr int W_ROWS = 128;         // most output rows per item
 constexpr int W_GROUPS = 16;        // row groups per block (blockDim.y)
 constexpr int W_KC = 8;             // taps per pass for a runtime K
+constexpr int W_TAP_GROUPS = 2;     // groups of taps (blockDim.z) at K_WIDE
+constexpr int W_WIDE_C_TILE = 16;   // K_WIDE: most channels per block
+constexpr int W_WIDE_GROUPS = 16;   // K_WIDE: row groups per block
+constexpr int W_WIDE_ROWS = 226;    // K_WIDE: most output rows per item
+constexpr int W_CLUSTER = 8;        // K_WIDE: most blocks per channel tile
 constexpr int W_STAGES = 3;         // ring of items per block
 constexpr int W_BLOCKS_PER_SM = 1;  // the grid's target
 constexpr int W_MAX_CTILES = 1024;  // tickets at the workspace's head
 constexpr int W_FINAL = 32;         // partials the final sum loads at once
+// shared memory after the ring: red, W_STAGES barriers and the ticket,
+// then (K_WIDE) the inbox of float4s, 16-byte aligned
+static_assert((W_STAGES * 8 + 8) % 16 == 0, "the inbox's alignment");
+
+// The wgrad's instances: KF = K_FIXED or K_WIDE is a compile-time K
+// summed in one pass by wgrad_tap_groups(KF) groups of wgrad_kc(KF) taps;
+// KF = 0 takes K at run time, in passes of W_KC taps.
+__host__ __device__ constexpr int wgrad_tap_groups(int kf) {
+  return kf == K_WIDE ? W_TAP_GROUPS : 1;
+}
+__host__ __device__ constexpr int wgrad_kc(int kf) {
+  return kf == 0 ? W_KC
+                 : (kf + wgrad_tap_groups(kf) - 1) / wgrad_tap_groups(kf);
+}
+__host__ __device__ constexpr int wgrad_groups(int kf) {
+  return kf == K_WIDE ? W_WIDE_GROUPS : W_GROUPS;
+}
+__host__ __device__ constexpr int wgrad_threads(int kf) {
+  return (kf == K_WIDE ? W_WIDE_C_TILE : W_C_TILE) / VEC * wgrad_groups(kf) *
+         wgrad_tap_groups(kf);
+}
 
 struct WParams {
   const void* x;     // [batch, t_in, c]
@@ -698,12 +738,44 @@ __device__ __forceinline__ float4 add4(float4 a, float4 b) {
   return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
 }
 
+// The cluster barrier in two halves: arrive (this thread's shared-memory
+// writes before it released to the cluster; relaxed: nothing released)
+// and wait (returns once every thread of every block in the cluster has
+// arrived, acquiring what they released)
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// v into the float4 at `local`'s offset in the shared memory of the
+// cluster's block `rank`
+__device__ __forceinline__ void st_cluster4(float4* local, uint32_t rank,
+                                            float4 v) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(remote)
+               : "r"(smem_u32(local)), "r"(rank));
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};" ::"r"(
+                   remote),
+               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
 // acc[jj] += x[r + j0 + jj] * dy[r] for the staged rows r in [lo, hi),
 // x rows clamped to x_last (rows past it feed only taps j0 + jj >= K,
 // which the caller drops). xw holds x rows r + j0 .. r + j0 + KC - 1 in
 // slots (r - lo + jj) % KC; unrolled by KC, every slot index is a
-// compile-time constant.
-template <int KC, typename T>
+// compile-time constant. EXIT leaves the unrolled rows at the first one
+// past hi, so they reconverge once and not at every row: measured faster
+// at K_WIDE (at most 15 rows a thread), slower at K_FIXED (PERF.md); the
+// K_WIDE instances of the copy routes spill with it at the 168 registers
+// ptxas gives them, so only the TMA route takes it.
+template <int KC, bool EXIT, typename T>
 __device__ __forceinline__ void wgrad_rows(const T* xs, const T* ds,
                                            int stride, int lo, int hi,
                                            int j0, int x_last,
@@ -717,6 +789,7 @@ __device__ __forceinline__ void wgrad_rows(const T* xs, const T* ds,
 #pragma unroll
     for (int u = 0; u < KC; ++u) {
       const int r = base + u;
+      if (EXIT && r >= hi) break;
       if (r < hi) {
         load_vec(xs + min(r + j0 + KC - 1, x_last) * stride,
                  xw[(u + KC - 1) % KC]);
@@ -735,25 +808,35 @@ __device__ __forceinline__ void wgrad_rows(const T* xs, const T* ds,
 }
 
 // G = 0: items arrive by TMA through xmap and dmap; G = 2, 4 or 8: by
-// copies of G bytes (maps unused). KC taps per pass.
-template <typename T, int KC, int G>
-__global__ void __launch_bounds__(W_C_TILE / VEC * W_GROUPS)
+// copies of G bytes (maps unused). KF: the compile-time K, or 0.
+template <typename T, int KF, int G>
+__global__ void __launch_bounds__(wgrad_threads(KF))
     dwconv1d_wgrad_kernel(const __grid_constant__ CUtensorMap xmap,
                           const __grid_constant__ CUtensorMap dmap,
                           const WParams p) {
+  constexpr int TG = wgrad_tap_groups(KF);
+  constexpr int KC = wgrad_kc(KF);
+  constexpr int GROUPS = wgrad_groups(KF);
+  constexpr bool ONE_PASS = KF != 0;
+  constexpr bool CLUSTER = KF == K_WIDE;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((128 - (smem_u32(smem_raw) & 127)) & 127);
   float* red = reinterpret_cast<float*>(smem + W_STAGES * p.stage_bytes);
   uint64_t* full =
-      reinterpret_cast<uint64_t*>(red + (size_t)W_GROUPS * p.k * p.c_tile);
+      reinterpret_cast<uint64_t*>(red + (size_t)GROUPS * p.k * p.c_tile);
   unsigned* last = reinterpret_cast<unsigned*>(full + W_STAGES);
+  // CLUSTER: the partials of this block's outputs, one float4 from each
+  // block of the cluster: [output / splits][rank]
+  float4* inbox = reinterpret_cast<float4*>(full + W_STAGES + 1);
 
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int nthr = blockDim.x * blockDim.y;
+  const int tz = TG > 1 ? (int)threadIdx.z : 0;  // tap group
+  const int tid = (tz * blockDim.y + threadIdx.y) * blockDim.x + threadIdx.x;
+  const int nthr = blockDim.x * blockDim.y * TG;
   const int ctile = blockIdx.x;
   const int c0 = ctile * p.c_tile;
   const int cl = threadIdx.x * VEC;
   const int g = threadIdx.y;
+  const int j0 = tz * KC;  // this thread's first tap in one pass
   const int i0 = blockIdx.y * p.per;
   const int n_mine = min(p.per, p.n_items - i0);
 
@@ -776,6 +859,9 @@ __global__ void __launch_bounds__(W_C_TILE / VEC * W_GROUPS)
     }
   };
 
+  // the cluster's blocks have all started before any writes to another's
+  // shared memory (the matching wait comes before the first such write)
+  if constexpr (CLUSTER) cluster_arrive_relaxed();
   if constexpr (G == 0) {
     if (tid == 0) {
       for (int s = 0; s < W_STAGES; ++s) mbar_init(&full[s], 1);
@@ -788,13 +874,13 @@ __global__ void __launch_bounds__(W_C_TILE / VEC * W_GROUPS)
       cp_async_commit();  // one group per stage, empty or not
     }
   }
-  if constexpr (KC != K_FIXED) {
-    for (int i = tid; i < W_GROUPS * p.k * p.c_tile; i += nthr) red[i] = 0.0f;
+  if constexpr (!ONE_PASS) {
+    for (int i = tid; i < GROUPS * p.k * p.c_tile; i += nthr) red[i] = 0.0f;
   }
   __syncthreads();  // barriers initialised, red zeroed
 
   float* my_red = red + (size_t)g * p.k * p.c_tile + cl;
-  float keep[KC][VEC] = {};  // K_FIXED: one pass, sums over all items
+  float keep[KC][VEC] = {};  // one pass: sums over all items
   for (int n = 0; n < n_mine; ++n) {
     const int s = n % W_STAGES;
     if constexpr (G == 0) {
@@ -805,17 +891,19 @@ __global__ void __launch_bounds__(W_C_TILE / VEC * W_GROUPS)
     }
     const int t0 = ((i0 + n) % p.q) * p.rows;
     const int n_rows = min(p.rows, p.t_out - t0);
-    const int lo = g * n_rows / W_GROUPS;
-    const int hi = (g + 1) * n_rows / W_GROUPS;
+    const int lo = g * n_rows / GROUPS;
+    const int hi = (g + 1) * n_rows / GROUPS;
     const unsigned char* stage = smem + s * p.stage_bytes;
     const T* xs = reinterpret_cast<const T*>(stage) + cl;
     const T* ds = reinterpret_cast<const T*>(stage + p.x_bytes) + cl;
-    if (KC == K_FIXED && lo < hi) {
-      wgrad_rows<KC>(xs, ds, p.c_tile, lo, hi, 0, p.x_rows - 1, keep);
+    if (ONE_PASS && lo < hi) {
+      wgrad_rows<KC, CLUSTER && G == 0>(xs, ds, p.c_tile, lo, hi, j0,
+                                        p.x_rows - 1, keep);
     } else if (lo < hi) {
       for (int j0 = 0; j0 < p.k; j0 += KC) {
         float acc[KC][VEC] = {};
-        wgrad_rows<KC>(xs, ds, p.c_tile, lo, hi, j0, p.x_rows - 1, acc);
+        wgrad_rows<KC, false>(xs, ds, p.c_tile, lo, hi, j0, p.x_rows - 1,
+                              acc);
 #pragma unroll
         for (int jj = 0; jj < KC; ++jj) {
           if (j0 + jj < p.k) {
@@ -837,23 +925,58 @@ __global__ void __launch_bounds__(W_C_TILE / VEC * W_GROUPS)
     }
     if constexpr (G != 0) cp_async_commit();
   }
-  if constexpr (KC == K_FIXED) {
+  if constexpr (ONE_PASS) {
 #pragma unroll
     for (int j = 0; j < KC; ++j) {
-      *reinterpret_cast<float4*>(my_red + (size_t)j * p.c_tile) =
-          make_float4(keep[j][0], keep[j][1], keep[j][2], keep[j][3]);
+      if (j0 + j < KF) {
+        *reinterpret_cast<float4*>(my_red + (size_t)(j0 + j) * p.c_tile) =
+            make_float4(keep[j][0], keep[j][1], keep[j][2], keep[j][3]);
+      }
     }
   }
   __syncthreads();  // every row group's sums are in red
 
   // this block's partial: the row groups added in order
   const int nvec = p.k * p.c_tile / VEC;
-  const float4* red4 = reinterpret_cast<const float4*>(red);
+  float4* red4 = reinterpret_cast<float4*>(red);
+  T* dw = static_cast<T*>(p.dw);
+  const int cvec = p.c_tile / VEC;
+  if constexpr (CLUSTER) {
+    // the cluster's blocks (the tile's splits, rank = split) share the
+    // final sum: output i belongs to block i % splits, and each block
+    // stores its partial of i there, into inbox slot [i / splits][rank];
+    // after the cluster barrier each block adds its outputs' partials in
+    // rank order from its own shared memory
+    const int s_n = p.splits;
+    cluster_wait();
+    for (int i = tid; i < nvec; i += nthr) {
+      float4 a = red4[i];
+      for (int gg = 1; gg < GROUPS; ++gg) a = add4(a, red4[(size_t)gg * nvec + i]);
+      st_cluster4(inbox + (size_t)(i / s_n) * s_n + blockIdx.y,
+                  (uint32_t)(i % s_n), a);
+    }
+    cluster_arrive();
+    cluster_wait();  // every block's partials are in their owners' inboxes
+    for (int m = tid; m * s_n + (int)blockIdx.y < nvec; m += nthr) {
+      const int i = m * s_n + blockIdx.y;
+      const float4* in = inbox + (size_t)m * s_n;
+      float4 a = in[0];
+      for (int u = 1; u < s_n; ++u) a = add4(a, in[u]);
+      const float v[VEC] = {a.x, a.y, a.z, a.w};
+      const int j = i / cvec;
+      const int ch = c0 + (i % cvec) * VEC;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        if (ch + e < p.c) store_from_f32(dw + (size_t)j * p.c + ch + e, v[e]);
+      }
+    }
+    return;
+  }
   float4* part = reinterpret_cast<float4*>(p.part) +
                  (size_t)ctile * p.splits * nvec;
   for (int i = tid; i < nvec; i += nthr) {
     float4 a = red4[i];
-    for (int gg = 1; gg < W_GROUPS; ++gg) a = add4(a, red4[(size_t)gg * nvec + i]);
+    for (int gg = 1; gg < GROUPS; ++gg) a = add4(a, red4[(size_t)gg * nvec + i]);
     __stcg(part + (size_t)blockIdx.y * nvec + i, a);
   }
   __threadfence();  // the partial is visible before the ticket is taken
@@ -864,8 +987,6 @@ __global__ void __launch_bounds__(W_C_TILE / VEC * W_GROUPS)
 
   // the tile's last block: all partials in split order, one rounding
   __threadfence();
-  T* dw = static_cast<T*>(p.dw);
-  const int cvec = p.c_tile / VEC;
   for (int i = tid; i < nvec; i += nthr) {
     // up to W_FINAL partials in flight at once, added in split order
     float4 a = __ldcg(part + i);
@@ -891,40 +1012,59 @@ __global__ void __launch_bounds__(W_C_TILE / VEC * W_GROUPS)
   if (tid == 0) p.ticket[ctile] = 0;  // for the next launch on the stream
 }
 
-template <typename T, int KC, int G>
+template <typename T, int KF, int G>
 int wgrad_instance(const CUtensorMap& xmap, const CUtensorMap& dmap,
                    const WParams& p, dim3 grid, dim3 block, int smem,
                    cudaStream_t stream) {
   static bool smem_raised = false;  // as in launch_instance
   if (!smem_raised) {
     const cudaError_t e = cudaFuncSetAttribute(
-        dwconv1d_wgrad_kernel<T, KC, G>,
+        dwconv1d_wgrad_kernel<T, KF, G>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
     if (e != cudaSuccess) return (int)e;
     smem_raised = true;
   }
-  dwconv1d_wgrad_kernel<T, KC, G><<<grid, block, smem, stream>>>(xmap, dmap,
-                                                                 p);
+  if constexpr (KF == K_WIDE) {
+    // a cluster of the channel tile's splits (at most W_CLUSTER)
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 1;
+    attr[0].val.clusterDim.y = grid.y;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = block;
+    cfg.dynamicSmemBytes = (size_t)smem;
+    cfg.stream = stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t e = cudaLaunchKernelEx(
+        &cfg, dwconv1d_wgrad_kernel<T, KF, G>, xmap, dmap, p);
+    if (e != cudaSuccess) return (int)e;
+  } else {
+    dwconv1d_wgrad_kernel<T, KF, G><<<grid, block, smem, stream>>>(xmap, dmap,
+                                                                   p);
+  }
   return (int)cudaGetLastError();
 }
 
-template <typename T, int KC>
+template <typename T, int KF>
 int wgrad_route(int copy_bytes, const CUtensorMap& xmap,
                 const CUtensorMap& dmap, const WParams& p, dim3 grid,
                 dim3 block, int smem, cudaStream_t stream) {
   switch (copy_bytes) {
     case 0:
-      return wgrad_instance<T, KC, 0>(xmap, dmap, p, grid, block, smem,
+      return wgrad_instance<T, KF, 0>(xmap, dmap, p, grid, block, smem,
                                       stream);
     case 4:
-      return wgrad_instance<T, KC, 4>(xmap, dmap, p, grid, block, smem,
+      return wgrad_instance<T, KF, 4>(xmap, dmap, p, grid, block, smem,
                                       stream);
     case 8:
-      return wgrad_instance<T, KC, 8>(xmap, dmap, p, grid, block, smem,
+      return wgrad_instance<T, KF, 8>(xmap, dmap, p, grid, block, smem,
                                       stream);
     case 2:  // element loads, bfloat16 only
       if constexpr (sizeof(T) == 2) {
-        return wgrad_instance<T, KC, 2>(xmap, dmap, p, grid, block, smem,
+        return wgrad_instance<T, KF, 2>(xmap, dmap, p, grid, block, smem,
                                         stream);
       }
       return (int)cudaErrorInvalidValue;
@@ -933,13 +1073,30 @@ int wgrad_route(int copy_bytes, const CUtensorMap& xmap,
   }
 }
 
+// the compile-time instance for K_FIXED and K_WIDE, else the run-time K
+template <typename T>
+int wgrad_typed(int k, int copy_bytes, const CUtensorMap& xmap,
+                const CUtensorMap& dmap, const WParams& p, dim3 grid,
+                dim3 block, int smem, cudaStream_t stream) {
+  if (k == K_FIXED) {
+    return wgrad_route<T, K_FIXED>(copy_bytes, xmap, dmap, p, grid, block,
+                                   smem, stream);
+  }
+  if (k == K_WIDE) {
+    return wgrad_route<T, K_WIDE>(copy_bytes, xmap, dmap, p, grid, block,
+                                  smem, stream);
+  }
+  return wgrad_route<T, 0>(copy_bytes, xmap, dmap, p, grid, block, smem,
+                           stream);
+}
+
 // The wgrad's plan: the items, the grid, the shared memory and the
 // workspace, from the constants above. openeat_torch/ops/
 // depthwise_conv.py:wgrad_plan states the same plan. Returns false for a
 // problem the kernel does not take.
 struct WPlan {
   int c_tile, n_ctiles, rows, q, n_items, per, splits, x_rows, x_bytes,
-      stage_bytes, smem;
+      stage_bytes, smem, kf, kc, tap_groups, groups, cluster;
   long long ws_floats;
 };
 
@@ -947,26 +1104,43 @@ bool wgrad_plan(int batch, int t_in, int c, int k, int item, int sms,
                 WPlan* w) {
   const int t_out = t_in - k + 1;
   if (batch <= 0 || c <= 0 || k <= 0 || t_out <= 0 || sms <= 0) return false;
-  w->c_tile = channel_tile(c, item, W_C_TILE);
+  w->kf = k == K_FIXED || k == K_WIDE ? k : 0;
+  w->kc = wgrad_kc(w->kf);
+  w->tap_groups = wgrad_tap_groups(w->kf);
+  w->groups = wgrad_groups(w->kf);
+  w->cluster = w->kf == K_WIDE;
+  w->c_tile = channel_tile(c, item, w->cluster ? W_WIDE_C_TILE : W_C_TILE);
   w->n_ctiles = (c + w->c_tile - 1) / w->c_tile;
-  // items of at most W_ROWS rows, shorter where a large K leaves less
-  // shared memory for the ring
+  // items of at most W_ROWS rows (K_WIDE: W_WIDE_ROWS, and at least
+  // W_CLUSTER / batch items a batch row), shorter where a large K leaves
+  // less shared memory for the ring
+  const int cap = w->cluster ? W_WIDE_ROWS : W_ROWS;
+  int q0 = (t_out + cap - 1) / cap;
+  if (w->cluster && q0 < W_CLUSTER / batch) q0 = W_CLUSTER / batch;
   long long x_bytes = 0, stage_bytes = 0, smem = 0;
-  for (w->q = (t_out + W_ROWS - 1) / W_ROWS;; ++w->q) {
+  for (w->q = q0;; ++w->q) {
     w->rows = (t_out + w->q - 1) / w->q;
     w->x_rows = w->rows + k - 1;
     x_bytes = ((long long)w->x_rows * w->c_tile * item + 127) / 128 * 128;
     stage_bytes =
         x_bytes + ((long long)w->rows * w->c_tile * item + 127) / 128 * 128;
     smem = 128 + W_STAGES * stage_bytes +
-           (long long)W_GROUPS * k * w->c_tile * 4 + W_STAGES * 8 + 8;
+           (long long)w->groups * k * w->c_tile * 4 + W_STAGES * 8 + 8 +
+           (w->cluster ? ((long long)k * w->c_tile / VEC + W_CLUSTER) * 16
+                       : 0);
     if (smem <= SMEM_MAX || w->rows == 1) break;
   }
+  w->q = (t_out + w->rows - 1) / w->rows;  // no empty item
   const long long n_items = (long long)batch * w->q;
-  const long long target =
-      ((long long)W_BLOCKS_PER_SM * sms + w->n_ctiles - 1) / w->n_ctiles;
-  long long per = (n_items + target - 1) / target;
-  if (per < (n_items + 65534) / 65535) per = (n_items + 65534) / 65535;
+  long long per = 0;
+  if (w->cluster) {
+    per = (n_items + W_CLUSTER - 1) / W_CLUSTER;
+  } else {
+    const long long target =
+        ((long long)W_BLOCKS_PER_SM * sms + w->n_ctiles - 1) / w->n_ctiles;
+    per = (n_items + target - 1) / target;
+    if (per < (n_items + 65534) / 65535) per = (n_items + 65534) / 65535;
+  }
   if (n_items > 0x7fffffffLL || w->x_rows > MAX_BOX || smem > SMEM_MAX ||
       w->n_ctiles > W_MAX_CTILES) {
     return false;
@@ -978,7 +1152,9 @@ bool wgrad_plan(int batch, int t_in, int c, int k, int item, int sms,
   w->stage_bytes = (int)stage_bytes;
   w->smem = (int)smem;
   w->ws_floats = W_MAX_CTILES +
-                 (long long)w->n_ctiles * w->splits * k * w->c_tile;
+                 (w->cluster ? 0LL
+                             : (long long)w->n_ctiles * w->splits * k *
+                                   w->c_tile);
   return true;
 }
 
@@ -1065,18 +1241,35 @@ extern "C" int openeat_dwconv1d_wgrad(const void* x, const void* dy,
   p.x_bytes = w.x_bytes;
   p.stage_bytes = w.stage_bytes;
   const dim3 grid(w.n_ctiles, w.splits);
-  const dim3 block(w.c_tile / VEC, W_GROUPS);
+  const dim3 block(w.c_tile / VEC, w.groups, w.tap_groups);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return k == K_FIXED
-               ? wgrad_route<float, K_FIXED>(copy_bytes, xmap, dmap, p, grid,
-                                             block, w.smem, s)
-               : wgrad_route<float, W_KC>(copy_bytes, xmap, dmap, p, grid,
-                                          block, w.smem, s);
+    return wgrad_typed<float>(w.kf, copy_bytes, xmap, dmap, p, grid, block,
+                              w.smem, s);
   }
-  return k == K_FIXED
-             ? wgrad_route<__nv_bfloat16, K_FIXED>(copy_bytes, xmap, dmap, p,
-                                                   grid, block, w.smem, s)
-             : wgrad_route<__nv_bfloat16, W_KC>(copy_bytes, xmap, dmap, p,
-                                                grid, block, w.smem, s);
+  return wgrad_typed<__nv_bfloat16>(w.kf, copy_bytes, xmap, dmap, p, grid,
+                                    block, w.smem, s);
+}
+
+// The wgrad's plan for x [batch, tp, c] (dtype as above) on a card of
+// `sms` SMs, as openeat_dwconv1d_wgrad derives it, into out[14]: c_tile,
+// n_ctiles, rows, q, n_items, per, splits, x_rows, smem, kc, tap_groups,
+// row groups, cluster (1: the splits of a channel tile are a cluster)
+// and ws_floats, the fields of openeat_torch/ops/depthwise_conv.py:
+// WGRAD_PLAN_FIELDS. Returns 0, or cudaErrorInvalidValue for a problem
+// the kernel does not take.
+extern "C" int openeat_dwconv1d_wgrad_plan(int batch, int tp, int c, int k,
+                                           int dtype, int sms,
+                                           long long* out) {
+  WPlan w;
+  if ((dtype != 0 && dtype != 1) ||
+      !wgrad_plan(batch, tp, c, k, dtype == 0 ? 4 : 2, sms, &w)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long v[14] = {w.c_tile, w.n_ctiles, w.rows,   w.q,
+                           w.n_items, w.per,     w.splits, w.x_rows,
+                           w.smem,   w.kc,       w.tap_groups, w.groups,
+                           w.cluster, w.ws_floats};
+  for (int i = 0; i < 14; ++i) out[i] = v[i];
+  return 0;
 }

@@ -22,9 +22,11 @@ thread per access (16 bytes of float32, 8 of bfloat16). The dgrad
 reads dy and the forward's w as they are: its K-1 halo is the loads'
 zero fill and its reversed taps a read order, so it is one launch.
 wgrad is one launch too: blocks stage long spans of x and dy by the
-same routes, sum in registers, and the last block of each channel tile
-adds the blocks' partials in a fixed order (an integer ticket, no float
-atomics), so two runs give the same bits. :func:`launch_plan` and
+same routes and sum in registers; at K = 31 a channel tile's blocks are
+one thread-block cluster that adds their partials through shared memory,
+at other K the last block of each channel tile adds them from a
+workspace (an integer ticket). Either adds them in a fixed order, with
+no float atomics, so two runs give the same bits. :func:`launch_plan` and
 :func:`wgrad_plan` are the launch decisions in Python (the route passed,
 the tiles the kernel's launcher derives), so the CPU tests reach them.
 
@@ -306,12 +308,20 @@ def depthwise_conv1d_dgrad(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 # The wgrad kernel's constants (openeat_torch/csrc/depthwise_conv.cu):
 # at most W_C_TILE channels a block, items of at most W_ROWS output rows,
 # W_GROUPS row groups a block, W_KC taps a pass for a K other than
-# K_FIXED, a ring of W_STAGES items, about W_BLOCKS_PER_SM blocks per SM,
-# W_MAX_CTILES tickets at the workspace's head.
+# K_FIXED and K_WIDE, a ring of W_STAGES items, about W_BLOCKS_PER_SM
+# blocks per SM, W_MAX_CTILES tickets at the workspace's head. K_WIDE
+# has a tiling of its own: W_TAP_GROUPS groups of taps, at most
+# W_WIDE_C_TILE channels and W_WIDE_ROWS output rows an item, W_WIDE_GROUPS
+# row groups, and a cluster of at most W_CLUSTER blocks a channel tile.
 W_C_TILE = 32
 W_ROWS = 128
 W_GROUPS = 16
 W_KC = 8
+W_TAP_GROUPS = 2
+W_WIDE_C_TILE = 16
+W_WIDE_GROUPS = 16
+W_WIDE_ROWS = 226
+W_CLUSTER = 8
 W_STAGES = 3
 W_BLOCKS_PER_SM = 1
 W_MAX_CTILES = 1024
@@ -323,14 +333,20 @@ class WgradPlan:
     output rows are ``q`` items of ``rows`` rows (the last one shorter);
     item i is (batch i // q, rows from (i % q) * rows). Block (ctile,
     split) owns channels [ctile * c_tile, + c_tile) and items [split *
-    per, + per); row group g of its threads takes rows [g * n // W_GROUPS,
-    (g + 1) * n // W_GROUPS) of an item of n rows, in order, ``kc`` taps
-    a pass (with K_FIXED one pass, summed over all of the block's items;
-    other K add each item's passes into the thread's slots). The block adds
-    its row groups in order 0..W_GROUPS-1 into its partial; the tile's
-    last block adds the ``splits`` partials in split order and rounds
-    once. ``ws_floats`` is the workspace: W_MAX_CTILES tickets, then
-    n_ctiles x splits x K x c_tile partials."""
+    per, + per); row group g of its G = ``block[1]`` row groups takes
+    rows [g * n // G, (g + 1) * n // G) of an item of n rows, in order.
+    With ``one_pass`` (K_FIXED and K_WIDE, the kernel's compile-time K)
+    tap group z takes taps [z * kc, (z + 1) * kc) and sums them over all
+    of the block's items; other K take passes of ``kc`` taps and add each
+    item's passes into the thread's slots. The block adds its row groups
+    in order 0..G-1 into its partial. With ``cluster`` (K_WIDE) the
+    tile's splits are one thread-block cluster: each block stores its
+    partial of output i in the shared memory of block i % splits, which
+    adds the ``splits`` partials in split order; otherwise the tile's last
+    block adds them in split order from the workspace. Either rounds
+    once.
+    ``ws_floats`` is the workspace: W_MAX_CTILES tickets, then (without
+    ``cluster``) n_ctiles x splits x K x c_tile partials."""
 
     route: str            # "tma", "cp.async" or "element"
     copy_bytes: int       # 0 on the TMA route, else 2, 4 or 8
@@ -343,9 +359,12 @@ class WgradPlan:
     n_items: int
     per: int              # items per block
     splits: int           # blocks per channel tile
-    kc: int               # taps per pass
+    one_pass: bool        # a compile-time K: sums in registers
+    kc: int               # taps a thread sums at once (a pass)
+    tap_groups: int       # threads that share a row, each with kc taps
+    cluster: bool         # the splits of a channel tile are a cluster
     grid: tuple[int, int]
-    block: tuple[int, int]  # (channel vectors, row groups)
+    block: tuple[int, int, int]  # (channel vectors, row groups, tap groups)
     smem_bytes: int
     ws_floats: int
 
@@ -367,24 +386,36 @@ def wgrad_plan(batch: int, t_in: int, c: int, k: int, itemsize: int, *,
         raise ValueError(f"empty wgrad problem: B={batch}, T_in={t_in}, "
                          f"C={c}, K={k}")
     route, copy_bytes = pick_route(c * itemsize, itemsize, x_ptr, dy_ptr)
-    c_tile = channel_tile(c, itemsize, W_C_TILE)
+    one_pass = k in (K_FIXED, K_WIDE)
+    cluster = k == K_WIDE
+    tap_groups = W_TAP_GROUPS if cluster else 1
+    groups = W_WIDE_GROUPS if cluster else W_GROUPS
+    c_tile = channel_tile(c, itemsize, W_WIDE_C_TILE if cluster else W_C_TILE)
     n_ctiles = -(-c // c_tile)
-    # items of at most W_ROWS rows, shorter where a large K leaves less
-    # shared memory for the ring
-    q = -(-t_out // W_ROWS)
+    # items of at most W_ROWS rows (K_WIDE: W_WIDE_ROWS, and at least
+    # W_CLUSTER // batch items a batch row), shorter where a large K
+    # leaves less shared memory for the ring
+    q = -(-t_out // (W_WIDE_ROWS if cluster else W_ROWS))
+    if cluster:
+        q = max(q, W_CLUSTER // batch)
     while True:
         rows = -(-t_out // q)
         x_rows = rows + k - 1
         x_bytes = -(-x_rows * c_tile * itemsize // 128) * 128
         stage_bytes = x_bytes + -(-rows * c_tile * itemsize // 128) * 128
-        smem = 128 + W_STAGES * stage_bytes + W_GROUPS * k * c_tile * 4 \
-            + W_STAGES * 8 + 8
+        smem = 128 + W_STAGES * stage_bytes + groups * k * c_tile * 4 \
+            + W_STAGES * 8 + 8 \
+            + ((k * c_tile // VEC + W_CLUSTER) * 16 if cluster else 0)
         if smem <= SMEM_MAX or rows == 1:
             break
         q += 1
+    q = -(-t_out // rows)  # no empty item
     n_items = batch * q
-    target = -(-W_BLOCKS_PER_SM * num_sms // n_ctiles)
-    per = max(-(-n_items // target), -(-n_items // 65535))
+    if cluster:
+        per = -(-n_items // W_CLUSTER)
+    else:
+        target = -(-W_BLOCKS_PER_SM * num_sms // n_ctiles)
+        per = max(-(-n_items // target), -(-n_items // 65535))
     if n_items >= 2 ** 31 or x_rows > MAX_BOX or smem > SMEM_MAX \
             or n_ctiles > W_MAX_CTILES:
         raise ValueError(f"wgrad kernel does not take B={batch}, "
@@ -395,10 +426,25 @@ def wgrad_plan(batch: int, t_in: int, c: int, k: int, itemsize: int, *,
     return WgradPlan(
         route=route, copy_bytes=copy_bytes, c_tile=c_tile, n_ctiles=n_ctiles,
         t_out=t_out, q=q, rows=rows, x_rows=x_rows, n_items=n_items, per=per,
-        splits=splits, kc=K_FIXED if k == K_FIXED else W_KC,
-        grid=(n_ctiles, splits), block=(c_tile // VEC, W_GROUPS),
-        smem_bytes=smem,
-        ws_floats=W_MAX_CTILES + n_ctiles * splits * k * c_tile)
+        splits=splits, one_pass=one_pass,
+        kc=-(-k // tap_groups) if one_pass else W_KC, tap_groups=tap_groups,
+        cluster=cluster, grid=(n_ctiles, splits),
+        block=(c_tile // VEC, groups, tap_groups), smem_bytes=smem,
+        ws_floats=W_MAX_CTILES
+        + (0 if cluster else n_ctiles * splits * k * c_tile))
+
+
+# The plan's fields in the order openeat_dwconv1d_wgrad_plan writes them
+# (the row groups are block[1])
+WGRAD_PLAN_FIELDS = ("c_tile", "n_ctiles", "rows", "q", "n_items", "per",
+                     "splits", "x_rows", "smem_bytes", "kc", "tap_groups",
+                     "groups", "cluster", "ws_floats")
+
+
+def wgrad_plan_fields(plan: WgradPlan) -> tuple[int, ...]:
+    """`plan` as the integers openeat_dwconv1d_wgrad_plan gives."""
+    return tuple(int(plan.block[1] if f == "groups" else getattr(plan, f))
+                 for f in WGRAD_PLAN_FIELDS)
 
 
 # One wgrad workspace per device, grown on demand and reused by every call

@@ -252,8 +252,10 @@ def test_kernel_source_and_plan_share_their_constants():
 def test_kernel_source_and_plan_take_the_same_register_taps():
     """The C launcher keeps the taps in registers for the K its
     taps_in_registers names, and has an instance for each; launch_plan
-    says so for exactly those K in 1..K_MAX. The wgrad's one-pass
-    instance stays K_FIXED alone."""
+    says so for exactly those K in 1..K_MAX. The wgrad dispatches the
+    same two K to one-pass instances of their own (K_WIDE in
+    W_TAP_GROUPS groups of taps) and every other K to the run-time
+    route, and wgrad_plan says so."""
     src = (nvcc.CSRC_DIR / dw.SOURCE).read_text()
     body = re.search(r"bool taps_in_registers\(int k\) \{ return (.*?); \}",
                      src).group(1)
@@ -265,9 +267,19 @@ def test_kernel_source_and_plan_take_the_same_register_taps():
     py_set = {k for k in range(1, dw.K_MAX + 1)
               if _plan(2, 100, 256, k, 4).taps_in_registers}
     assert c_set == py_set == {15, 31}
-    assert src.count("k == K_FIXED\n") == 2       # the wgrad's dispatch
-    assert dw.wgrad_plan(2, 100, 256, 31, 4).kc == dw.W_KC
-    assert dw.wgrad_plan(2, 100, 256, 15, 4).kc == dw.K_FIXED
+    for n in names:                               # the wgrad's dispatch
+        assert f"if (k == {n}) {{\n    return wgrad_route<T, {n}>(" in src
+    assert "return wgrad_route<T, 0>(" in src
+    assert "w->kf = k == K_FIXED || k == K_WIDE ? k : 0;" in src
+    one_pass = {k for k in range(1, dw.K_MAX + 1)
+                if dw.wgrad_plan(2, 100, 256, k, 4).one_pass}
+    assert one_pass == c_set
+    wide = dw.wgrad_plan(2, 100, 256, 31, 4)
+    assert (wide.kc, wide.tap_groups) == (16, dw.W_TAP_GROUPS)
+    assert wide.kc * wide.tap_groups >= 31 > wide.kc * (wide.tap_groups - 1)
+    fixed = dw.wgrad_plan(2, 100, 256, 15, 4)
+    assert (fixed.kc, fixed.tap_groups) == (dw.K_FIXED, 1)
+    assert dw.wgrad_plan(2, 100, 256, 23, 4).kc == dw.W_KC
 
 
 def _walk(plan, xin, w, dgrad, itemsize):

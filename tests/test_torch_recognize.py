@@ -314,9 +314,9 @@ PORT_MODULES = [
 def test_port_imports_no_jax():
     """Every openeat_torch module (the training, attention decode, LM,
     recipe, streaming, serving, int8 and parallel slices' among them)
-    and chip_smoke.py import
-    with jax blocked, and no jax, flax, optax, orbax or openeat_tpu
-    module loads."""
+    and the chip scripts (chip_smoke.py, chip_kernel_bench.py,
+    chip_wgrad_probe.py) import with jax blocked, and no jax, flax, optax,
+    orbax or openeat_tpu module loads."""
     code = (
         "import sys, importlib, pkgutil\n"
         "sys.modules['jax'] = None\n"
@@ -324,7 +324,7 @@ def test_port_imports_no_jax():
         "for m in pkgutil.walk_packages(openeat_torch.__path__, "
         "'openeat_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "import chip_smoke\n"
+        "import chip_smoke, chip_kernel_bench, chip_wgrad_probe\n"
         f"missing = set({PORT_MODULES!r}) - set(sys.modules)\n"
         "assert not missing, missing\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
