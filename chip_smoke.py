@@ -309,6 +309,27 @@
    wgrad and K1 are checked at every shape it launched them at and timed
    at the largest. The drive itself (60 epochs) is not a phase:
    openeat_torch/quality/drive.sh runs it.
+19. Streaming drive (after 18): the hard corpus at 64 / 4 / 8
+   utterances by openeat_torch/quality/run_recipe.sh --stage 0
+   --stop_stage 1, then openeat_torch/quality/run_streaming.sh
+   --max_epoch 1 --device cuda through the counted_cli shim of phase
+   17: global CMVN, one training step of conf_stream.json (the hard
+   profile's config, causal, static 16-frame chunks) at the flagship's
+   width and its static batch of 64 and one cv batch, the average, the
+   offline greedy and rescoring decodes and the 16-slot stream_recognize
+   with attention-rescoring finals, each with its CER, and
+   results_streaming.json with round 3's keys
+   (benchmarks/results/r3_streaming_hard/). Its bin.train must launch
+   K3 and K1 as phase 18's does, each offline decode K3's forward 12
+   times a test batch, stream_recognize K3's forward 12 times a chunk
+   step, every step at [16, 14 + 16, 256], between the longest
+   stream's chunks and all streams' chunks; K3's forward, dgrad and
+   wgrad and K1 are checked at every shape launched and timed at the
+   largest, and K3 at the chunk step's shape once more, by TMA,
+   bit-equal, timed. Its child processes (the corpus and the script)
+   run on a thread beside phase 17's script, and phase 17 waits for them
+   before it times a kernel. The drive itself (40 epochs) is not a
+   phase: drive.sh --script run_streaming.sh runs it.
 
 The phases' configs are the repo's files (examples/*/conf/*.yaml) as
 openeat_torch.config.load_config reads them, without PyYAML; each
@@ -320,9 +341,10 @@ their chain bound; K3 once more at each chunk-step shape with the
 stream runs' launches there; K3 at K = 31 and K1 and K2 once more at
 the LibriSpeech run's shapes, with that run's launches there; each
 kernel once more at the largest shape the recipe script of phase 17
-and the quality drive's step of phase 18 launched it at, with that
-run's launches at all its shapes, `shape_launches` listing them, and
-the largest error over them; `phase` names the run) and the JSON
+the quality drive's step of phase 18 and the streamed drive's CLIs of
+phase 19 launched it at, with that run's launches at all its shapes,
+`shape_launches` listing them, and the largest error over them;
+`phase` names the run; and K3 at phase 19's chunk step) and the JSON
 result. Details go to
 chiprun_out/chip_smoke.json.
 """
@@ -339,6 +361,7 @@ import os
 import re
 import runpy
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -671,9 +694,14 @@ def run_recognize(cfg: str, ckpt: str, manifest: str, dict_path: str,
 
 
 def encoder_frames(seconds: float) -> int:
-    """Encoder positions of a wav of `seconds`: fbank frames (25 ms /
+    """Encoder positions of a wav of `seconds` at 16 kHz."""
+    return encoder_positions(int(seconds * 16000))
+
+
+def encoder_positions(samples: int) -> int:
+    """Encoder positions of `samples` at 16 kHz: fbank frames (25 ms /
     10 ms) through the conv2d x4 subsampling."""
-    frames = (int(seconds * 16000) - 400) // 160 + 1
+    frames = (samples - 400) // 160 + 1
     return ((frames - 3) // 2 + 1 - 3) // 2 + 1
 
 
@@ -4127,15 +4155,28 @@ def counted_cli(out_dir: str, flag: str, module: str, *argv: str) -> None:
     runpy.run_module(module, run_name="__main__", alter_sys=True)
 
 
-def run_script(cmd: list, cwd: str, log_path: str, count_dir: str) -> dict:
+def _kill_group(proc: subprocess.Popen) -> None:
+    """Kill a child started in a session of its own, and every process
+    it started, and wait for it."""
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    proc.wait()
+
+
+def run_script(cmd: list, cwd: str, log_path: str, count_dir: str,
+               procs: list | None = None) -> dict:
     """Runs the recipe script as a child process (the port's CLIs and
     tools in grandchildren), echoing its stdout; returns its stdout lines
     and each stage's seconds, from its "stage N:" lines. Its `python` is
     this interpreter, which starts every `-m openeat_torch.bin.*` through
-    counted_cli, writing into `count_dir`. A failed run raises; the child
-    is killed if this process stops reading it."""
-    bindir = os.path.join(WORK, "bin")
-    os.makedirs(bindir, exist_ok=True)
+    counted_cli, writing into `count_dir` (the shim lives beside it, so
+    two scripts can run at once). A failed run raises; the child and
+    what it started are killed if this process stops reading it. The
+    child is appended to `procs`, where given, for Background.stop."""
+    bindir = count_dir + "_bin"
+    os.makedirs(bindir)
     os.makedirs(count_dir)
     with open(os.path.join(bindir, "python"), "w") as f:
         f.write(f'#!/bin/sh\ncase "$1 $2" in\n'
@@ -4148,7 +4189,9 @@ def run_script(cmd: list, cwd: str, log_path: str, count_dir: str) -> dict:
     t0 = time.perf_counter()
     with open(log_path, "w") as log:
         proc = subprocess.Popen(cmd, cwd=cwd, env=env, stdout=subprocess.PIPE,
-                                stderr=log, text=True)
+                                stderr=log, text=True, start_new_session=True)
+        if procs is not None:
+            procs.append(proc)
         try:
             for line in proc.stdout:
                 lines.append(line.rstrip("\n"))
@@ -4159,8 +4202,7 @@ def run_script(cmd: list, cwd: str, log_path: str, count_dir: str) -> dict:
             rc = proc.wait()
         finally:
             if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+                _kill_group(proc)
     t_end = time.perf_counter()
     if rc != 0:
         with open(log_path) as f:
@@ -4458,13 +4500,15 @@ def script_kernel_cases(shapes: dict, vocab: int, step_ms: float,
     return out
 
 
-def recipe_script(step_ms: float, timed: dict) -> dict:
+def recipe_script(step_ms: float, timed: dict, wait=None) -> dict:
     """Phase 17: openeat_torch/examples/aishell/run.sh stages 0-4 on cuda
     over a synthetic AIShell-layout corpus at the flagship's full width,
     its files and the launches its CLIs counted, checked; every kernel at
     every shape the script launched it at (script_kernel_cases); then
     the checks that need this process (the decode held to the
-    script's, compute_cmvn)."""
+    script's, compute_cmvn). `wait`, where given, is called before any
+    of this process's work on the card: what runs beside the script
+    must end before kernels are timed."""
     t0 = time.perf_counter()
     root = os.path.join(WORK, "aishell_corpus")
     write_aishell_layout(np.random.default_rng(SEED + 17), root)
@@ -4485,6 +4529,8 @@ def recipe_script(step_ms: float, timed: dict) -> dict:
                    for m in MODES]:
         raise AssertionError(f"the script's CER lines: {printed}")
     counted = check_script_counts(script_counts(count_dir), work, exp, conf)
+    if wait is not None:
+        wait()
     out["cases"] = script_kernel_cases(counted["shapes"], out["dict_size"],
                                        step_ms, timed)
     # the shape keys as text, for the report's JSON
@@ -4652,6 +4698,207 @@ def quality_corpus(step_ms: float, timed: dict) -> dict:
             "phase_s": time.perf_counter() - t0}
 
 
+STREAM_DRIVE_SCRIPT = "openeat_torch/quality/run_streaming.sh"
+# the hard profile's corpus as the streamed drive gets it (run_recipe.sh
+# stages 0-1), cut to one static batch of 64 train utterances
+STREAM_DRIVE_SPLITS = (("train", 64), ("dev", 4), ("test", 8))
+STREAM_DRIVE_CORPUS = "--n_train 64 --n_dev 4 --n_test 8"
+STREAM_DRIVE_SLOTS = 16     # run_streaming.sh's --slots
+STREAM_DRIVE_CHUNK = 16     # and its --chunk_size
+R3_STREAMING = "benchmarks/results/r3_streaming_hard/results_streaming.json"
+
+
+def check_streaming_counts(procs: list, work: str, corpus: str) -> dict:
+    """The launches of run_streaming.sh's CLIs at one epoch: bin.train
+    K3's forward `blocks` times a train step and cv batch, its dgrad and
+    wgrad `blocks` times a step at the static batch of 64, K1 once a step
+    and cv batch, K2 never; average_model nothing; each offline decode
+    K3's forward `blocks` times a test batch; stream_recognize K3's
+    forward `blocks` times a chunk step, every step at [slots, K - 1 +
+    chunk, d] (all slots ride along), between the longest stream's
+    chunks and the sum of all streams' chunks; nothing else."""
+    cfg = load_config(os.path.join(work, "conf_stream.json"))
+    dc, blocks = cfg["dataset_conf"], cfg["model_conf"]["encoder_num_blocks"]
+    mc = cfg["model_conf"]
+    data, exp = os.path.join(corpus, "data"), os.path.join(work, "exp")
+    mods = Counter(r["module"] for r in procs)
+    want_mods = {"openeat_torch.bin.train": 1,
+                 "openeat_torch.bin.average_model": 1,
+                 "openeat_torch.bin.recognize": 2,
+                 "openeat_torch.bin.stream_recognize": 1}
+    if dict(mods) != want_mods:
+        raise AssertionError(f"the streamed drive's counted CLIs: {mods}")
+    with open(os.path.join(exp, "epoch_1.json")) as f:
+        info = json.load(f)
+    steps, cv = info["step"], _n_batches(data, "dev", dc)
+    if steps != _n_batches(data, "train", dc) or steps < 1 \
+            or not all(math.isfinite(info[k])
+                       for k in ("train_loss", "cv_loss")):
+        raise AssertionError(f"the streamed drive's epoch: {info}")
+    chunks = []
+    for row in _lines(os.path.join(data, "test", "format.data")):
+        path = row.split("\t")[1].split(":", 1)[1]
+        t = encoder_positions(len(audio_lib.read_audio(path)[0]))
+        chunks.append(math.ceil(t / STREAM_DRIVE_CHUNK))
+    n_test = -(-len(chunks) // 64)
+    zero = {fn.__name__: 0 for fn in COUNTED}
+    halo = mc["cnn_module_kernel"] - 1
+    chunk_key = (STREAM_DRIVE_SLOTS, halo + STREAM_DRIVE_CHUNK,
+                 mc["d_model"], mc["cnn_module_kernel"], mc["compute_dtype"])
+    chunk_steps = None
+    for r in procs:
+        c, shapes = r["launches"], r["shapes"]
+        if r["module"] == "openeat_torch.bin.train":
+            want = dict(zero, depthwise_conv1d=blocks * (steps + cv),
+                        depthwise_conv1d_dgrad=blocks * steps,
+                        depthwise_conv1d_wgrad=blocks * steps,
+                        ctc_dp_shared=steps + cv)
+            full = {k[0] for name in ("depthwise_conv1d_dgrad",
+                                      "depthwise_conv1d_wgrad")
+                    for k in shapes[name]}
+            ok = c == want and full == {dc["batch_size"]}
+        elif r["module"] == "openeat_torch.bin.stream_recognize":
+            chunk_steps = c["depthwise_conv1d"] // blocks
+            want = dict(zero, depthwise_conv1d=blocks * chunk_steps)
+            ok = (c == want and set(shapes["depthwise_conv1d"]) == {chunk_key}
+                  and max(chunks) <= chunk_steps <= sum(chunks))
+            want = (f"{want}, {max(chunks)}-{sum(chunks)} chunk steps at "
+                    f"{chunk_key}")
+        else:
+            want = dict(zero)
+            if r["module"] == "openeat_torch.bin.recognize":
+                want["depthwise_conv1d"] = blocks * n_test
+            ok = c == want
+        if not ok:
+            raise AssertionError(f"{r['module']} {r['argv']}: launches {c}, "
+                                 f"shapes {shapes}; expected {want}")
+    launches, by_shape = _summed(procs)
+    return {"launches": launches, "shapes": by_shape, "train_steps": steps,
+            "cv_batches": cv, "test_batches": n_test,
+            "chunk_steps": chunk_steps, "stream_chunks": chunks,
+            "chunk_key": chunk_key, "epoch": info}
+
+
+class Background:
+    """`fn(*args, procs=...)` on a thread of its own, beside the main
+    thread: work bound by its child processes' starts. join() waits and
+    returns its result or raises its error; stop() kills the children
+    it started (each appended to `procs`) and waits."""
+
+    def __init__(self, fn, *args):
+        self.procs = []
+        self._out = {}
+
+        def run():
+            try:
+                self._out["result"] = fn(*args, procs=self.procs)
+            except Exception as e:      # raised again by join()
+                self._out["error"] = e
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+
+    def join(self):
+        self._thread.join()
+        if "error" in self._out:
+            raise self._out["error"]
+        return self._out["result"]
+
+    def stop(self) -> None:
+        for proc in self.procs:
+            if proc.poll() is None:
+                _kill_group(proc)
+        self._thread.join()
+
+
+def streaming_drive_script(procs: list) -> dict:
+    """Phase 19's child processes: the hard corpus by run_recipe.sh's
+    stages 0-1 (64 / 4 / 8 utterances), then
+    openeat_torch/quality/run_streaming.sh on cuda at one epoch through
+    the counted shim. Nothing of it runs in this process, so it can run
+    beside phase 17's script (Background)."""
+    t0 = time.perf_counter()
+    corpus = os.path.join(WORK, "stream_corpus")
+    cmd = ["bash", os.path.join(REPO, QUALITY_SCRIPT), "--stage", "0",
+           "--stop_stage", "1", "--device", "cuda", "--corpus_opts",
+           STREAM_DRIVE_CORPUS, corpus, "hard"]
+    proc = subprocess.Popen(cmd, cwd=WORK, stdout=subprocess.DEVNULL,
+                            start_new_session=True)
+    procs.append(proc)
+    if proc.wait() != 0:
+        raise subprocess.CalledProcessError(proc.returncode, cmd)
+    corpus_s = time.perf_counter() - t0
+    work = os.path.join(WORK, "stream_work")
+    count_dir = os.path.join(WORK, "stream_counts")
+    run = run_script(["bash", os.path.join(REPO, STREAM_DRIVE_SCRIPT),
+                      "--max_epoch", "1", "--device", "cuda", work, corpus],
+                     WORK, os.path.join(WORK, "stream_stderr.log"),
+                     count_dir, procs)
+    return {"corpus": corpus, "work": work, "count_dir": count_dir,
+            "corpus_s": corpus_s, "script_s": run["wall_s"]}
+
+
+def streaming_drive(script: dict, step_ms: float, timed: dict) -> dict:
+    """Phase 19, after streaming_drive_script: the corpus's manifests;
+    every stage of run_streaming.sh at one epoch (global CMVN, one
+    training step of conf_stream.json, the causal static-chunk flagship
+    at full width and batch 64, the average, the two offline decodes and
+    the 16-slot stream_recognize, each with its CER) and
+    results_streaming.json with round 3's keys; the launches its CLIs
+    counted, checked (check_streaming_counts); every kernel at every
+    shape they launched it at (script_kernel_cases)."""
+    t0 = time.perf_counter()
+    corpus, work = script["corpus"], script["work"]
+    data = os.path.join(corpus, "data")
+    for split, n in STREAM_DRIVE_SPLITS:
+        rows = _lines(os.path.join(data, split, "format.data"))
+        if len(rows) != n:
+            raise AssertionError(f"{split}/format.data: {len(rows)} rows")
+    exp = os.path.join(work, "exp")
+    with open(os.path.join(exp, "results_streaming.json")) as f:
+        res = json.load(f)
+    with open(os.path.join(REPO, R3_STREAMING)) as f:
+        r3 = json.load(f)
+    cmp = res.get("streamed_vs_offline_rescoring", {})
+    if list(res) != list(r3) or list(cmp) != list(
+            r3["streamed_vs_offline_rescoring"]) \
+            or not all(isinstance(res[k], float) and math.isfinite(res[k])
+                       for k in list(r3)[:3]) \
+            or cmp["utts"] != dict(STREAM_DRIVE_SPLITS)["test"]:
+        raise AssertionError(f"results_streaming.json: {res}")
+    test_keys = sorted(line.split()[0] for line in
+                       _lines(os.path.join(data, "test", "text")))
+    for tag in ("offline_ctc_greedy_search", "offline_attention_rescoring",
+                "streamed"):
+        hyps = _lines(os.path.join(exp, f"hyp_{tag}.txt"))
+        if sorted(h.split(" ", 1)[0] for h in hyps) != test_keys:
+            raise AssertionError(f"hyp_{tag}.txt: {hyps}")
+    tokens = {line.split()[0] for line in
+              _lines(os.path.join(data, "dict.txt"))}
+    counted = check_streaming_counts(script_counts(script["count_dir"]),
+                                     work, corpus)
+    cases = script_kernel_cases(counted["shapes"], len(tokens), step_ms,
+                                timed)
+    # K3 at the chunk step's shape, which cases["depthwise_conv1d"] only
+    # checks (it times the largest, the training batch's): by TMA,
+    # bit-equal, timed, with stream_recognize's launches
+    key = counted["chunk_key"]
+    chunk = kernel_case(*key[:4], getattr(torch, key[4]),
+                        torch.Generator(device="cuda").manual_seed(SEED + 19),
+                        exact=True)
+    if chunk["route"] != "tma":
+        raise AssertionError(f"the chunk step's K3 not by TMA: {chunk}")
+    chunk["launches"] = counted["shapes"]["depthwise_conv1d"][key]
+    counted["shapes"] = {fn: {str(list(k)): n for k, n in by_shape.items()}
+                         for fn, by_shape in counted["shapes"].items()}
+    stage_s = [line.split("\t") for line in
+               _lines(os.path.join(work, "stage_times.tsv"))]
+    return {"corpus_s": script["corpus_s"], "script_s": script["script_s"],
+            "command_s": {label: float(s) for _, label, s in stage_s},
+            "results": res, "counts": counted, "cases": cases,
+            "chunk_case": chunk, "checks_s": time.perf_counter() - t0}
+
+
 def _kernel_row(name: str, source: str, replaces: str, launches: int,
                 row: dict, prefix: str = "") -> dict:
     return {"name": name, "route": "cuda", "source": source,
@@ -4678,6 +4925,7 @@ def main() -> None:
     t_start = time.perf_counter()
     phase_s = report["phase_s"] = {}
     clock = [t_start]
+    stream_script = None
 
     def lap(name: str) -> None:
         """Seconds since the last lap, under `name`."""
@@ -4995,7 +5243,12 @@ def main() -> None:
                       for r in grad_rows if "dgrad_ms" in r})
         timed.update({("ctc", *r["shape"]): r for r in ctc_rows
                       if "ms" in r})
-        rs = report["recipe_script"] = recipe_script(step_ms, timed)
+        # phase 19's child processes run beside phase 17's script: both
+        # are bound by their CLIs' starts; phase 17 waits for them
+        # before it times a kernel
+        stream_script = Background(streaming_drive_script)
+        rs = report["recipe_script"] = recipe_script(
+            step_ms, timed, wait=stream_script.join)
         print("recipe_script " + json.dumps(
             {k: v for k, v in rs.items() if k not in ("step_losses",
                                                        "cases")}),
@@ -5016,7 +5269,21 @@ def main() -> None:
             print(f"quality_corpus {name} " + json.dumps(case), flush=True)
         print(f"quality_corpus phase {qc['phase_s']:.1f} s", flush=True)
         lap("quality_corpus")
+
+        # ---- slice 17: the streamed quality drive at one epoch (its
+        # script ran beside phase 17's)
+        sd = report["streaming_drive"] = streaming_drive(
+            stream_script.join(), step_ms, timed)
+        print("streaming_drive " + json.dumps(
+            {k: v for k, v in sd.items() if k != "cases"}), flush=True)
+        for name, case in sd["cases"].items():
+            print(f"streaming_drive {name} " + json.dumps(case), flush=True)
+        print(f"streaming_drive script {sd['script_s']:.1f} s beside phase "
+              f"17, checks {sd['checks_s']:.1f} s", flush=True)
+        lap("streaming_drive")
     finally:
+        if stream_script is not None:
+            stream_script.stop()
         shutil.rmtree(WORK, ignore_errors=True)
     report["wall_s"] = time.perf_counter() - t_start
 
@@ -5114,12 +5381,14 @@ def main() -> None:
             name, "openeat_torch/csrc/ctc_loss.cu",
             f"openeat_tpu/ops/ctc_loss.py:{line}", case["launches"], case),
             shape=case["shape"], chain_bound_ms=case["chain_bound_ms"]))
-    # each kernel at the largest shape the recipe script (phase 17) and
-    # the quality drive's training step (phase 18) launched it at, with
+    # each kernel at the largest shape the recipe script (phase 17), the
+    # quality drive's training step (phase 18) and the streamed drive's
+    # CLIs (phase 19) launched it at, with
     # the script's launches at all its shapes (its CLIs counted them in
     # their own processes) and the largest error over those shapes
     for phase, cases in (("recipe_script", rs["cases"]),
-                         ("quality_corpus", qc["cases"])):
+                         ("quality_corpus", qc["cases"]),
+                         ("streaming_drive", sd["cases"])):
         for name, case in cases.items():
             src, replaces, prefix = KERNEL_OF[name]
             row = _kernel_row(name, src, replaces, case["launches"],
@@ -5132,6 +5401,13 @@ def main() -> None:
             else:
                 row.update(k=case["row"]["k"], dtype=case["row"]["dtype"])
             kernels.append(row)
+    chunk = sd["chunk_case"]
+    kernels.append(dict(
+        _kernel_row("depthwise_conv1d", "openeat_torch/csrc/depthwise_conv.cu",
+                    "openeat_tpu/ops/depthwise_conv.py:39",
+                    chunk["launches"], chunk),
+        shape=chunk["shape"], k=chunk["k"], dtype=chunk["dtype"],
+        copy_ms=chunk["copy_ms"], phase="streaming_drive"))
     report["kernels"] = kernels
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)

@@ -1,6 +1,7 @@
 """The quality drive's configs. Port of the config derivations in
 benchmarks/run_recipe_tpu.sh: the profile table (`:20-58`), the synth
-training config (`:91-113`) and the LM config (`:181-186`).
+training config (`:91-113`) and the LM config (`:181-186`); and of
+benchmarks/run_streaming_hard.sh's streaming config (`:44-62`).
 
 The base configs are the repo's YAML, read with the port's reader
 (openeat_torch/config.py:load_config); the derived ones are written as
@@ -9,6 +10,7 @@ JSON, which load_config reads back. No PyYAML.
     python -m openeat_torch.quality.confs profile PROFILE
     python -m openeat_torch.quality.confs train BASE PROFILE MAX_EPOCH OUT
     python -m openeat_torch.quality.confs lm BASE EPOCHS OUT
+    python -m openeat_torch.quality.confs stream BASE MAX_EPOCH OUT
 
 `profile` prints the profile's settings as shell assignments, which
 openeat_torch/quality/run_recipe.sh evaluates.
@@ -55,6 +57,12 @@ PROFILES = {
 
 TRAIN_LR = 0.0005
 LOG_INTERVAL = 40
+# the streamed drive's model: causal convolutions and static 16-frame
+# chunks with unlimited left context in training. Its warmup is 8
+# epochs: at the hard profile's 2 the causal flagship creeps at a train
+# loss of about 29 for 35+ epochs
+STREAM_MODEL = dict(causal=True, static_chunk_size=16, num_left_chunks=-1)
+STREAM_WARMUP_EPOCH = 8
 
 
 def synth_train_conf(base: str, profile: str, max_epoch: int) -> dict:
@@ -78,6 +86,17 @@ def synth_lm_conf(base: str, epochs: int) -> dict:
     """The transformer LM's config: the conf at `base` with `epochs`."""
     cfg = load_config(base)
     cfg["max_epoch"] = epochs
+    return cfg
+
+
+def stream_train_conf(base: str, max_epoch: int) -> dict:
+    """The streamed drive's config: the hard profile's synth config
+    with STREAM_MODEL in its model_conf and STREAM_WARMUP_EPOCH. Global
+    CMVN replaces per-utterance normalization through bin.train's
+    --cmvn_file, not through the config."""
+    cfg = synth_train_conf(base, "hard", max_epoch)
+    cfg["model_conf"].update(STREAM_MODEL)
+    cfg["warmup_epoch"] = STREAM_WARMUP_EPOCH
     return cfg
 
 
@@ -109,12 +128,18 @@ def main(argv=None):
     sl.add_argument("base")
     sl.add_argument("epochs", type=int)
     sl.add_argument("out")
+    ss = sub.add_parser("stream")
+    ss.add_argument("base")
+    ss.add_argument("max_epoch", type=int)
+    ss.add_argument("out")
     args = p.parse_args(argv)
     if args.cmd == "profile":
         print(shell_assignments(args.profile))
     elif args.cmd == "train":
         _write(synth_train_conf(args.base, args.profile, args.max_epoch),
                args.out)
+    elif args.cmd == "stream":
+        _write(stream_train_conf(args.base, args.max_epoch), args.out)
     else:
         _write(synth_lm_conf(args.base, args.epochs), args.out)
 

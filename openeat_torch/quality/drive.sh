@@ -1,20 +1,29 @@
 #!/usr/bin/env bash
-# Runs the quality drive (run_recipe.sh) one stage at a time and copies
+# Runs a quality drive (run_recipe.sh, or with --script another drive
+# of this directory, run_streaming.sh) one stage at a time and copies
 # its small files into OUT after every stage, so that what a finished
 # stage wrote survives a run that is cut later: results*.json,
 # cer_*.txt, hyp_*.txt, metrics.jsonl, train.json, the epoch_N.json
-# infos, the LM's infos, conf_synth.json, conf_lm.json, stage_times.tsv,
-# the stage log (stages.log) and the machine (machine.txt: the card's
-# name and power limit, Python, torch and CUDA). The checkpoints stay in
-# WORK. A failed stage, the gate's included, ends the drive with its
-# exit code after its files are copied, as run_recipe.sh stops at it.
+# infos, the LM's infos, the derived conf_*.json, cmvn.json,
+# stage_times.tsv, the stage log (stages.log) and the machine
+# (machine.txt: the card's name and power limit, Python, torch and
+# CUDA). The checkpoints stay in WORK. A failed stage, the gate's
+# included, ends the drive with its exit code after its files are
+# copied, as the drive itself stops at it.
 #
-# Usage: bash openeat_torch/quality/drive.sh WORK PROFILE OUT FIRST LAST \
-#            [run_recipe.sh options...]
+# Usage: bash openeat_torch/quality/drive.sh [--script SCRIPT] WORK ARG \
+#            OUT FIRST LAST [SCRIPT options...]
+#   SCRIPT: run_recipe.sh (default; ARG is its PROFILE) or
+#           run_streaming.sh (ARG is its CORPUS_WORK)
 set -uo pipefail
 
+script=run_recipe.sh
+if [ "${1:-}" = --script ]; then
+  script=$2
+  shift 2
+fi
 work=$1
-profile=$2
+arg=$2
 out=$3
 first=$4
 last=$5
@@ -33,7 +42,8 @@ torch.__version__, torch.version.cuda)'
 
 copy_small() {
   local e=$work/exp f
-  for f in "$work"/stage_times.tsv "$work"/conf_*.json "$e"/results*.json \
+  for f in "$work"/stage_times.tsv "$work"/conf_*.json "$work"/cmvn.json \
+      "$e"/results*.json \
       "$e"/cer_*.txt "$e"/hyp_*.txt "$e"/metrics.jsonl "$e"/train.json \
       "$e"/epoch_*.json "$e"/avg_best*.json; do
     [ -f "$f" ] && cp -f "$f" "$out"/
@@ -49,8 +59,8 @@ copy_small() {
 
 for s in $(seq "$first" "$last"); do
   echo "### stage $s start $(date +%s.%N)" >> "$log"
-  bash "$here/run_recipe.sh" --stage "$s" --stop_stage "$s" "$@" \
-    "$work" "$profile" >> "$log" 2>&1
+  bash "$here/$script" --stage "$s" --stop_stage "$s" "$@" \
+    "$work" "$arg" >> "$log" 2>&1
   rc=$?
   echo "### stage $s end $(date +%s.%N) rc $rc" >> "$log"
   copy_small

@@ -1,13 +1,17 @@
-"""Markdown tables of quality drives beside round 5's lmhard drive of
-the JAX package (benchmarks/results/r5_recipe_lmhard/): the test CERs
-with their paired deltas, int8, the adversarial splits, the per-epoch
-training curve, the gate's lines and each stage's seconds, a column
-(or a block of rows) per run.
+"""Markdown tables of quality drives beside the JAX package's: an lmhard
+drive beside round 5's (benchmarks/results/r5_recipe_lmhard/), with the
+test CERs and their paired deltas, int8, the adversarial splits, the
+per-epoch training curve and the gate's lines; a streamed drive
+(run_streaming.sh, whose RUN holds results_streaming.json) beside round
+3's (benchmarks/results/r3_streaming_hard/), with its three CERs, the
+paired comparison of streamed against offline rescoring and its curve.
+Each stage's seconds for either; a column (or a block of rows) per run.
 
     python -m openeat_torch.quality.report RUN [RUN ...]
 
 Each RUN is a directory openeat_torch/quality/drive.sh copied a drive's
-small files into; it is named by its last path component.
+small files into; it is named by its last path component. The RUNs of
+one call are all lmhard drives or all streamed drives.
 """
 
 from __future__ import annotations
@@ -19,8 +23,11 @@ import sys
 
 from openeat_torch.quality import results as res
 
-R5 = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "benchmarks", "results", "r5_recipe_lmhard")
+RESULTS = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "benchmarks", "results")
+R5 = os.path.join(RESULTS, "r5_recipe_lmhard")
+R3_STREAMING = os.path.join(RESULTS, "r3_streaming_hard")
+STREAMING = "results_streaming.json"
 # the paired comparison whose delta each CER row shows
 PAIR_OF = {"ctc_prefix_beam_search": "greedy_vs_prefix",
            "attention_rescoring": "greedy_vs_rescoring",
@@ -107,14 +114,28 @@ def adversarial(runs: list[str], names: list[str]) -> list[str]:
     return _table(head, rows)
 
 
-def curve(runs: list[str], names: list[str]) -> list[str]:
-    """train_loss / train_acc an epoch per run and in r5; cv_loss /
-    cv_acc (from the epoch infos) and the epoch's seconds per run."""
-    eps = [_epochs(d) for d in runs + [R5]]
+def streaming(runs: list[str], names: list[str]) -> list[str]:
+    """The streamed drive's three CERs per run and in r3, and each one's
+    paired comparison of streamed against offline rescoring."""
+    got = [_load(os.path.join(d, STREAMING)) for d in runs + [R3_STREAMING]]
+    name = res.STREAM_PAIR[0]
+    rows = [[tag] + [_f(g.get(tag)) for g in got]
+            for tag in res.STREAM_TAGS]
+    rows.append([name] + [_delta(g.get(name)) for g in got])
+    return _table(["decode"] + [f"{n} CER %" for n in names + ["r3"]], rows)
+
+
+def curve(runs: list[str], names: list[str], ref: str | None = R5
+          ) -> list[str]:
+    """train_loss / train_acc an epoch per run and in `ref`'s
+    metrics.jsonl (r5's; None for none); cv_loss / cv_acc (from the
+    epoch infos) and the epoch's seconds per run."""
+    refs = [ref] if ref else []
+    eps = [_epochs(d) for d in runs + refs]
     rows = []
     for e in sorted(set().union(*eps)):
         row = [str(e)]
-        for d, ep in zip(runs + [R5], eps):
+        for d, ep in zip(runs + refs, eps):
             r = ep.get(e, {})
             row.append(f"{_f(r.get('train_loss'), '{:.3f}')} / "
                        f"{_f(r.get('train_acc'), '{:.3f}')}")
@@ -127,7 +148,7 @@ def curve(runs: list[str], names: list[str]) -> list[str]:
     head = ["epoch"]
     for n in names:
         head += [f"{n} train loss / acc", f"{n} cv loss / acc", f"{n} s"]
-    return _table(head + ["r5 train loss / acc"], rows)
+    return _table(head + ["r5 train loss / acc"] * len(refs), rows)
 
 
 def stages(run: str) -> list[str]:
@@ -169,14 +190,23 @@ def main(argv=None):
         machine = os.path.join(run, "machine.txt")
         if os.path.exists(machine):
             print(f"{name}:\n\n```\n{open(machine).read().strip()}\n```\n")
-    for title, body in (("Test CERs (2048 utterances)", cers),
-                        ("Adversarial splits (1024 utterances each)",
-                         adversarial),
-                        ("Training curve", curve)):
+    streamed = all(os.path.exists(os.path.join(r, STREAMING)) for r in runs)
+    if streamed:
+        tables = (("Streamed against offline (test set)", streaming),
+                  ("Training curve",
+                   lambda r, n: curve(r, n, ref=None)))
+    else:
+        tables = (("Test CERs (2048 utterances)", cers),
+                  ("Adversarial splits (1024 utterances each)",
+                   adversarial),
+                  ("Training curve", curve))
+    for title, body in tables:
         print(f"### {title}\n\n" + "\n".join(body(runs, names)) + "\n")
     for name, run in zip(names, runs):
-        gate = gate_lines(run) or ["(stage 8 did not run)"]
-        print(f"### {name}: gate\n\n```\n" + "\n".join(gate) + "\n```\n")
+        if not streamed:
+            gate = gate_lines(run) or ["(stage 8 did not run)"]
+            print(f"### {name}: gate\n\n```\n" + "\n".join(gate)
+                  + "\n```\n")
         print(f"### {name}: stage seconds\n\n" + "\n".join(stages(run))
               + "\n")
 

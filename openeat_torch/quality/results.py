@@ -12,12 +12,16 @@ openeat_torch/quality/run_recipe.sh stays a thin list of stages:
   comparison with the float one into results_int8.json (the port's
   addition; outside the gate);
 - adversarial: stage 9's CERs and comparisons on test_reverb and
-  test_long into results_adversarial.json (`:306-341`).
+  test_long into results_adversarial.json (`:306-341`);
+- streaming: the streamed drive's three CERs and its paired comparison
+  of streamed against offline rescoring into results_streaming.json
+  (benchmarks/run_streaming_hard.sh `:121-138`).
 
     python -m openeat_torch.quality.results collect EXP OUT TAG...
     python -m openeat_torch.quality.results significance EXP REF
     python -m openeat_torch.quality.results int8 EXP REF
     python -m openeat_torch.quality.results adversarial EXP DATA
+    python -m openeat_torch.quality.results streaming EXP REF
 """
 
 from __future__ import annotations
@@ -46,6 +50,10 @@ SIGNIFICANCE_PAIRS = [
     ("rescoring_vs_translm_fusion", "attention_rescoring",
      "rescoring_translm"),
 ]
+STREAM_TAGS = ["offline_ctc_greedy_search", "offline_attention_rescoring",
+               "streamed"]
+STREAM_PAIR = ("streamed_vs_offline_rescoring", "streamed",
+               "offline_attention_rescoring")
 ADVERSARIAL_PAIRS = [
     ("greedy_vs_rescoring", "ctc_greedy_search", "attention_rescoring"),
     ("rescoring_vs_ngram_fusion", "attention_rescoring", "rescoring_ngram"),
@@ -138,6 +146,18 @@ def adversarial(exp_dir: str, data_dir: str) -> dict:
     return out
 
 
+def streaming(exp_dir: str, ref: str) -> dict:
+    """The streamed drive's CERs (STREAM_TAGS) and STREAM_PAIR's
+    comparison, written to exp_dir/results_streaming.json."""
+    out = {tag: overall_cer(os.path.join(exp_dir, f"cer_{tag}.txt"))
+           for tag in STREAM_TAGS}
+    name, a, b = STREAM_PAIR
+    out[name] = compare(ref, _hyp(exp_dir, a), _hyp(exp_dir, b))
+    print(json.dumps(out))
+    _dump(out, os.path.join(exp_dir, "results_streaming.json"))
+    return out
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -145,7 +165,7 @@ def main(argv=None):
     c.add_argument("exp_dir")
     c.add_argument("out")
     c.add_argument("tags", nargs="+")
-    for name in ("significance", "int8"):
+    for name in ("significance", "int8", "streaming"):
         s = sub.add_parser(name)
         s.add_argument("exp_dir")
         s.add_argument("ref")
@@ -159,6 +179,8 @@ def main(argv=None):
         significance(args.exp_dir, args.ref)
     elif args.cmd == "int8":
         int8(args.exp_dir, args.ref)
+    elif args.cmd == "streaming":
+        streaming(args.exp_dir, args.ref)
     else:
         adversarial(args.exp_dir, args.data_dir)
 
