@@ -156,7 +156,9 @@
    losses and a finite moe_aux in every step record, the launch counts of
    5, then recognize (attention_rescoring) of the cv set from its
    epoch_1.pt and each layer's share of routed (token, expert) pairs past
-   the capacity on three training batches. One float32 MoE FFN at full
+   the capacity on three training batches. (Phase 19's MoE leg trains
+   the same model through the MoE drive's script at its static batch of
+   64.) One float32 MoE FFN at full
    width on the card against the CPU: output within MOE_TOL of max |y|,
    aux within 1e-5, the same kept pairs, some dropped. After 9, the
    training breakdown once more for the MoE model beside the dense one.
@@ -326,10 +328,23 @@
    stream's chunks and all streams' chunks; K3's forward, dgrad and
    wgrad and K1 are checked at every shape launched and timed at the
    largest, and K3 at the chunk step's shape once more, by TMA,
-   bit-equal, timed. Its child processes (the corpus and the script)
-   run on a thread beside phase 17's script, and phase 17 waits for them
-   before it times a kernel. The drive itself (40 epochs) is not a
-   phase: drive.sh --script run_streaming.sh runs it.
+   bit-equal, timed. The MoE leg, once that corpus exists:
+   openeat_torch/quality/run_moe.sh --max_epoch 1 --device cuda on it,
+   stage 1 (conf_moe.json: the hard profile's config with round 3's
+   top-2-of-4 experts and warmup 8; its log interval cut to 1) and then
+   stages 2-5 through the counted shim: one training step at the
+   flagship's width and batch 64 and one cv batch, the average, the
+   greedy and rescoring decodes with their CERs, and results_moe.json
+   with round 3's keys in its order, finite
+   (benchmarks/results/r3_moe_hard/); a finite loss and moe_aux in every
+   step record; hypotheses of every test key. Its CLIs: bin.train 1,
+   average_model 1, recognize 2, launching as the streamed leg's offline
+   CLIs do; every kernel is checked at every shape launched and timed at
+   the largest. Both legs' child processes run on threads of their own
+   (the MoE leg's waits for the corpus) beside phase 17's script, and
+   phase 17 waits for them before it times a kernel. The drives
+   themselves (40 and 60 epochs) are not phases: drive.sh --script
+   run_streaming.sh and --script run_moe.sh run them.
 
 The phases' configs are the repo's files (examples/*/conf/*.yaml) as
 openeat_torch.config.load_config reads them, without PyYAML; each
@@ -341,8 +356,8 @@ their chain bound; K3 once more at each chunk-step shape with the
 stream runs' launches there; K3 at K = 31 and K1 and K2 once more at
 the LibriSpeech run's shapes, with that run's launches there; each
 kernel once more at the largest shape the recipe script of phase 17
-the quality drive's step of phase 18 and the streamed drive's CLIs of
-phase 19 launched it at, with that run's launches at all its shapes,
+the quality drive's step of phase 18 and the streamed and MoE drives'
+CLIs of phase 19 launched it at, with that run's launches at all its shapes,
 `shape_launches` listing them, and the largest error over them;
 `phase` names the run; and K3 at phase 19's chunk step) and the JSON
 result. Details go to
@@ -4708,8 +4723,11 @@ STREAM_DRIVE_CHUNK = 16     # and its --chunk_size
 R3_STREAMING = "benchmarks/results/r3_streaming_hard/results_streaming.json"
 
 
-def check_streaming_counts(procs: list, work: str, corpus: str) -> dict:
-    """The launches of run_streaming.sh's CLIs at one epoch: bin.train
+def check_streaming_counts(procs: list, work: str, corpus: str,
+                           stream: bool = True) -> dict:
+    """The launches of run_streaming.sh's CLIs at one epoch (of
+    run_moe.sh's with `stream` False) under the config bin.train wrote
+    (exp/train.json): bin.train
     K3's forward `blocks` times a train step and cv batch, its dgrad and
     wgrad `blocks` times a step at the static batch of 64, K1 once a step
     and cv batch, K2 never; average_model nothing; each offline decode
@@ -4717,30 +4735,32 @@ def check_streaming_counts(procs: list, work: str, corpus: str) -> dict:
     forward `blocks` times a chunk step, every step at [slots, K - 1 +
     chunk, d] (all slots ride along), between the longest stream's
     chunks and the sum of all streams' chunks; nothing else."""
-    cfg = load_config(os.path.join(work, "conf_stream.json"))
+    data, exp = os.path.join(corpus, "data"), os.path.join(work, "exp")
+    cfg = load_config(os.path.join(exp, "train.json"))
     dc, blocks = cfg["dataset_conf"], cfg["model_conf"]["encoder_num_blocks"]
     mc = cfg["model_conf"]
-    data, exp = os.path.join(corpus, "data"), os.path.join(work, "exp")
     mods = Counter(r["module"] for r in procs)
     want_mods = {"openeat_torch.bin.train": 1,
                  "openeat_torch.bin.average_model": 1,
-                 "openeat_torch.bin.recognize": 2,
-                 "openeat_torch.bin.stream_recognize": 1}
+                 "openeat_torch.bin.recognize": 2}
+    if stream:
+        want_mods["openeat_torch.bin.stream_recognize"] = 1
     if dict(mods) != want_mods:
-        raise AssertionError(f"the streamed drive's counted CLIs: {mods}")
+        raise AssertionError(f"the drive's counted CLIs: {mods}")
     with open(os.path.join(exp, "epoch_1.json")) as f:
         info = json.load(f)
     steps, cv = info["step"], _n_batches(data, "dev", dc)
     if steps != _n_batches(data, "train", dc) or steps < 1 \
             or not all(math.isfinite(info[k])
                        for k in ("train_loss", "cv_loss")):
-        raise AssertionError(f"the streamed drive's epoch: {info}")
+        raise AssertionError(f"the drive's epoch: {info}")
+    test_rows = _lines(os.path.join(data, "test", "format.data"))
     chunks = []
-    for row in _lines(os.path.join(data, "test", "format.data")):
+    for row in test_rows if stream else ():
         path = row.split("\t")[1].split(":", 1)[1]
         t = encoder_positions(len(audio_lib.read_audio(path)[0]))
         chunks.append(math.ceil(t / STREAM_DRIVE_CHUNK))
-    n_test = -(-len(chunks) // 64)
+    n_test = -(-len(test_rows) // 64)
     zero = {fn.__name__: 0 for fn in COUNTED}
     halo = mc["cnn_module_kernel"] - 1
     chunk_key = (STREAM_DRIVE_SLOTS, halo + STREAM_DRIVE_CHUNK,
@@ -4811,22 +4831,26 @@ class Background:
         self._thread.join()
 
 
-def streaming_drive_script(procs: list) -> dict:
+STREAM_DRIVE_CORPUS_DIR = "stream_corpus"
+
+
+def streaming_drive_script(corpus_ready: threading.Event, procs: list
+                           ) -> dict:
     """Phase 19's child processes: the hard corpus by run_recipe.sh's
-    stages 0-1 (64 / 4 / 8 utterances), then
+    stages 0-1 (64 / 4 / 8 utterances), which sets `corpus_ready` when it
+    ends (moe_drive_script waits for it), then
     openeat_torch/quality/run_streaming.sh on cuda at one epoch through
     the counted shim. Nothing of it runs in this process, so it can run
     beside phase 17's script (Background)."""
     t0 = time.perf_counter()
-    corpus = os.path.join(WORK, "stream_corpus")
+    corpus = os.path.join(WORK, STREAM_DRIVE_CORPUS_DIR)
     cmd = ["bash", os.path.join(REPO, QUALITY_SCRIPT), "--stage", "0",
            "--stop_stage", "1", "--device", "cuda", "--corpus_opts",
            STREAM_DRIVE_CORPUS, corpus, "hard"]
-    proc = subprocess.Popen(cmd, cwd=WORK, stdout=subprocess.DEVNULL,
-                            start_new_session=True)
-    procs.append(proc)
-    if proc.wait() != 0:
-        raise subprocess.CalledProcessError(proc.returncode, cmd)
+    try:
+        _child(cmd, procs)
+    finally:
+        corpus_ready.set()
     corpus_s = time.perf_counter() - t0
     work = os.path.join(WORK, "stream_work")
     count_dir = os.path.join(WORK, "stream_counts")
@@ -4899,6 +4923,159 @@ def streaming_drive(script: dict, step_ms: float, timed: dict) -> dict:
             "chunk_case": chunk, "checks_s": time.perf_counter() - t0}
 
 
+MOE_DRIVE_SCRIPT = "openeat_torch/quality/run_moe.sh"
+R3_MOE = "benchmarks/results/r3_moe_hard"
+# what the MoE leg's config must share with round 3's
+MOE_R3_KEYS = ("moe_experts", "moe_top_k", "moe_capacity_factor",
+               "moe_aux_weight", "warmup_epoch")
+
+
+def _child(cmd: list, procs: list) -> None:
+    """Run `cmd` from WORK in a session of its own, appended to `procs`
+    (Background.stop kills it); a failure raises."""
+    proc = subprocess.Popen(cmd, cwd=WORK, stdout=subprocess.DEVNULL,
+                            start_new_session=True)
+    procs.append(proc)
+    if proc.wait() != 0:
+        raise subprocess.CalledProcessError(proc.returncode, cmd)
+
+
+def moe_drive_script(corpus_ready: threading.Event, procs: list) -> dict:
+    """Phase 19's MoE leg, child processes only (Background): once
+    streaming_drive_script's hard corpus exists, run_moe.sh on cuda at
+    one epoch on it: stage 1 writes conf_moe.json, whose log interval is
+    cut to 1 so that its one step is logged, then stages 2-5 through the
+    counted shim."""
+    corpus_ready.wait()
+    corpus = os.path.join(WORK, STREAM_DRIVE_CORPUS_DIR)
+    for split, n in STREAM_DRIVE_SPLITS:
+        path = os.path.join(corpus, "data", split, "format.data")
+        if not os.path.exists(path) or len(_lines(path)) != n:
+            raise AssertionError(f"the MoE leg: no {n}-row {path}")
+    work = os.path.join(WORK, "moe_work")
+    script = os.path.join(REPO, MOE_DRIVE_SCRIPT)
+    opts = ["--max_epoch", "1", "--device", "cuda"]
+    _child(["bash", script, "--stage", "1", "--stop_stage", "1", *opts,
+            work, corpus], procs)
+    conf = os.path.join(work, "conf_moe.json")
+    cfg = load_config(conf)
+    cfg["log_interval"] = 1
+    with open(conf, "w") as f:
+        json.dump(cfg, f, indent=1)
+    count_dir = os.path.join(WORK, "moe_counts")
+    run = run_script(["bash", script, "--stage", "2", *opts, work, corpus],
+                     WORK, os.path.join(WORK, "moe_stderr.log"), count_dir,
+                     procs)
+    return {"corpus": corpus, "work": work, "count_dir": count_dir,
+            "script_s": run["wall_s"]}
+
+
+def _host_syncs(fn) -> list[str]:
+    """The synchronizing operations fn() runs on the card, each named by
+    torch.cuda.set_sync_debug_mode("warn") ("called a synchronizing CUDA
+    operation"; the mode's one warning that it is a prototype is not a
+    sync)."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return [str(w.message).split("\n")[0] for w in caught
+            if "called a synchronizing" in str(w.message)]
+
+
+def moe_host_syncs(b: int = 64, t: int = 48) -> dict:
+    """The host syncs of one MoE FFN forward and backward at the drive's
+    width (d 256, 1024 hidden, top-2 of 4, capacity 1.25, swish, bf16,
+    dropout 0.1) and step shape [b, t, 256] at world 1 on the card,
+    counted, not asserted; a count of 0 stands only where the mode then
+    names the sync of a tensor's .item()."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 18)
+    layer = MoEPositionwiseFeedForward(
+        256, 1024, 4, 2, 1.25, get_activation("swish"),
+        dtype=torch.bfloat16, dropout_rate=0.1).cuda().train()
+    set_generator(layer, gen)
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.copy_(torch.randn(p.shape, device="cuda", generator=gen)
+                    * 0.05)
+    x = torch.randn(b, t, 256, device="cuda", generator=gen,
+                    requires_grad=True)
+    mask = torch.ones(b, 1, t, dtype=torch.bool, device="cuda")
+
+    def step():
+        y, aux = layer(x, mask)
+        (y.float().sum() + aux).backward()
+
+    # the control runs after the step, in case the mode warns only once
+    syncs = _host_syncs(step)
+    if not syncs and not _host_syncs(lambda: x.sum().item()):
+        raise AssertionError("the sync debug mode missed .item()'s sync")
+    return {"shape": [b, t, 256], "syncs": len(syncs), "first": syncs[:3]}
+
+
+def moe_drive(script: dict, step_ms: float, timed: dict) -> dict:
+    """Phase 19's MoE leg, after moe_drive_script: every stage of
+    run_moe.sh at one epoch (conf_moe.json, one training step of the
+    top-2-of-4 MoE flagship at full width and batch 64, the average, the
+    greedy and rescoring decodes with their CERs) and results_moe.json
+    with round 3's keys in its order, finite; a finite loss and moe_aux
+    in every step record; the MoE keys and warmup of round 3's
+    conf_moe.yaml; hypotheses of every test key; the launches its
+    CLIs counted, by check_streaming_counts' rules without the stream;
+    every kernel at every shape they launched it at
+    (script_kernel_cases); the MoE layer's host syncs at the step's
+    shape (moe_host_syncs)."""
+    t0 = time.perf_counter()
+    corpus, work = script["corpus"], script["work"]
+    data, exp = os.path.join(corpus, "data"), os.path.join(work, "exp")
+    # the MoE keys and the warmup of round 3's config
+    moe_keys = [{k: c.get(k, c["model_conf"].get(k)) for k in MOE_R3_KEYS}
+                for c in (load_config(os.path.join(exp, "train.json")),
+                          load_config(os.path.join(REPO, R3_MOE,
+                                                   "conf_moe.yaml")))]
+    if moe_keys[0] != moe_keys[1]:
+        raise AssertionError(f"the MoE leg trained {moe_keys[0]}, round 3 "
+                             f"{moe_keys[1]}")
+    with open(os.path.join(exp, "results_moe.json")) as f:
+        res = json.load(f)
+    with open(os.path.join(REPO, R3_MOE, "results_moe.json")) as f:
+        r3 = json.load(f)
+    if list(res) != list(r3) or not all(
+            isinstance(v, float) and math.isfinite(v) for v in res.values()):
+        raise AssertionError(f"results_moe.json: {res}")
+    steps = _train_records(exp)
+    if not steps or not all(
+            math.isfinite(r["loss"]) and r.get("moe_aux") is not None
+            and math.isfinite(r["moe_aux"]) for r in steps):
+        raise AssertionError(f"the MoE leg's step records: {steps}")
+    test_keys = sorted(line.split()[0] for line in
+                       _lines(os.path.join(data, "test", "text")))
+    for tag in r3:
+        hyps = _lines(os.path.join(exp, f"hyp_{tag}.txt"))
+        if sorted(h.split(" ", 1)[0] for h in hyps) != test_keys:
+            raise AssertionError(f"hyp_{tag}.txt: {hyps}")
+    tokens = {line.split()[0] for line in
+              _lines(os.path.join(data, "dict.txt"))}
+    counted = check_streaming_counts(script_counts(script["count_dir"]),
+                                     work, corpus, stream=False)
+    cases = script_kernel_cases(counted["shapes"], len(tokens), step_ms,
+                                timed)
+    counted["shapes"] = {fn: {str(list(k)): n for k, n in by_shape.items()}
+                         for fn, by_shape in counted["shapes"].items()}
+    stage_s = [line.split("\t") for line in
+               _lines(os.path.join(work, "stage_times.tsv"))]
+    return {"script_s": script["script_s"], "host_syncs": moe_host_syncs(),
+            "command_s": {label: float(s) for _, label, s in stage_s},
+            "results": res, "moe_aux": [r["moe_aux"] for r in steps],
+            "step_losses": [r["loss"] for r in steps], "counts": counted,
+            "cases": cases, "checks_s": time.perf_counter() - t0}
+
+
 def _kernel_row(name: str, source: str, replaces: str, launches: int,
                 row: dict, prefix: str = "") -> dict:
     return {"name": name, "route": "cuda", "source": source,
@@ -4925,7 +5102,7 @@ def main() -> None:
     t_start = time.perf_counter()
     phase_s = report["phase_s"] = {}
     clock = [t_start]
-    stream_script = None
+    stream_script = moe_script = None
 
     def lap(name: str) -> None:
         """Seconds since the last lap, under `name`."""
@@ -5246,9 +5423,12 @@ def main() -> None:
         # phase 19's child processes run beside phase 17's script: both
         # are bound by their CLIs' starts; phase 17 waits for them
         # before it times a kernel
-        stream_script = Background(streaming_drive_script)
+        corpus_ready = threading.Event()
+        stream_script = Background(streaming_drive_script, corpus_ready)
+        moe_script = Background(moe_drive_script, corpus_ready)
         rs = report["recipe_script"] = recipe_script(
-            step_ms, timed, wait=stream_script.join)
+            step_ms, timed,
+            wait=lambda: (stream_script.join(), moe_script.join()))
         print("recipe_script " + json.dumps(
             {k: v for k, v in rs.items() if k not in ("step_losses",
                                                        "cases")}),
@@ -5281,9 +5461,22 @@ def main() -> None:
         print(f"streaming_drive script {sd['script_s']:.1f} s beside phase "
               f"17, checks {sd['checks_s']:.1f} s", flush=True)
         lap("streaming_drive")
+
+        # ---- slice 18: the MoE drive at one epoch on phase 19's corpus
+        # (its script ran beside phase 17's and the streamed leg's)
+        md = report["moe_drive"] = moe_drive(moe_script.join(), step_ms,
+                                             timed)
+        print("moe_drive " + json.dumps(
+            {k: v for k, v in md.items() if k != "cases"}), flush=True)
+        for name, case in md["cases"].items():
+            print(f"moe_drive {name} " + json.dumps(case), flush=True)
+        print(f"moe_drive script {md['script_s']:.1f} s beside phase 17, "
+              f"checks {md['checks_s']:.1f} s", flush=True)
+        lap("moe_drive")
     finally:
-        if stream_script is not None:
-            stream_script.stop()
+        for bg in (stream_script, moe_script):
+            if bg is not None:
+                bg.stop()
         shutil.rmtree(WORK, ignore_errors=True)
     report["wall_s"] = time.perf_counter() - t_start
 
@@ -5382,13 +5575,14 @@ def main() -> None:
             f"openeat_tpu/ops/ctc_loss.py:{line}", case["launches"], case),
             shape=case["shape"], chain_bound_ms=case["chain_bound_ms"]))
     # each kernel at the largest shape the recipe script (phase 17), the
-    # quality drive's training step (phase 18) and the streamed drive's
-    # CLIs (phase 19) launched it at, with
+    # quality drive's training step (phase 18) and the streamed and MoE
+    # drives' CLIs (phase 19) launched it at, with
     # the script's launches at all its shapes (its CLIs counted them in
     # their own processes) and the largest error over those shapes
     for phase, cases in (("recipe_script", rs["cases"]),
                          ("quality_corpus", qc["cases"]),
-                         ("streaming_drive", sd["cases"])):
+                         ("streaming_drive", sd["cases"]),
+                         ("moe_drive", md["cases"])):
         for name, case in cases.items():
             src, replaces, prefix = KERNEL_OF[name]
             row = _kernel_row(name, src, replaces, case["launches"],

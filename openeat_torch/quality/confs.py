@@ -1,7 +1,8 @@
 """The quality drive's configs. Port of the config derivations in
 benchmarks/run_recipe_tpu.sh: the profile table (`:20-58`), the synth
-training config (`:91-113`) and the LM config (`:181-186`); and of
-benchmarks/run_streaming_hard.sh's streaming config (`:44-62`).
+training config (`:91-113`) and the LM config (`:181-186`); of
+benchmarks/run_streaming_hard.sh's streaming config (`:44-62`); and of
+benchmarks/run_moe_hard.sh's mixture-of-experts config (`:42-54`).
 
 The base configs are the repo's YAML, read with the port's reader
 (openeat_torch/config.py:load_config); the derived ones are written as
@@ -11,6 +12,7 @@ JSON, which load_config reads back. No PyYAML.
     python -m openeat_torch.quality.confs train BASE PROFILE MAX_EPOCH OUT
     python -m openeat_torch.quality.confs lm BASE EPOCHS OUT
     python -m openeat_torch.quality.confs stream BASE MAX_EPOCH OUT
+    python -m openeat_torch.quality.confs moe BASE MAX_EPOCH OUT
 
 `profile` prints the profile's settings as shell assignments, which
 openeat_torch/quality/run_recipe.sh evaluates.
@@ -63,6 +65,13 @@ LOG_INTERVAL = 40
 # loss of about 29 for 35+ epochs
 STREAM_MODEL = dict(causal=True, static_chunk_size=16, num_left_chunks=-1)
 STREAM_WARMUP_EPOCH = 8
+# the MoE drive's encoder feed-forward: GShard top-2-of-4 with static
+# capacity and the Switch aux loss, the MoE keys of
+# examples/aishell/conf/train_conformer_moe.yaml. Its warmup is 8
+# epochs: at the hard profile's 2 the routed flagship never aligns
+MOE_MODEL = dict(moe_experts=4, moe_top_k=2, moe_capacity_factor=1.25,
+                 moe_aux_weight=0.01)
+MOE_WARMUP_EPOCH = 8
 
 
 def synth_train_conf(base: str, profile: str, max_epoch: int) -> dict:
@@ -100,6 +109,16 @@ def stream_train_conf(base: str, max_epoch: int) -> dict:
     return cfg
 
 
+def moe_train_conf(base: str, max_epoch: int) -> dict:
+    """The MoE drive's config: the hard profile's synth config with
+    MOE_MODEL in its model_conf and MOE_WARMUP_EPOCH; per-utterance
+    normalization stays."""
+    cfg = synth_train_conf(base, "hard", max_epoch)
+    cfg["model_conf"].update(MOE_MODEL)
+    cfg["warmup_epoch"] = MOE_WARMUP_EPOCH
+    return cfg
+
+
 def shell_assignments(profile: str) -> str:
     """The profile's settings as `name=value` lines for the shell."""
     prof = PROFILES[profile]
@@ -128,10 +147,11 @@ def main(argv=None):
     sl.add_argument("base")
     sl.add_argument("epochs", type=int)
     sl.add_argument("out")
-    ss = sub.add_parser("stream")
-    ss.add_argument("base")
-    ss.add_argument("max_epoch", type=int)
-    ss.add_argument("out")
+    for name in ("stream", "moe"):
+        ss = sub.add_parser(name)
+        ss.add_argument("base")
+        ss.add_argument("max_epoch", type=int)
+        ss.add_argument("out")
     args = p.parse_args(argv)
     if args.cmd == "profile":
         print(shell_assignments(args.profile))
@@ -140,6 +160,8 @@ def main(argv=None):
                args.out)
     elif args.cmd == "stream":
         _write(stream_train_conf(args.base, args.max_epoch), args.out)
+    elif args.cmd == "moe":
+        _write(moe_train_conf(args.base, args.max_epoch), args.out)
     else:
         _write(synth_lm_conf(args.base, args.epochs), args.out)
 

@@ -1,6 +1,6 @@
 #!/usr/bin/env bash
 # Runs a quality drive (run_recipe.sh, or with --script another drive
-# of this directory, run_streaming.sh) one stage at a time and copies
+# of this directory, run_streaming.sh or run_moe.sh) one stage at a time and copies
 # its small files into OUT after every stage, so that what a finished
 # stage wrote survives a run that is cut later: results*.json,
 # cer_*.txt, hyp_*.txt, metrics.jsonl, train.json, the epoch_N.json
@@ -13,8 +13,8 @@
 #
 # Usage: bash openeat_torch/quality/drive.sh [--script SCRIPT] WORK ARG \
 #            OUT FIRST LAST [SCRIPT options...]
-#   SCRIPT: run_recipe.sh (default; ARG is its PROFILE) or
-#           run_streaming.sh (ARG is its CORPUS_WORK)
+#   SCRIPT: run_recipe.sh (default; ARG is its PROFILE),
+#           run_streaming.sh or run_moe.sh (ARG is its CORPUS_WORK)
 set -uo pipefail
 
 script=run_recipe.sh

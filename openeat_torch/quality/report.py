@@ -4,14 +4,18 @@ test CERs and their paired deltas, int8, the adversarial splits, the
 per-epoch training curve and the gate's lines; a streamed drive
 (run_streaming.sh, whose RUN holds results_streaming.json) beside round
 3's (benchmarks/results/r3_streaming_hard/), with its three CERs, the
-paired comparison of streamed against offline rescoring and its curve.
-Each stage's seconds for either; a column (or a block of rows) per run.
+paired comparison of streamed against offline rescoring and its curve;
+a MoE drive (run_moe.sh, whose RUN holds results_moe.json) beside round
+3's MoE and dense drives (benchmarks/results/r3_moe_hard/,
+r3_recipe_hard/), with its two CERs, its curve beside r3's MoE curve,
+each run's alignment epoch and its router's aux loss. Each stage's
+seconds for any; a column (or a block of rows) per run.
 
     python -m openeat_torch.quality.report RUN [RUN ...]
 
 Each RUN is a directory openeat_torch/quality/drive.sh copied a drive's
 small files into; it is named by its last path component. The RUNs of
-one call are all lmhard drives or all streamed drives.
+one call are all lmhard drives, all streamed drives or all MoE drives.
 """
 
 from __future__ import annotations
@@ -27,7 +31,13 @@ RESULTS = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "benchmarks", "results")
 R5 = os.path.join(RESULTS, "r5_recipe_lmhard")
 R3_STREAMING = os.path.join(RESULTS, "r3_streaming_hard")
+R3_MOE = os.path.join(RESULTS, "r3_moe_hard")
+R3_DENSE = os.path.join(RESULTS, "r3_recipe_hard")
 STREAMING = "results_streaming.json"
+# the MoE drive's band: each CER within this of r3's MoE drive
+MOE_BAND = 0.5
+# train_acc past this marks CTC alignment
+ALIGNED_ACC = 0.6
 # the paired comparison whose delta each CER row shows
 PAIR_OF = {"ctc_prefix_beam_search": "greedy_vs_prefix",
            "attention_rescoring": "greedy_vs_rescoring",
@@ -125,8 +135,8 @@ def streaming(runs: list[str], names: list[str]) -> list[str]:
     return _table(["decode"] + [f"{n} CER %" for n in names + ["r3"]], rows)
 
 
-def curve(runs: list[str], names: list[str], ref: str | None = R5
-          ) -> list[str]:
+def curve(runs: list[str], names: list[str], ref: str | None = R5,
+          ref_name: str = "r5") -> list[str]:
     """train_loss / train_acc an epoch per run and in `ref`'s
     metrics.jsonl (r5's; None for none); cv_loss / cv_acc (from the
     epoch infos) and the epoch's seconds per run."""
@@ -139,7 +149,7 @@ def curve(runs: list[str], names: list[str], ref: str | None = R5
             r = ep.get(e, {})
             row.append(f"{_f(r.get('train_loss'), '{:.3f}')} / "
                        f"{_f(r.get('train_acc'), '{:.3f}')}")
-            if d != R5:
+            if d != ref:
                 info = _load(os.path.join(d, f"epoch_{e + 1}.json"))
                 row.append(f"{_f(info.get('cv_loss'), '{:.3f}')} / "
                            f"{_f(info.get('cv_acc'), '{:.3f}')}")
@@ -148,7 +158,50 @@ def curve(runs: list[str], names: list[str], ref: str | None = R5
     head = ["epoch"]
     for n in names:
         head += [f"{n} train loss / acc", f"{n} cv loss / acc", f"{n} s"]
-    return _table(head + ["r5 train loss / acc"] * len(refs), rows)
+    return _table(head + [f"{ref_name} train loss / acc"] * len(refs),
+                  rows)
+
+
+def moe(runs: list[str], names: list[str]) -> list[str]:
+    """The MoE drive's two CERs per run beside r3's MoE and dense ones,
+    and whether each lies within MOE_BAND of r3's MoE CER."""
+    got = [_load(os.path.join(d, res.MOE)) for d in runs]
+    r3 = _load(os.path.join(R3_MOE, res.MOE))
+    dense = _load(os.path.join(R3_DENSE, "results.json"))
+    rows = []
+    for tag in res.MOE_TAGS:
+        band = [("yes" if abs(g[tag] - r3[tag]) <= MOE_BAND else "no")
+                if g.get(tag) is not None else "—" for g in got]
+        rows.append([tag] + [_f(g.get(tag)) for g in got]
+                    + [_f(r3[tag]), _f(dense[tag])] + band)
+    head = (["mode"] + [f"{n} CER %" for n in names]
+            + ["r3 MoE CER %", "r3 dense CER %"]
+            + [f"{n} within {MOE_BAND} of r3 MoE" for n in names])
+    return _table(head, rows)
+
+
+def aligned_epoch(run: str) -> int | None:
+    """The first epoch whose train_acc passes ALIGNED_ACC."""
+    eps = _epochs(run)
+    return next((e for e in sorted(eps)
+                 if eps[e]["train_acc"] > ALIGNED_ACC), None)
+
+
+def moe_router(runs: list[str], names: list[str]) -> list[str]:
+    """Each run's alignment epoch and its router aux loss (`moe_aux`) at
+    the first and last logged step; r3's alignment epoch (its
+    metrics.jsonl logs no aux loss)."""
+    rows = []
+    for name, run in zip(names, runs):
+        with open(os.path.join(run, "metrics.jsonl"),
+                  encoding="utf-8") as f:
+            steps = [r for r in map(json.loads, f) if r["kind"] == "train"]
+        aux = [f"{_f(r.get('moe_aux'), '{:.4f}')} (step {r['step']})"
+               for r in steps[:1] + steps[-1:]] or ["—", "—"]
+        rows.append([name, _f(aligned_epoch(run), "{}"), aux[0], aux[-1]])
+    rows.append(["r3", _f(aligned_epoch(R3_MOE), "{}"), "—", "—"])
+    return _table(["run", f"aligned (train_acc > {ALIGNED_ACC}) at epoch",
+                   "moe_aux first", "moe_aux last"], rows)
 
 
 def stages(run: str) -> list[str]:
@@ -191,7 +244,14 @@ def main(argv=None):
         if os.path.exists(machine):
             print(f"{name}:\n\n```\n{open(machine).read().strip()}\n```\n")
     streamed = all(os.path.exists(os.path.join(r, STREAMING)) for r in runs)
-    if streamed:
+    routed = all(os.path.exists(os.path.join(r, res.MOE)) for r in runs)
+    if routed:
+        tables = (("MoE against r3's MoE and dense drives (test set)",
+                   moe),
+                  ("Alignment and router aux loss", moe_router),
+                  ("Training curve",
+                   lambda r, n: curve(r, n, ref=R3_MOE, ref_name="r3")))
+    elif streamed:
         tables = (("Streamed against offline (test set)", streaming),
                   ("Training curve",
                    lambda r, n: curve(r, n, ref=None)))
@@ -203,7 +263,7 @@ def main(argv=None):
     for title, body in tables:
         print(f"### {title}\n\n" + "\n".join(body(runs, names)) + "\n")
     for name, run in zip(names, runs):
-        if not streamed:
+        if not (streamed or routed):
             gate = gate_lines(run) or ["(stage 8 did not run)"]
             print(f"### {name}: gate\n\n```\n" + "\n".join(gate)
                   + "\n```\n")

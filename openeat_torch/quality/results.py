@@ -15,13 +15,16 @@ openeat_torch/quality/run_recipe.sh stays a thin list of stages:
   test_long into results_adversarial.json (`:306-341`);
 - streaming: the streamed drive's three CERs and its paired comparison
   of streamed against offline rescoring into results_streaming.json
-  (benchmarks/run_streaming_hard.sh `:121-138`).
+  (benchmarks/run_streaming_hard.sh `:121-138`);
+- moe: the MoE drive's two CERs into results_moe.json
+  (benchmarks/run_moe_hard.sh `:95-104`).
 
     python -m openeat_torch.quality.results collect EXP OUT TAG...
     python -m openeat_torch.quality.results significance EXP REF
     python -m openeat_torch.quality.results int8 EXP REF
     python -m openeat_torch.quality.results adversarial EXP DATA
     python -m openeat_torch.quality.results streaming EXP REF
+    python -m openeat_torch.quality.results moe EXP
 """
 
 from __future__ import annotations
@@ -54,6 +57,8 @@ STREAM_TAGS = ["offline_ctc_greedy_search", "offline_attention_rescoring",
                "streamed"]
 STREAM_PAIR = ("streamed_vs_offline_rescoring", "streamed",
                "offline_attention_rescoring")
+MOE_TAGS = ["ctc_greedy_search", "attention_rescoring"]
+MOE = "results_moe.json"
 ADVERSARIAL_PAIRS = [
     ("greedy_vs_rescoring", "ctc_greedy_search", "attention_rescoring"),
     ("rescoring_vs_ngram_fusion", "attention_rescoring", "rescoring_ngram"),
@@ -158,6 +163,14 @@ def streaming(exp_dir: str, ref: str) -> dict:
     return out
 
 
+def moe(exp_dir: str) -> dict:
+    """The MoE drive's CERs (MOE_TAGS, in that order), written to
+    exp_dir/results_moe.json."""
+    out = collect(exp_dir, MOE_TAGS, os.path.join(exp_dir, MOE))
+    print(json.dumps(out))
+    return out
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -169,6 +182,8 @@ def main(argv=None):
         s = sub.add_parser(name)
         s.add_argument("exp_dir")
         s.add_argument("ref")
+    m = sub.add_parser("moe")
+    m.add_argument("exp_dir")
     a = sub.add_parser("adversarial")
     a.add_argument("exp_dir")
     a.add_argument("data_dir")
@@ -181,6 +196,8 @@ def main(argv=None):
         int8(args.exp_dir, args.ref)
     elif args.cmd == "streaming":
         streaming(args.exp_dir, args.ref)
+    elif args.cmd == "moe":
+        moe(args.exp_dir)
     else:
         adversarial(args.exp_dir, args.data_dir)
 
