@@ -301,14 +301,20 @@
    the round-5 drive's conf_synth.yaml and conf_lm.yaml
    (benchmarks/results/r5_recipe_lmhard/, read by the port's YAML
    reader). Then openeat_torch/quality/run_recipe.sh --stage 1
-   --stop_stage 2 --max_epoch 1 --device cuda, through the counted_cli
-   shim of phase 17: dict.txt and the three format.data files, and one
-   epoch of conf_synth.json (round 5's but max_epoch) at the flagship's
-   width: one training step on the static batch of 64 and one cv batch,
-   finite losses. Its bin.train must launch K3's forward 12 times a step
-   and cv batch, its dgrad and wgrad 12 times a step, all at batch 64,
-   and K1 once a step and cv batch, K2 never; K3's forward, dgrad and
-   wgrad and K1 are checked at every shape it launched them at and timed
+   --stop_stage 1 --device cuda (dict.txt and the three format.data
+   files); openeat_torch/quality/init_draw.py's draw at the drive's
+   seed (777), written as exp/epoch_0.pt, equal bit for bit to the
+   model bin.train --max_epoch 0 builds on this host, its sha256
+   printed on a line of its own (quality_corpus init_draw); then
+   --stage 2 --stop_stage 2 --max_epoch 1 through the counted_cli shim
+   of phase 17, which resumes from that draw at step 0 (bin.train's own
+   draw at that seed, so the same step): one epoch of conf_synth.json
+   (round 5's but max_epoch) at the flagship's width, one training step
+   on the static batch of 64 and one cv batch, finite losses. Its
+   bin.train must launch K3's forward 12 times a step and cv batch,
+   its dgrad and wgrad 12 times a step, all at batch 64, and K1 once a
+   step and cv batch, K2 never; K3's forward, dgrad and wgrad and K1
+   are checked at every shape it launched them at and timed
    at the largest. The drive itself (60 epochs) is not a phase:
    openeat_torch/quality/drive.sh runs it.
 19. Streaming drive (after 18): the hard corpus at 64 / 4 / 8
@@ -395,7 +401,7 @@ from openeat_torch.bin import (average_model, convert_wenet, recognize,
 from openeat_torch.bin import serve as serve_cli
 from openeat_torch.bin import train as train_cli
 from openeat_torch.bin import train_bpe
-from openeat_torch.config import load_config
+from openeat_torch.config import TrainConfig, load_config
 from openeat_torch.dataset import audio as audio_lib
 from openeat_torch.dataset import kaldi_io
 from openeat_torch.dataset.audio import read_wav, resample, write_wav
@@ -434,6 +440,7 @@ from openeat_torch.parallel.pipeline import make_pp_loss_fn
 from openeat_torch.parallel.train_step import (TrainState, apply_update,
                                                asr_loss, build_train_step)
 from openeat_torch.pipeline import DeviceFeeder
+from openeat_torch.quality import init_draw
 from openeat_torch.runtime import native_io
 from openeat_torch.runtime.client import AsrClient
 from openeat_torch.runtime.server import recv_frame, send_json
@@ -4621,6 +4628,34 @@ def check_quality_counts(procs: list, work: str) -> dict:
             "cv_batches": cv, "epoch": info}
 
 
+def quality_init_draw(conf: str, corpus: str) -> dict:
+    """The port's own initial weights at the drive's seed, drawn on the
+    CPU by openeat_torch/quality/init_draw.py as bin.train draws them
+    and written as corpus/exp/epoch_0.pt, from which run_recipe.sh's
+    stage 2 resumes at step 0 with a fresh optimizer. The draw must
+    equal, bit for bit, the model bin.train builds for itself on this
+    host (its state after --max_epoch 0). Returns the seed, the tensor
+    and parameter counts and the state dict's sha256."""
+    seed = TrainConfig.from_dict(load_config(conf)).seed
+    data = os.path.join(corpus, "data")
+    _, state = init_draw.write_epoch0(
+        conf, os.path.join(data, "dict.txt"), seed,
+        os.path.join(corpus, "exp"))
+    own = train_cli.main([
+        "--config", conf, "--train_data",
+        os.path.join(data, "train", "format.data"), "--cv_data",
+        os.path.join(data, "dev", "format.data"), "--dict",
+        os.path.join(data, "dict.txt"), "--exp_dir",
+        os.path.join(WORK, "quality_own_draw"), "--device", "cpu",
+        "--num_workers", "1", "--max_epoch", "0"]).model.state_dict()
+    if list(own) != list(state) \
+            or not all(torch.equal(own[k], state[k]) for k in own):
+        raise AssertionError("init_draw's draw is not bin.train's own")
+    return {"seed": seed, "tensors": len(state),
+            "parameters": sum(v.numel() for v in state.values()),
+            "sha256": init_draw.state_sha256(state)}
+
+
 def quality_corpus(step_ms: float, timed: dict) -> dict:
     """Phase 18: the quality drive's corpus builder twice (byte-equal),
     its FLAC through both readers, the derived configs against round
@@ -4673,12 +4708,25 @@ def quality_corpus(step_ms: float, timed: dict) -> dict:
         if load_config(out) != load_config(os.path.join(REPO, R5_DRIVE, r5)):
             raise AssertionError(f"{out} differs from {R5_DRIVE}/{r5}")
         confs_checked.append(r5)
+    subprocess.run(["bash", os.path.join(REPO, QUALITY_SCRIPT), "--stage",
+                    "1", "--stop_stage", "1", "--device", "cuda", roots[0],
+                    "lmhard"], cwd=WORK, check=True,
+                   stdout=subprocess.DEVNULL)
+    draw = quality_init_draw(os.path.join(WORK, "conf_synth.json"),
+                             roots[0])
     count_dir = os.path.join(WORK, "quality_counts")
     run = run_script(["bash", os.path.join(REPO, QUALITY_SCRIPT), "--stage",
-                      "1", "--stop_stage", "2", "--max_epoch", "1",
+                      "2", "--stop_stage", "2", "--max_epoch", "1",
                       "--device", "cuda", roots[0], "lmhard"],
                      WORK, os.path.join(WORK, "quality_stderr.log"),
                      count_dir)
+    log = _lines(os.path.join(roots[0], "exp", "train.log"))
+    if "resuming from epoch_0" not in run["lines"] or not any(
+            f"initialized {draw['tensors']} tensors from" in line
+            for line in log) \
+            or any("restored optimizer state" in line for line in log):
+        raise AssertionError("stage 2 did not start from the writer's "
+                             "epoch-0 draw with a fresh optimizer")
     data = os.path.join(roots[0], "data")
     manifests = {}
     for split, n in QUALITY_SPLITS:
@@ -4707,7 +4755,7 @@ def quality_corpus(step_ms: float, timed: dict) -> dict:
     return {"files": len(a), "flac_files": len(flacs),
             "build_s": build_s, "confs": confs_checked,
             "dict_size": len(tokens), "manifests": manifests,
-            "script_s": run["wall_s"],
+            "init_draw": draw, "script_s": run["wall_s"],
             "command_s": {label: float(s) for _, label, s in stage_s},
             "counts": counted, "cases": cases,
             "phase_s": time.perf_counter() - t0}
@@ -5443,6 +5491,8 @@ def main() -> None:
         # ---- slice 16: the quality drive's corpus, configs and a
         # training step at its full width and batch
         qc = report["quality_corpus"] = quality_corpus(step_ms, timed)
+        print("quality_corpus init_draw " + json.dumps(qc["init_draw"]),
+              flush=True)
         print("quality_corpus " + json.dumps(
             {k: v for k, v in qc.items() if k != "cases"}), flush=True)
         for name, case in qc["cases"].items():
