@@ -1,7 +1,11 @@
 """Markdown tables of quality drives beside the JAX package's: an lmhard
 drive beside round 5's (benchmarks/results/r5_recipe_lmhard/), with the
 test CERs and their paired deltas, int8, the adversarial splits, the
-per-epoch training curve and the gate's lines; a streamed drive
+per-epoch training curve and the gate's lines, and, when a run started
+from flax's initial weights, one row a draw (`draws`: the initializer
+and seed, the early gap to r5, the alignment epoch, the gate) with the
+exact permutation chance that the port's draws train more slowly than
+flax's; a streamed drive
 (run_streaming.sh, whose RUN holds results_streaming.json) beside round
 3's (benchmarks/results/r3_streaming_hard/), with its three CERs, the
 paired comparison of streamed against offline rescoring and its curve;
@@ -21,9 +25,12 @@ one call are all lmhard drives, all streamed drives or all MoE drives.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import sys
+from fractions import Fraction
+from itertools import combinations
 
 from openeat_torch.quality import results as res
 
@@ -38,6 +45,14 @@ STREAMING = "results_streaming.json"
 MOE_BAND = 0.5
 # train_acc past this marks CTC alignment
 ALIGNED_ACC = 0.6
+# the committed lmhard runs that are one initial draw each, beside the
+# run_drawSEED (the port's init_parameters) and run_flaxSEED (flax's
+# init_params) runs: {run name: (initializer, seed)}; run_b is run_a's
+# draw again and ran no stage 8
+DRAW_RUNS = {"run_a": ("port", 777), "run_flax_init": ("flax", 777)}
+DRAW_NAME = re.compile(r"run_(draw|flax)(\d+)$")
+# the epochs whose train loss against r5's measures a draw's early gap
+GAP_EPOCHS = (2, 3, 4, 5)
 # the paired comparison whose delta each CER row shows
 PAIR_OF = {"ctc_prefix_beam_search": "greedy_vs_prefix",
            "attention_rescoring": "greedy_vs_rescoring",
@@ -187,6 +202,91 @@ def aligned_epoch(run: str) -> int | None:
                  if eps[e]["train_acc"] > ALIGNED_ACC), None)
 
 
+def draw_of(name: str) -> tuple[str, int] | None:
+    """(initializer, seed) of a run named as one draw, else None."""
+    if name in DRAW_RUNS:
+        return DRAW_RUNS[name]
+    m = DRAW_NAME.match(name)
+    return ("port" if m[1] == "draw" else "flax", int(m[2])) if m else None
+
+
+def draw_row(run: str, name: str, ref: str = R5) -> dict:
+    """One draw's row: its train loss above `ref`'s in GAP_EPOCHS and
+    their mean, its alignment epoch and its gate (stage 8's line, and
+    rescoring - greedy from results.json). A run without stage 8 is no
+    draw's row."""
+    draw = draw_of(name)
+    if draw is None:
+        raise ValueError(f"{name} is not named as one draw")
+    gate = gate_lines(run)
+    if not gate:
+        raise ValueError(f"{name}: stage 8 did not run, so it gives no "
+                         "draw's row")
+    eps, ref_eps = _epochs(run), _epochs(ref)
+    gaps = [eps[e]["train_loss"] - ref_eps[e]["train_loss"]
+            for e in GAP_EPOCHS]
+    got = _load(os.path.join(run, "results.json"))
+    return {"name": name, "init": draw[0], "seed": draw[1], "gaps": gaps,
+            "mean_gap": sum(gaps) / len(gaps),
+            "aligned": aligned_epoch(run),
+            "margin": got["attention_rescoring"] - got["ctc_greedy_search"],
+            "gate": "PASS" if gate[-1].startswith("QUALITY_GATE PASS")
+            else "FAIL"}
+
+
+def permutation_chance(port: list[float], flax: list[float]) -> Fraction:
+    """One-sided exact permutation chance that the port's draws lie above
+    flax's: over every split of the pooled values into groups of the two
+    sizes, the share whose first group's mean minus the second's is at
+    least the observed one. Ties count as at least as extreme, that is
+    against the claim."""
+    pool = list(port) + list(flax)
+    k, n = len(port), len(pool)
+
+    def stat(first):
+        rest = [pool[i] for i in range(n) if i not in first]
+        return (sum(pool[i] for i in first) / k - sum(rest) / (n - k))
+
+    observed = stat(range(k))
+    splits = list(combinations(range(n), k))
+    hits = sum(stat(first) >= observed - 1e-9 for first in splits)
+    return Fraction(hits, len(splits))
+
+
+def draws(runs: list[str], names: list[str], ref: str = R5) -> list[str]:
+    """A row a draw (draw_row) and, below, the exact one-sided
+    permutation chances (permutation_chance) that the port's draws have
+    the larger mean gap and the later alignment epoch than flax's."""
+    rows = [draw_row(run, name, ref) for run, name in zip(runs, names)]
+    lines = _table(
+        ["run", "initializer", "seed", "epochs 2-5 above r5", "mean",
+         f"aligned (train_acc > {ALIGNED_ACC}) at epoch",
+         "rescoring - greedy", "gate"],
+        [[r["name"], r["init"], str(r["seed"]),
+          " / ".join(f"{g:+.2f}" for g in r["gaps"]),
+          f"{r['mean_gap']:+.3f}", _f(r["aligned"], "{}"),
+          f"{r['margin']:+.2f}", r["gate"]] for r in rows])
+    port = [r for r in rows if r["init"] == "port"]
+    flax = [r for r in rows if r["init"] == "flax"]
+    if port and flax:
+        n, k = len(rows), len(port)
+        splits = math.comb(n, k)
+        lines.append(
+            f"\nExact one-sided permutation chance over the C({n},{k}) = "
+            f"{splits} splits of the {n} draws into groups of {k} and "
+            f"{n - k}, ties counted against the claim that the port's "
+            "draws train more slowly:")
+        for label, key in (("mean gap in epochs 2-5 (port above flax)",
+                            "mean_gap"),
+                           ("alignment epoch (port later than flax)",
+                            "aligned")):
+            p = permutation_chance([r[key] for r in port],
+                                   [r[key] for r in flax])
+            lines.append(f"- {label}: {int(p * splits)}/{splits} = "
+                         f"{float(p):.3f}")
+    return lines
+
+
 def moe_router(runs: list[str], names: list[str]) -> list[str]:
     """Each run's alignment epoch and its router aux loss (`moe_aux`) at
     the first and last logged step; r3's alignment epoch (its
@@ -260,6 +360,8 @@ def main(argv=None):
                   ("Adversarial splits (1024 utterances each)",
                    adversarial),
                   ("Training curve", curve))
+        if any((draw_of(n) or ("",))[0] == "flax" for n in names):
+            tables += (("Draws", draws),)
     for title, body in tables:
         print(f"### {title}\n\n" + "\n".join(body(runs, names)) + "\n")
     for name, run in zip(names, runs):

@@ -13,13 +13,17 @@ optimizer:
         benchmarks/results/r5_recipe_lmhard/train.yaml OUT_DIR [--seed 777]
 
 writes OUT_DIR/epoch_0.pt and OUT_DIR/epoch_0.json ({"epoch": 0,
-"step": 0}). The tests below check the same at a small width.
+"step": 0}) and prints the line `openeat_torch.quality.init_draw`
+prints for the port's own draw: the path, the seed, the tensor and
+parameter counts and the state dict's sha256 (`state_sha256`). The
+tests below check the same at a small width.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import re
 
 import jax
 import jax.numpy as jnp
@@ -34,6 +38,7 @@ from openeat_torch.bin import train
 from openeat_torch.dataset.text import load_dict
 from openeat_torch.models.asr_model import \
     build_asr_model as build_torch_model
+from openeat_torch.quality.init_draw import state_sha256
 from openeat_torch.utils import checkpoint as ckpt_lib
 from openeat_torch.utils.param_bridge import flax_to_state_dict
 from tests.make_tiny_data import build as build_tiny
@@ -83,8 +88,11 @@ def main(argv=None):
     path = write_epoch0(load_config(args.train_yaml), args.out_dir,
                         args.seed)
     state = torch.load(path, weights_only=True)
-    print(f"{path}: {len(state)} tensors, "
-          f"{sum(v.numel() for v in state.values())} parameters")
+    digest = state_sha256(state)
+    print(f"{path}: seed {args.seed}, {len(state)} tensors, "
+          f"{sum(v.numel() for v in state.values())} parameters, "
+          f"sha256 {digest}", flush=True)
+    return digest
 
 
 # ---------------------------------------------------------------- tests
@@ -165,6 +173,37 @@ def test_train_resumes_from_flax_epoch0_at_step_zero(tmp_path):
     assert (info["epoch"], info["step"]) == (1, 2)
     trained = torch.load(exp / "epoch_1.pt", weights_only=True)
     assert any(not torch.equal(trained[k], init[k]) for k in init)
+
+
+# openeat_torch.quality.init_draw's line: path, seed, counts, sha256
+DRAW_LINE = re.compile(r"^(\S+): seed (\d+), (\d+) tensors, (\d+) "
+                       r"parameters, sha256 ([0-9a-f]{64})$")
+
+
+def test_writer_prints_the_init_draw_line(tmp_path, capsys):
+    """main prints init_draw's line: a draw at --seed 778 holds other
+    tensors than 777's, and the same seed gives the same sha256 twice."""
+    conf = tmp_path / "train.json"
+    conf.write_text(json.dumps(_small_cfg()))
+    got = {}
+    for tag, seed in (("a", 778), ("b", 778), ("c", 777)):
+        digest = main([str(conf), str(tmp_path / tag), "--seed",
+                       str(seed)])
+        line = capsys.readouterr().out.strip()
+        m = DRAW_LINE.match(line)
+        assert m, line
+        state = torch.load(m[1], weights_only=True)
+        assert m[1] == str(tmp_path / tag / "epoch_0.pt")
+        assert (int(m[2]), int(m[3]), int(m[4]), m[5]) == (
+            seed, len(state), sum(v.numel() for v in state.values()),
+            digest)
+        assert digest == state_sha256(state)
+        got[tag] = digest, state
+    assert got["a"][0] == got["b"][0]
+    assert got["a"][0] != got["c"][0]
+    differ = [k for k, v in got["a"][1].items()
+              if not torch.equal(v, got["c"][1][k])]
+    assert "ctc.ctc_lo.weight" in differ
 
 
 if __name__ == "__main__":

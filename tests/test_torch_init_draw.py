@@ -7,9 +7,12 @@ the lmhard drive's full width.
   `--max_epoch 0`); its printed sha256 does not change between calls;
   `bin.train --checkpoint OUT/epoch_0.pt` starts from it at epoch 0 and
   step 0 with a fresh optimizer and the schedule's first lr; the module
-  imports no jax and nothing of openeat_tpu. The committed card runs
-  from the port's draws at 778 and 779 started from the writer's file,
-  and their README holds report.py's tables over them.
+  imports no jax and nothing of openeat_tpu; `--per_tensor` writes one
+  sha256 a tensor and `--against` groups the differing ones by the
+  in-place calls that drew them. The committed card runs from the
+  port's draws at 778 and 779 started from the writer's file, those
+  from flax's draws at 778 and 779 from the flax writer's, and their
+  README holds report.py's tables over them.
 - At the drive's width (run_a's train.json: d 256, 12 blocks, FFN 1024,
   3 + 3 decoders, vocab 54), flax's draw at PRNGKey(777) (the initial
   weights of run_flax_init) and the port's at make_generator(777)
@@ -46,7 +49,7 @@ from openeat_torch.models.asr_model import build_asr_model, init_parameters
 from openeat_torch.utils.common import make_generator
 from openeat_tpu.utils.checkpoint import _flatten
 from tests.make_tiny_data import build as build_tiny
-from tests.test_torch_flax_init import SMALL_CONF, flax_init
+from tests.test_torch_flax_init import DRAW_LINE, SMALL_CONF, flax_init
 from tests.test_torch_recognize import REPO
 
 torch.set_num_threads(1)
@@ -114,6 +117,63 @@ def test_printed_sha256_is_stable(tiny, capsys):
     other = init_draw.main([confs[777], data["dict"], "778",
                             str(root / "sha778")])
     assert other != digests[0]
+
+
+def test_per_tensor_file_has_every_key_and_is_stable(tiny):
+    """--per_tensor writes one sha256 a state-dict key, the same on two
+    calls, each that of the tensor it names."""
+    root, data, confs = tiny
+    files = []
+    for i in range(2):
+        files.append(str(root / f"per_tensor{i}.json"))
+        init_draw.main([confs[777], data["dict"], "777",
+                        str(root / f"per{i}"), "--per_tensor", files[-1]])
+    with open(files[0]) as f:
+        text = f.read()
+    with open(files[1]) as f:
+        assert f.read() == text
+    got = json.loads(text)
+    state = torch.load(root / "per0" / "epoch_0.pt", weights_only=True)
+    assert list(got) == sorted(state)
+    assert len(text.splitlines()) == len(state) + 2
+    assert got == init_draw.tensor_sha256(state)
+    assert all(len(v) == 64 for v in got.values())
+    assert len(set(got.values())) == len(got)
+
+
+def test_against_groups_the_differing_tensors_by_call(tiny, capsys):
+    """--against another per-tensor file prints, for each group of
+    in-place calls that drew a tensor, how many differ: none against
+    the same draw, the one altered entry by name otherwise; the groups
+    are init_parameters' (a truncated normal, the embeddings' normal_,
+    the rel-pos biases' uniform_, fill_ and zero_) and the recording
+    leaves the draw's bits as they are."""
+    root, data, confs = tiny
+    ref = str(root / "against.json")
+    digest = init_draw.main([confs[777], data["dict"], "777",
+                             str(root / "against"), "--per_tensor", ref])
+    capsys.readouterr()
+    with open(ref) as f:
+        theirs = json.load(f)
+    name = "ctc.ctc_lo.weight"
+    theirs[name] = "0" * 64
+    altered = str(root / "altered.json")
+    with open(altered, "w") as f:
+        json.dump(theirs, f)
+    outs = []
+    for other in (ref, altered):
+        again = init_draw.main([confs[777], data["dict"], "777",
+                                str(root / "against2"), "--against", other])
+        assert again == digest
+        outs.append(capsys.readouterr().out.splitlines()[:-1])
+    groups = {line.split(":")[0] for line in outs[0]}
+    assert {"fill_", "zero_", "normal_", "uniform_"} <= groups
+    assert len(groups) == 5
+    assert all(line.endswith(" 0 differ") for line in outs[0])
+    trunc = (groups - {"fill_", "zero_", "normal_", "uniform_"}).pop()
+    changed = [x for x in outs[1] if not x.endswith(" 0 differ")]
+    assert len(changed) == 1 and changed[0].startswith(f"{trunc}: ")
+    assert changed[0].endswith(f" 1 differ: {name}")
 
 
 def test_train_resumes_from_the_draw_at_step_zero(tiny):
@@ -192,6 +252,45 @@ def test_results_readme_holds_the_report_of_the_draw_runs(capsys,
     assert ("QUALITY_GATE FAIL: rescoring 13.99 - greedy 14.09 = -0.10 > "
             "-0.2 (rescoring must help)") in out
     assert out.count("QUALITY_GATE PASS") == 2
+
+
+def test_results_readme_holds_the_report_of_the_flax_draw_runs(
+        capsys, monkeypatch):
+    """The committed card runs from flax's draws at 778 and 779: each
+    started from the flax writer's 620-tensor draw at its seed at step
+    0, the README holds report.py's tables over all six draws with the
+    draws table and both permutation chances, and each gate line is the
+    one stage 8 printed; run_flax778 holds the card host's per-tensor
+    file of the port's draw at 777, one entry a tensor."""
+    root = os.path.dirname(os.path.dirname(RUN_A))
+    for seed in (778, 779):
+        run = os.path.join(root, f"run_flax{seed}")
+        with open(os.path.join(run, "init_draw.txt")) as f:
+            m = DRAW_LINE.match(f.readline().strip())
+        assert m and (int(m[2]), int(m[3]), int(m[4])) == (
+            seed, 620, 27248290)
+        with open(os.path.join(run, "train_log_head.txt")) as f:
+            assert "initialized 620 tensors from WORK/exp/epoch_0.pt" \
+                in f.read()
+        with open(os.path.join(run, "epoch_0.json")) as f:
+            assert json.load(f) == {"epoch": 0, "step": 0}
+    with open(os.path.join(root, "run_flax778", "host777",
+                           "per_tensor_777_native.json")) as f:
+        per_tensor = json.load(f)
+    assert len(per_tensor) == 620
+    monkeypatch.chdir(root)
+    report.main(["run_a", "run_flax_init", "run_draw778", "run_draw779",
+                 "run_flax778", "run_flax779"])
+    out = capsys.readouterr().out
+    with open(os.path.join(root, "README.md"), encoding="utf-8") as f:
+        assert out in f.read()
+    assert "### Draws" in out and "C(6,3) = 20 splits" in out
+    assert "- mean gap in epochs 2-5 (port above flax): 2/20" in out
+    assert "- alignment epoch (port later than flax): 14/20" in out
+    assert ("QUALITY_GATE FAIL: rescoring 14.49 - greedy 14.56 = -0.07 > "
+            "-0.2 (rescoring must help)") in out
+    assert out.count("QUALITY_GATE PASS") == 3
+    assert out.count("QUALITY_GATE FAIL") == 3
 
 
 # ------------------------------------- the initializers at full width
