@@ -58,6 +58,15 @@
    below T' x 40 ms. In float32 the encoder output and CTC log-probs
    match a CPU run of the same model (plain path) within ENC_TOL, greedy
    tokens agreeing wherever the CPU top-2 margin exceeds 10 x ENC_TOL.
+   In float32 and bfloat16, every utterance's CTC searches on the card
+   against the port's python oracle (openeat_torch/decode/numpy_ref.py)
+   on the same log-probs: greedy tokens equal, and the prefix beam's
+   best prefix at beam 10 equal with its score within 1e-4 (either of
+   the oracle's two best where they lie within 1e-4, none where the
+   oracle's prefix is longer than max_hyp_len); in bf16 the beam search
+   and its oracle take the log-probs in float64 less 1e-3 x seeded
+   uniform noise, since the bf16 head's exact ties let the two prune
+   apart. Prints agree / ties / capped and the oracle's time.
    The KV cache against recompute: the cached attention search gives
    the full-prefix search's tokens on both batches, decoder_step along
    a fixed prefix matches decoder_logits within ENC_TOL, and its first 4
@@ -411,7 +420,7 @@ from openeat_torch.dataset.dataset import (AudioCollate, AudioDataset,
                                            PrefetchLoader)
 from openeat_torch.dataset.text import (load_dict, remove_punctuation,
                                         token_ids_to_text, tokenize)
-from openeat_torch.decode import attention_beam
+from openeat_torch.decode import attention_beam, numpy_ref
 from openeat_torch.decode.attention_beam import recognize as attention_decode
 from openeat_torch.decode.ctc_greedy import ctc_greedy_search
 from openeat_torch.decode.rescoring import (attention_rescoring,
@@ -468,6 +477,8 @@ N_UTTS = 16
 BATCH = 8
 VOCAB = 4233
 ENC_TOL = 2e-3  # float32 GPU vs CPU, TF32 off: summation order only
+ORACLE_TOL = 1e-4  # prefix beam score vs the python oracle, as the tests
+ORACLE_NOISE = 1e-3  # bf16 log-probs' tie-breaking noise (oracle_checks)
 
 
 def repo_config(rel: str, **cuts) -> dict:
@@ -785,6 +796,96 @@ def compare_with_cpu(cfg_path: str, ckpt: str, manifest: str,
             or res["ctc_logp_max_abs_err"] > ENC_TOL \
             or res["greedy_disagreements"]:
         raise AssertionError(f"GPU decode path disagrees with CPU: {res}")
+    return res
+
+
+def oracle_checks(cfg_path: str, ckpt: str, manifest: str,
+                  dict_path: str) -> dict:
+    """Every utterance's CTC searches on the card against the port's
+    plain python oracle (openeat_torch/decode/numpy_ref.py) on the same
+    log-probs: ctc_greedy_search's tokens equal ctc_greedy_ref's, and
+    ctc_prefix_beam_search's best prefix equals ctc_prefix_beam_ref's at
+    BEAM with its score within ORACLE_TOL (relative and absolute). Where
+    the oracle's two best scores lie within ORACLE_TOL (a tie) either
+    prefix is accepted; an oracle prefix longer than MAX_HYP_LEN
+    (capped) is not compared. Counts agree / ties / capped and times
+    the oracle.
+
+    In bfloat16 the CTC head's logits are bf16: a frame's log-probs
+    tie often (`tied_frames`: frames whose top BEAM + 1 holds a tie),
+    and since every CTC path takes one log-prob a frame, the score gap
+    between two paths is a sum of logit gaps on bf16's coarse grid, so
+    distinct prefixes tie exactly as well. The search and the oracle
+    break such ties in different orders (a stable top-k against numpy's
+    argsort, float32 against python floats), and their beams prune
+    apart. So in bfloat16 the prefix beam search and its oracle both
+    take the log-probs in float64 less ORACLE_NOISE x uniform [0, 1)
+    noise drawn from SEED on the card, which leaves no two paths equal
+    and every near-tie far above float64's rounding; greedy takes the
+    decode's own log-probs in both dtypes (argmax takes the first
+    maximum on both sides)."""
+    cfg = json.load(open(cfg_path))
+    dtype = cfg["model_conf"]["compute_dtype"]
+    gpu = recognize.load_model(cfg, ckpt, VOCAB, torch.device("cuda"))
+    ds = AudioDataset(manifest, load_dict(dict_path), batch_size=BATCH)
+    feeder = DeviceFeeder(PrefetchLoader(ds, AudioCollate()),
+                          FrontendConfig(), torch.device("cuda"), BATCH)
+    res = {"utterances": 0, "greedy_equal": 0, "agree": 0, "ties": 0,
+           "capped": 0, "frames": 0, "tied_frames": 0, "oracle_s": 0.0}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    with torch.inference_mode():
+        for _, batch in feeder:
+            enc, lens = gpu.encode(batch["features"],
+                                   batch["features_length"])
+            lp = gpu.ctc_log_probs(enc)
+            assert torch.isfinite(lp).all(), f"{dtype}: non-finite log-probs"
+            hyps, hyp_lens = ctc_greedy_search(lp, lens)
+            top = lp.topk(BEAM + 1, dim=-1).values
+            valid = (torch.arange(lp.shape[1], device=lp.device)
+                     < lens[:, None])
+            res["frames"] += int(valid.sum())
+            res["tied_frames"] += int(((top[..., 1:] == top[..., :-1])
+                                       .any(dim=-1) & valid).sum())
+            beam_lp = lp
+            if dtype == "bfloat16":
+                beam_lp = lp.double() - ORACLE_NOISE * torch.rand(
+                    lp.shape, generator=gen, dtype=torch.float64,
+                    device=lp.device)
+            nbest, nbest_lens, scores = ctc_prefix_beam_search(
+                beam_lp, lens, beam_size=BEAM, max_hyp_len=MAX_HYP_LEN)
+            lp_host = lp.cpu().numpy()
+            beam_host = beam_lp.cpu().numpy()
+            lens = lens.cpu().tolist()
+            hyps, hyp_lens = hyps.cpu(), hyp_lens.cpu().tolist()
+            nbest, nbest_lens = nbest.cpu(), nbest_lens.cpu().tolist()
+            scores = scores.cpu().tolist()
+            for i, n in enumerate(lens):
+                t0 = time.perf_counter()
+                want_greedy = numpy_ref.ctc_greedy_ref(lp_host[i], n)
+                ref = numpy_ref.ctc_prefix_beam_ref(beam_host[i], n, BEAM)
+                res["oracle_s"] += time.perf_counter() - t0
+                utt = res["utterances"]
+                res["utterances"] += 1
+                got_greedy = hyps[i, :hyp_lens[i]].tolist()
+                if got_greedy != want_greedy:
+                    raise AssertionError(
+                        f"{dtype} utterance {utt}: ctc_greedy_search "
+                        f"{got_greedy} != oracle {want_greedy}")
+                res["greedy_equal"] += 1
+                if len(ref[0][0]) > MAX_HYP_LEN:
+                    res["capped"] += 1
+                    continue
+                got = (tuple(nbest[i, 0, :nbest_lens[i][0]].tolist()),
+                       scores[i][0])
+                tie = ref[0][1] - ref[1][1] <= ORACLE_TOL
+                ok = [(p, s) for p, s in ref[:2 if tie else 1]
+                      if p == got[0] and abs(got[1] - s)
+                      <= ORACLE_TOL + ORACLE_TOL * abs(s)]
+                if not ok:
+                    raise AssertionError(
+                        f"{dtype} utterance {utt}: prefix beam best {got} "
+                        f"not the oracle's {ref[:2]}")
+                res["ties" if tie else "agree"] += 1
     return res
 
 
@@ -5319,6 +5420,11 @@ def main() -> None:
                                                 dict_path)
         print("cpu_parity " + json.dumps(report["cpu_parity"]), flush=True)
         lap("decode_cpu_parity")
+        report["oracle"] = {dt: oracle_checks(cfg, ckpt, manifest, dict_path)
+                            for dt, cfg in (("float32", cfg32),
+                                            ("bfloat16", cfg16))}
+        print("oracle " + json.dumps(report["oracle"]), flush=True)
+        lap("decode_oracle")
         report["attention_cache"] = attention_cache_checks(
             cfg32, ckpt, manifest, dict_path)
         print("attention_cache " + json.dumps(report["attention_cache"]),

@@ -336,12 +336,35 @@ def build_asr_model(model_conf: dict, input_size: int, vocab_size: int,
     )
 
 
+def _norm_cdf(x: float) -> float:
+    return (1.0 + math.erf(x / math.sqrt(2.0))) / 2.0
+
+
 def _trunc_normal_(p: torch.Tensor, fan_in: int,
                    gen: torch.Generator) -> None:
     """flax's lecun_normal: a normal truncated at 2 standard deviations,
-    its scale corrected so the variance is 1 / fan_in."""
+    its scale corrected so the variance is 1 / fan_in.
+
+    Drawn by the inverse CDF, as `jax.random.truncated_normal` draws:
+    one `uniform_` over [2 Phi(a) - 1, 2 Phi(b) - 1], then `erfinv_`,
+    the scale, the mean and a clamp to [a, b]. The calls are written
+    out, in torch 2.11's order and arithmetic, because
+    `nn.init.trunc_normal_` changed between torch 2.11 (this sequence)
+    and 2.13 (rejection sampling, which also takes a different number
+    of draws from the generator), so a seed gave different weights on
+    the two. Written out, a seed gives the same bits on every torch
+    whose `erfinv_` rounds alike: the AVX2 and AVX512 CPU kernels agree
+    with each other, the scalar kernel (ATEN_CPU_CAPABILITY=default)
+    does not."""
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-    nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std, generator=gen)
+    mean, a, b = 0.0, -2 * std, 2 * std
+    lo = _norm_cdf((a - mean) / std)
+    hi = _norm_cdf((b - mean) / std)
+    p.uniform_(2 * lo - 1, 2 * hi - 1, generator=gen)
+    p.erfinv_()
+    p.mul_(std * math.sqrt(2.0))
+    p.add_(mean)
+    p.clamp_(min=a, max=b)
 
 
 @torch.no_grad()

@@ -21,7 +21,10 @@ that two hosts' draws can be compared tensor by tensor; `--against
 FILE` (another host's such file) then prints, for each group of
 in-place calls that drew a tensor (`uniform_ erfinv_ mul_ add_ clamp_`
 for a truncated normal, `normal_`, `uniform_`, `fill_`, `zero_`), how
-many of its tensors differ.
+many of its tensors differ. The truncated-normal group is the port's
+own sequence (`_trunc_normal_` in openeat_torch/models/asr_model.py),
+no longer torch's sampler, so the draw at a seed is the same under
+torch 2.11 and 2.13 on an AVX2 or AVX512 CPU.
 """
 
 from __future__ import annotations
