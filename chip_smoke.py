@@ -107,11 +107,9 @@
 8. Overfit: 30 steps on one repeated 8-utterance batch (dropout 0,
    SpecAugment off); the mean loss of the last 5 must be below 0.9 x
    the first.
-9. Training breakdown at the flagship bf16 setting: frontend, forward,
-   backward, clip+optimizer per step (host clock around synchronized
-   work), the device's idle share over 5 steps (torch.profiler), peak
-   memory and audio seconds trained per second.
-10. Streaming (before 7-9), the streaming Conformer of examples/aishell/
+9. (No phase: the training rate, its layers and the device's idle share
+   are perfbench's, `python3 -m perfbench.run`.)
+10. Streaming (before 7-8), the streaming Conformer of examples/aishell/
    conf/train_conformer_streaming.yaml (causal convs, dynamic chunks;
    static chunk 16 with 4 left chunks for the offline reference) at full
    width with seeded random weights, float32, chunks of 16 positions
@@ -169,8 +167,7 @@
    the same model through the MoE drive's script at its static batch of
    64.) One float32 MoE FFN at full
    width on the card against the CPU: output within MOE_TOL of max |y|,
-   aux within 1e-5, the same kept pairs, some dropped. After 9, the
-   training breakdown once more for the MoE model beside the dense one.
+   aux within 1e-5, the same kept pairs, some dropped.
 13. Distributed paths, in child processes of this script: (b) runs
    beside 12, (a) after it. (a) bin.train of the flagship in float32 with dropout 0 on 30
    training utterances, alone and as a one-rank NCCL world (the loss
@@ -266,8 +263,8 @@
    float32 and bfloat16: forward and dgrad bit-equal to the plain
    versions, wgrad by the rules of 2, with times, bounds and library
    times. Launches at each shape are what the wrappers counted at that
-   shape in the training run. Last, the training breakdown of 9 for this model (3
-   timed steps), whose one profiled step must name the K3 wrappers'
+   shape in the training run. Last, one profiled bf16 train step of
+   this model, which must name the train step's spans, the K3 wrappers'
    regions, the K3 kernels and a CTC kernel.
 
 17. Recipe script (after 16): openeat_torch/examples/aishell/run.sh
@@ -446,8 +443,7 @@ from openeat_torch.ops.frontend import (FrontendConfig, augment_features,
 from openeat_torch.modules.feed_forward import MoEPositionwiseFeedForward
 from openeat_torch.parallel import mesh as mesh_lib
 from openeat_torch.parallel.pipeline import make_pp_loss_fn
-from openeat_torch.parallel.train_step import (TrainState, apply_update,
-                                               asr_loss, build_train_step)
+from openeat_torch.parallel.train_step import TrainState, build_train_step
 from openeat_torch.pipeline import DeviceFeeder
 from openeat_torch.quality import init_draw
 from openeat_torch.runtime import native_io
@@ -461,6 +457,7 @@ from openeat_torch.utils.optim import build_optimizer
 from openeat_torch.utils.quantize import quantized_bytes
 from openeat_torch.utils.wenet_convert import convert_wenet_config
 from openeat_torch.utils.wer import corpus_wer
+from perfbench.trace import union_length
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, ".smoke_work")
@@ -479,6 +476,9 @@ VOCAB = 4233
 ENC_TOL = 2e-3  # float32 GPU vs CPU, TF32 off: summation order only
 ORACLE_TOL = 1e-4  # prefix beam score vs the python oracle, as the tests
 ORACLE_NOISE = 1e-3  # bf16 log-probs' tie-breaking noise (oracle_checks)
+# the spans a train step opens (openeat_torch/utils/profiling.py:span)
+STEP_SPANS = ("openeat.step.forward", "openeat.step.backward",
+              "openeat.step.update", "openeat.step.sync")
 
 
 def repo_config(rel: str, **cuts) -> dict:
@@ -1024,7 +1024,10 @@ def _device_kernel_events(prof) -> list:
 
 
 def _device_busy_us(prof) -> float:
-    return sum(e.duration_ns() for e in _device_kernel_events(prof)) / 1e3
+    """The union of the device's kernel and copy intervals (streams that
+    overlap count once)."""
+    return union_length([(e.start_ns(), e.start_ns() + e.duration_ns())
+                         for e in _device_kernel_events(prof)]) / 1e3
 
 
 def _top_level_host_ops(prof) -> int:
@@ -2656,23 +2659,19 @@ def overfit(manifest: str, dict_path: str, steps: int = 30) -> dict:
     return {"losses": losses, "ratio_last5_over_first": ratio}
 
 
-def train_breakdown(manifest: str, dict_path: str, n_steps: int = 6,
-                    train_config: dict = TRAIN_CONFIG, bpe=None,
-                    n_profiled: int = 5, **overrides) -> dict:
-    """Per step at `train_config`'s setting (the flagship's by default:
-    bf16, dropout 0.1, SpecAugment; `overrides` of its model_conf, e.g.
-    the MoE keys; one whole dynamic batch a step, whatever its
-    accum_grad): host collate, frontend, forward, backward,
-    clip+optimizer from host clocks around synchronized work (first step
-    left out as warm-up), then the device's idle share over `n_profiled`
-    profiled steps."""
+def profiled_step_names(manifest: str, dict_path: str, train_config: dict,
+                        bpe=None) -> set:
+    """The names in the profile of one bf16 train step of `train_config`'s
+    model (dropout 0.1, SpecAugment) on the first dynamic batch of
+    `manifest`, after one unprofiled step: its host events (the train
+    step's spans, the kernel wrappers' regions) and its device kernels."""
     dev = torch.device("cuda")
     char_dict = load_dict(dict_path)
     conf = dict(train_config["model_conf"], compute_dtype="bfloat16",
-                dropout_rate=0.1, **overrides)
+                dropout_rate=0.1)
     model = build_asr_model(conf, 80, len(char_dict))
     init_parameters(model, make_generator(SEED))
-    model.to(dev).train()
+    model.to(dev)
     dc = train_config["dataset_conf"]
     ds = AudioDataset(manifest, char_dict, bpe,
                       max_length=dc["max_length"],
@@ -2681,72 +2680,16 @@ def train_breakdown(manifest: str, dict_path: str, n_steps: int = 6,
     fe = FrontendConfig.from_collate_conf(train_config["collate_conf"])
     opt, schedule = build_optimizer(model, 1e-3, 4)
     state = TrainState(model, opt)
+    step = build_train_step(schedule, 1, 5.0)
     gen = make_generator(SEED, dev)
-    set_generator(model, gen)
-    order = [i % len(ds) for i in range(n_steps)]
-    t0 = time.perf_counter()
-    hosts = [AudioCollate()(ds[i])[1] for i in order]
-    out = {"host_collate_s_per_batch": (time.perf_counter() - t0) / n_steps}
-
-    def one_step(host, lap):
-        b = _features(host, dev, fe, True, gen)
-        lap("frontend")
-        metrics = asr_loss(model, b)
-        lap("forward")
-        opt.zero_grad(set_to_none=True)
-        metrics["loss"].backward()
-        lap("backward")
-        apply_update(state, schedule, 5.0)
-        lap("clip_optimizer")
-        return float(b["features_length"].sum()) * 0.01
-
-    torch.cuda.reset_peak_memory_stats()
-    stages: dict[str, list] = {}
-    audio_s = wall_s = 0.0
-    for i, host in enumerate(hosts):
-        run = {}
-        torch.cuda.synchronize()
-        clock = [time.perf_counter()]
-
-        def lap(name):
-            torch.cuda.synchronize()
-            now = time.perf_counter()
-            run[name] = now - clock[0]
-            clock[0] = now
-
-        start = clock[0]
-        seconds = one_step(host, lap)
-        if i == 0:
-            continue
-        wall_s += time.perf_counter() - start
-        audio_s += seconds
-        for k, v in run.items():
-            stages.setdefault(k, []).append(v)
-    out["stage_s_per_step"] = {k: statistics.median(v)
-                               for k, v in stages.items()}
-    out["s_per_step"] = wall_s / (n_steps - 1)
-    out["audio_s_per_s"] = audio_s / wall_s
-    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    batch = _features(AudioCollate()(ds[0])[1], dev, fe, True, gen)
+    step(state, batch, gen)
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        step(state, batch, gen)
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for host in hosts[1:1 + n_profiled]:
-            one_step(host, lambda name: None)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    busy_us = _device_busy_us(prof)
-    # the kernel wrappers' regions and the kernels the steps ran
-    out["trace_names"] = sorted({e.name() for e in _raw_events(prof)
-                                 if "dwconv1d" in e.name()
-                                 or "ctc_dp" in e.name()})
-    out["profiled_steps"] = len(hosts[1:1 + n_profiled])
-    out["profiled_wall_s"] = wall_us / 1e6
-    out["device_busy_s"] = busy_us / 1e6
-    out["device_idle_share"] = 1.0 - busy_us / wall_us if busy_us else None
-    out["batches"] = [list(h["wav"].shape) for h in hosts]
-    return out
+    return {e.name() for e in _raw_events(prof)}
 
 
 # ---------------------------------------------------------------- moe
@@ -4170,20 +4113,19 @@ def librispeech(step_ms: float) -> dict:
                               "wgrad": k3_wgrad.get(key, 0)}})
     out["k31_cases"] = cases
     lap("k31_cases")
-    # the training breakdown; its profile of one train step must name the
+    # the profile of one train step must name the train step's spans, the
     # K3 wrappers' regions, the K3 kernels and a CTC kernel
-    out["breakdown"] = train_breakdown(
-        corpus["train"], dict_path, n_steps=4, train_config=LS_TRAIN_CONFIG,
-        bpe=bpe, n_profiled=1)
-    names = set(out["breakdown"].pop("trace_names"))
+    names = profiled_step_names(corpus["train"], dict_path, LS_TRAIN_CONFIG,
+                                bpe)
     out["trace_names"] = sorted(n for n in names
-                                if "dwconv1d" in n or "ctc_dp" in n)
+                                if "dwconv1d" in n or "ctc_dp" in n
+                                or n.startswith("openeat."))
     if not {"openeat_dwconv1d_fwd", "openeat_dwconv1d_dgrad",
-            "openeat_dwconv1d_wgrad"} <= names or not all(
+            "openeat_dwconv1d_wgrad", *STEP_SPANS} <= names or not all(
             any(k in n for n in out["trace_names"]) for k in (
                 "dwconv1d_kernel<", "dwconv1d_wgrad_kernel<", "ctc_dp_")):
         raise AssertionError(f"the profile's names {out['trace_names']}")
-    lap("breakdown")
+    lap("profiled_step")
     return out
 
 
@@ -5536,14 +5478,6 @@ def main() -> None:
         report["overfit"] = overfit(train_data, dict_path)
         print("overfit " + json.dumps(report["overfit"]), flush=True)
         lap("gpu_vs_cpu_overfit")
-        report["train_breakdown"] = train_breakdown(train_data, dict_path)
-        print("train_breakdown " + json.dumps(report["train_breakdown"]),
-              flush=True)
-        report["moe_breakdown"] = train_breakdown(train_data, dict_path,
-                                                  **MOE_KEYS)
-        print("moe_breakdown " + json.dumps(report["moe_breakdown"]),
-              flush=True)
-        lap("train_breakdowns")
 
         # ---- slice 11: WeNet pre-trained fine-tuning
         report["finetune"] = finetune(manifest, dict_path, train_data,

@@ -30,6 +30,7 @@ from openeat_torch.dataset.manifest import (Utterance, parse_manifest,
 from openeat_torch.dataset.text import text_to_token_ids
 from openeat_torch.runtime import native_io
 from openeat_torch.utils.common import IGNORE_ID
+from openeat_torch.utils.profiling import span
 
 logger = logging.getLogger("openeat_torch")
 IO_THREADS = 8          # the native reader's threads a batch
@@ -267,7 +268,10 @@ class PrefetchLoader:
     --multihost run, as the JAX loader splits them between processes:
     every shard draws the same order, wraps it around to a multiple of
     num_shards, and takes every num_shards-th batch from shard_id, so
-    every shard yields the same number of batches."""
+    every shard yields the same number of batches.
+
+    The wait for a batch's collate is the span `openeat.loader.wait`
+    (utils/profiling.py)."""
 
     def __init__(self, dataset, collate, num_workers: int = 4,
                  prefetch: int = 4, shuffle_batches: bool = False,
@@ -311,4 +315,6 @@ class PrefetchLoader:
                 if nxt is not None:
                     pending.append(pool.submit(self.collate,
                                                self.dataset[int(nxt)]))
-                yield fut.result()
+                with span("openeat.loader.wait"):
+                    batch = fut.result()
+                yield batch

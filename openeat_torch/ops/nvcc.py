@@ -12,7 +12,6 @@ kernel.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import hashlib
 import os
@@ -21,7 +20,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
-import torch
+from openeat_torch.utils.profiling import span
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -33,12 +32,10 @@ _loaded: dict[str, ctypes.CDLL] = {}
 
 
 def launch_region(entry: str):
-    """A torch.profiler region named `entry` (the C entry point a
-    wrapper calls) while a profiler runs; no region otherwise, so an
-    unprofiled launch pays nothing for it."""
-    if getattr(torch.autograd.profiler, "_is_profiler_enabled", True):
-        return torch.profiler.record_function(entry)
-    return contextlib.nullcontext()
+    """The span `entry` (the C entry point a wrapper calls): a
+    torch.profiler region while a profiler runs, no region otherwise, so
+    an unprofiled launch pays nothing for it."""
+    return span(entry)
 
 
 def find_nvcc() -> str:

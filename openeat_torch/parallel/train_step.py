@@ -25,6 +25,11 @@ is read on the host, one sync per step. A mixture-of-experts model's
 `moe_aux` enters the training loss at moe_aux_weight (make_loss_fn's
 rule); the eval step leaves it out.
 
+Spans (utils/profiling.py): `openeat.step.forward` and
+`openeat.step.backward` around each micro-batch's loss and backward,
+`openeat.step.update` around apply_update, and within it
+`openeat.step.sync` around the host's read of the norm.
+
 On a mesh (openeat_torch/parallel/mesh.py) each rank's loss is its share
 of the global batch's (tensor_parallel.py), and after accumulation one
 flat sum all-reduce of every gradient over the data group gives every
@@ -51,6 +56,7 @@ from torch import nn
 from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 from openeat_torch.modules.dropout import set_generator
+from openeat_torch.utils.profiling import span
 
 
 @dataclass
@@ -93,8 +99,10 @@ def _loss_and_grads(model: nn.Module, batch: dict, accum_grad: int,
               for i in range(accum_grad)])
     sums: dict[str, torch.Tensor] = {}
     for mb in micro:
-        metrics = loss_fn(model, mb)
-        metrics["loss"].backward()
+        with span("openeat.step.forward"):
+            metrics = loss_fn(model, mb)
+        with span("openeat.step.backward"):
+            metrics["loss"].backward()
         for k, v in metrics.items():
             v = v.detach().float()
             sums[k] = sums[k] + v if k in sums else v
@@ -127,27 +135,29 @@ def apply_update(state: TrainState, schedule: Callable[[int], float],
     """Sum the gradients the parameters hold over the mesh's data group,
     clip them and take the optimizer step, or skip it on a non-finite
     norm. Returns (norm, applied)."""
-    params = [p for p in state.model.parameters() if p.requires_grad]
-    for p in params:
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-    grads = [p.grad for p in params]
-    if mesh is not None:
-        flat = _flatten_dense_tensors(grads)
-        dist.all_reduce(flat, group=mesh.data_group)
-        for g, r in zip(grads, _unflatten_dense_tensors(flat, grads)):
-            g.copy_(r)
-    gnorm = _global_norm(params, mesh)
-    finite = bool(torch.isfinite(gnorm))
-    if finite:
-        scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-12),
-                            max=1.0)
-        torch._foreach_mul_(grads, scale)
-        for group in state.optimizer.param_groups:
-            group["lr"] = schedule(state.n_applied)
-        state.optimizer.step()
-        state.n_applied += 1
-    state.step += 1
+    with span("openeat.step.update"):
+        params = [p for p in state.model.parameters() if p.requires_grad]
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in params]
+        if mesh is not None:
+            flat = _flatten_dense_tensors(grads)
+            dist.all_reduce(flat, group=mesh.data_group)
+            for g, r in zip(grads, _unflatten_dense_tensors(flat, grads)):
+                g.copy_(r)
+        gnorm = _global_norm(params, mesh)
+        with span("openeat.step.sync"):
+            finite = bool(torch.isfinite(gnorm))
+        if finite:
+            scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-12),
+                                max=1.0)
+            torch._foreach_mul_(grads, scale)
+            for group in state.optimizer.param_groups:
+                group["lr"] = schedule(state.n_applied)
+            state.optimizer.step()
+            state.n_applied += 1
+        state.step += 1
     return gnorm.detach(), finite
 
 

@@ -30,6 +30,7 @@ import torch
 from openeat_torch.ops.frontend import (FrontendConfig, augment_features,
                                         compute_features)
 from openeat_torch.utils.common import make_generator
+from openeat_torch.utils.profiling import span
 
 
 def pad_rows(batch: dict, multiple: int) -> dict:
@@ -52,7 +53,11 @@ class DeviceFeeder:
 
     pad_batch_multiple (times accum_grad) rounds the batch up by
     repeating utterances (the keys are not padded, so the extra rows are
-    never written), which keeps the set of batch shapes small."""
+    never written), which keeps the set of batch shapes small.
+
+    A batch's padding, split, copies to the device and frontend are the
+    span `openeat.feed` (utils/profiling.py); the wait for the loader is
+    not."""
 
     def __init__(self, loader: Iterable, frontend: FrontendConfig,
                  device: torch.device, pad_batch_multiple: int = 1,
@@ -86,42 +91,49 @@ class DeviceFeeder:
         return [(x[i], lens[i], None if batch_lens is None
                  else batch_lens[i]) for i in range(self.accum_grad)]
 
+    def _to_device(self, batch: dict, gen) -> dict:
+        """One host batch on the device: padded, split for accumulation,
+        this rank's rows, copied, and through the frontend."""
+        accum = self.accum_grad > 1
+        batch = pad_rows(batch, self.pad_batch_multiple
+                         * self.accum_grad)
+        if accum:
+            batch = self._split_accum(batch)
+        wav_in = "wav" in batch
+        len_key = "wav_lens" if wav_in else "features_length"
+        batch_lens, rows = None, slice(None)
+        if self.mesh is not None:
+            batch_lens = torch.from_numpy(batch[len_key]).to(
+                self.device)
+            rows = self.mesh.rows(batch[len_key].shape[-1])
+            batch = {k: v[:, rows] if accum else v[rows]
+                     for k, v in batch.items()}
+        dev = {k: torch.from_numpy(v).to(self.device)
+               for k, v in batch.items()}
+        if wav_in:
+            parts = [compute_features(w, l, self.frontend, self.train,
+                                      gen, bl, rows)
+                     for w, l, bl in self._micro(
+                         dev["wav"], dev["wav_lens"], batch_lens)]
+        else:
+            parts = [(augment_features(f, l, self.frontend, self.train,
+                                       gen, bl, rows), l)
+                     for f, l, bl in self._micro(
+                         dev["features"], dev["features_length"],
+                         batch_lens)]
+        feats, flens = ([torch.stack(x) for x in zip(*parts)] if accum
+                        else parts[0])
+        out = {"features": feats, "features_length": flens}
+        if "targets" in dev:
+            out["targets"] = dev["targets"]
+            out["targets_length"] = dev["targets_length"]
+        return out
+
     def __iter__(self) -> Iterator[tuple[list, dict]]:
         gen = (make_generator(self.seed + self.epoch, self.device)
                if self.train else None)
         self.epoch += 1
-        accum = self.accum_grad > 1
         for keys, batch in self.loader:
-            batch = pad_rows(batch, self.pad_batch_multiple
-                             * self.accum_grad)
-            if accum:
-                batch = self._split_accum(batch)
-            wav_in = "wav" in batch
-            len_key = "wav_lens" if wav_in else "features_length"
-            batch_lens, rows = None, slice(None)
-            if self.mesh is not None:
-                batch_lens = torch.from_numpy(batch[len_key]).to(
-                    self.device)
-                rows = self.mesh.rows(batch[len_key].shape[-1])
-                batch = {k: v[:, rows] if accum else v[rows]
-                         for k, v in batch.items()}
-            dev = {k: torch.from_numpy(v).to(self.device)
-                   for k, v in batch.items()}
-            if wav_in:
-                parts = [compute_features(w, l, self.frontend, self.train,
-                                          gen, bl, rows)
-                         for w, l, bl in self._micro(
-                             dev["wav"], dev["wav_lens"], batch_lens)]
-            else:
-                parts = [(augment_features(f, l, self.frontend, self.train,
-                                           gen, bl, rows), l)
-                         for f, l, bl in self._micro(
-                             dev["features"], dev["features_length"],
-                             batch_lens)]
-            feats, flens = ([torch.stack(x) for x in zip(*parts)] if accum
-                            else parts[0])
-            out = {"features": feats, "features_length": flens}
-            if "targets" in dev:
-                out["targets"] = dev["targets"]
-                out["targets_length"] = dev["targets_length"]
+            with span("openeat.feed"):
+                out = self._to_device(batch, gen)
             yield keys, out

@@ -2,9 +2,10 @@
 
 `train` runs one epoch of train steps, keeps the running loss and
 accuracy over the steps whose loss is finite, logs every log_interval
-steps, and appends records to metrics.jsonl; `cv` is the no-grad loop,
-weighted by batch size. Running sums stay on the device; the host reads
-them at log points and at the end.
+steps, and appends records to metrics.jsonl; each step with its running
+sums is the span `openeat.step` (utils/profiling.py). `cv` is the
+no-grad loop, weighted by batch size. Running sums stay on the device;
+the host reads them at log points and at the end.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch.distributed as dist
 
 from openeat_torch.parallel.tensor_parallel import global_count, global_sum
 from openeat_torch.parallel.train_step import TrainState
+from openeat_torch.utils.profiling import span
 
 
 class Executor:
@@ -51,15 +53,16 @@ class Executor:
         run_loss = run_acc = run_ok = frames = 0.0
         t0 = time.time()
         for i, batch in enumerate(batches):
-            metrics = self.train_step(state, batch, generator,
-                                      chunk_generator)
-            loss = metrics["loss"]
-            ok = torch.isfinite(loss)
-            run_loss = run_loss + torch.where(ok, loss, 0.0)
-            run_acc = run_acc + torch.where(ok, metrics["acc"], 0.0)
-            run_ok = run_ok + ok.float()
-            frames = frames + batch["features_length"].sum()
-            n_batches += 1
+            with span("openeat.step"):
+                metrics = self.train_step(state, batch, generator,
+                                          chunk_generator)
+                loss = metrics["loss"]
+                ok = torch.isfinite(loss)
+                run_loss = run_loss + torch.where(ok, loss, 0.0)
+                run_acc = run_acc + torch.where(ok, metrics["acc"], 0.0)
+                run_ok = run_ok + ok.float()
+                frames = frames + batch["features_length"].sum()
+                n_batches += 1
             if (i + 1) % self.log_interval == 0:
                 lr = (self.schedule(state.n_applied) if self.schedule
                       else float("nan"))
