@@ -371,7 +371,10 @@ kernel once more at the largest shape the recipe script of phase 17
 the quality drive's step of phase 18 and the streamed and MoE drives'
 CLIs of phase 19 launched it at, with that run's launches at all its shapes,
 `shape_launches` listing them, and the largest error over them;
-`phase` names the run; and K3 at phase 19's chunk step) and the JSON
+`phase` names the run; K3 at phase 19's chunk step; and the update's
+four multi-tensor kernels at each benchmark configuration's parameter
+list, with the launches of slice 2's bf16 training and of the LibriSpeech
+phase's profiled steps, which count them from 0) and the JSON
 result. Details go to
 chiprun_out/chip_smoke.json.
 """
@@ -436,6 +439,7 @@ from openeat_torch.modules.layers import Dense
 from openeat_torch.ops import ctc_loss as ctc
 from openeat_torch.ops import depthwise_conv as dw
 from openeat_torch.ops import fbank as fbank_mod
+from openeat_torch.ops import multi_tensor as mt
 from openeat_torch.ops import nvcc
 from openeat_torch.ops.ctc_parallel import ctc_loss_parallel
 from openeat_torch.ops.frontend import (FrontendConfig, augment_features,
@@ -2069,6 +2073,234 @@ def _n_copies(nbytes: int) -> int:
     return max(2, min(64, math.ceil(2 * L2_BYTES / nbytes)))
 
 
+# ---------------------------------------------------- multi-tensor update
+
+MT_CONFIGS = ("perfbench/configs/aishell_conformer.json",
+              "perfbench/configs/librispeech_conformer.json")
+MT_REPS = 20
+
+
+def _mt_tables(path: str, gen: torch.Generator) -> dict:
+    """The parameter list of a benchmark configuration's model on the
+    card, twice (kernel, plain) with the same random values: parameters,
+    Adam moments at step 3 (every parameter but the first LayerNorm's,
+    which stands for a frozen one), and the micro-batch gradients the
+    gather takes (bfloat16 for a matrix or a bias, float32 for a
+    LayerNorm or an embedding, none for every 50th parameter)."""
+    with open(os.path.join(REPO, path)) as f:
+        conf = json.load(f)
+    model = build_asr_model(conf["model_conf"], 80, conf["vocab_size"])
+    params = [p.detach().cuda() for p in model.parameters()]
+    names = [n for n, _ in model.named_parameters()]
+    del model
+    frozen = next(i for i, n in enumerate(names) if n.endswith("norm.weight"))
+
+    def rand(shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    values = [rand(p.shape, 0.05) for p in params]
+    moments = [None if i == frozen else (rand(p.shape, 1e-3),
+                                         rand(p.shape, 1e-3).square())
+               for i, p in enumerate(params)]
+    direct = [("norm" in n and n.endswith(("weight", "bias")))
+              or "embed" in n for n in names]
+    grads16, grads32 = [], []
+    for i, p in enumerate(params):
+        skip = i % 50 == 49
+        g = rand(p.shape, 1e-2)
+        grads16.append(None if skip or direct[i] else g.bfloat16())
+        grads32.append(g if direct[i] and not skip else None)
+
+    def table():
+        ps = [v.clone() for v in values]
+        mo = [None if m is None else (m[0].clone(), m[1].clone())
+              for m in moments]
+        return mt.ParamTable(ps, mo)
+
+    return {"kernel": table(), "plain": table(), "g16": grads16,
+            "g32": grads32, "numel": sum(p.numel() for p in params),
+            "trainable": sum(p.numel() for p, m in zip(params, moments)
+                             if m is not None),
+            "n_params": len(params),
+            "bf16_grad_elems": sum(g.numel() for g in grads16
+                                   if g is not None),
+            "f32_grad_elems": sum(g.numel() for g in grads32
+                                  if g is not None)}
+
+
+def multi_tensor_case(path: str, gen: torch.Generator) -> dict:
+    """The three multi-tensor kernels against their plain versions (run
+    on the card too) at a benchmark configuration's parameter list, and
+    their device times beside their byte bounds: the gather of four
+    micro-batches (the last divides by 4: bits equal), the norm (relative
+    1e-6: double in fixed slices against float32 a tensor), Adam at step
+    3 (relative 1e-6 on each tensor's largest element; the mirror equal to
+    the kernel's own parameters cast, the frozen one's as the mirror pass
+    wrote it first) and the mirror pass; and the device times of the
+    library calls that do the norm, Adam and the mirror's copy."""
+    c = _mt_tables(path, gen)
+    k, pl = c["kernel"], c["plain"]
+    g16, g32 = c["g16"], c["g32"]
+    counts0 = (mt.gather.launches, mt.global_norm.launches,
+               mt.adam.launches, mt.write_mirror.launches)
+    mt.write_mirror(k)   # as a mirror's build writes it
+    mt.write_mirror_plain(pl)
+    for first, accum in ((True, 1), (False, 1), (False, 1), (False, 4)):
+        mt.gather(k, g16, g32, first, accum)
+        mt.gather_plain(pl, g16, g32, first, accum)
+    torch.cuda.synchronize()
+    gather_equal = torch.equal(k.acc, pl.acc)
+    out_k = mt.global_norm(k, 5.0)
+    out_p = mt.global_norm_plain(pl, 5.0)
+    norm_rel = abs(float(out_k[0]) - float(out_p[0])) / float(out_p[0])
+    h = mt.AdamHyper.of(1e-3, (0.9, 0.999), 1e-8, 0.0, False, 3.0)
+    mt.adam(k, out_k[1], h)
+    mt.adam_plain(pl, out_k[1], h)
+    torch.cuda.synchronize()
+
+    def worst(xs, ys):
+        return max(float((x - y).abs().max()) / max(float(y.abs().max()),
+                                                      1e-30)
+                   for x, y in zip(xs, ys))
+
+    adam_rel = {
+        "param": worst(k.params, pl.params),
+        "exp_avg": worst([m[0] for m in k.moments if m],
+                         [m[0] for m in pl.moments if m]),
+        "exp_avg_sq": worst([m[1] for m in k.moments if m],
+                            [m[1] for m in pl.moments if m])}
+    mirror_equal = all(torch.equal(cp, p.to(torch.bfloat16))
+                       for cp, p in zip(k.copies, k.params))
+    frozen_kept = all(torch.equal(a, b) for a, b, m in
+                      zip(k.params, pl.params, k.moments) if m is None)
+    k.mirror.zero_()
+    mt.write_mirror(k)
+    torch.cuda.synchronize()
+    write_equal = all(torch.equal(cp, p.to(torch.bfloat16))
+                      for cp, p in zip(k.copies, k.params))
+    launches = [a - b for a, b in zip(
+        (mt.gather.launches, mt.global_norm.launches, mt.adam.launches,
+         mt.write_mirror.launches), counts0)]
+    ok = (gather_equal and norm_rel <= 1e-6 and mirror_equal and write_equal
+          and frozen_kept and max(adam_rel.values()) <= 1e-6
+          and launches == [4, 1, 1, 2])
+    # device time: MT_REPS calls queued behind a sleep of the device, so
+    # that the host's launches (the gather's 1,240 addresses) are out of
+    # it (the flat buffers, 130-180 MB, are past the 50 MB L2)
+    n, n16, n32 = c["numel"], c["bf16_grad_elems"], c["f32_grad_elems"]
+    # the one-call library forms the port never makes, on the plain
+    # table's lists: Adam without the clip and the mirror (28 bytes a
+    # parameter), the norm of the per-tensor norms, a copy of each
+    # parameter into its bf16 slice; none adds bf16 and f32 gradients
+    # into one f32 accumulator
+    live = [i for i, m in enumerate(pl.moments) if m is not None]
+    steps = [torch.tensor(3.0, device="cuda") for _ in live]
+
+    def fused_adam():
+        torch._fused_adam_(
+            [pl.params[i] for i in live], [pl.grads[i] for i in live],
+            [pl.moments[i][0] for i in live],
+            [pl.moments[i][1] for i in live], [], steps, lr=1e-3,
+            beta1=0.9, beta2=0.999, weight_decay=0.0, eps=1e-8,
+            amsgrad=False, maximize=False)
+
+    def foreach_norm():
+        return torch.linalg.vector_norm(
+            torch.stack(torch._foreach_norm(pl.grads)))
+
+    norm_abs = abs(float(out_k[0]) - float(out_p[0]))
+    adam_abs = max(float((x - y).abs().max())
+                   for x, y in zip(k.params, pl.params))
+    times = {
+        "gather": (lambda: mt.gather(k, g16, g32, False, 1),
+                   lambda: mt.gather_plain(pl, g16, g32, False, 1), None,
+                   2 * n16 + 4 * n32 + 8 * (n16 + n32),
+                   0.0 if gather_equal else math.inf),
+        "norm": (lambda: mt.global_norm(k, 5.0),
+                 lambda: mt.global_norm_plain(pl, 5.0), foreach_norm, 4 * n,
+                 norm_abs),
+        "adam": (lambda: mt.adam(k, out_k[1], h),
+                 lambda: mt.adam_plain(pl, out_k[1], h), fused_adam,
+                 30 * c["trainable"], adam_abs),
+        "mirror": (lambda: mt.write_mirror(k),
+                   lambda: mt.write_mirror_plain(pl),
+                   lambda: torch._foreach_copy_(pl.copies, pl.params), 6 * n,
+                   0.0 if write_equal else math.inf)}
+    rows = {}
+    for name, (kern, plain, library, nbytes, err) in times.items():
+        kern_ms = queued_ms(kern, MT_REPS)
+        plain_ms = event_ms(plain, 3)
+        # device time too, behind a longer sleep: a library call may
+        # launch a kernel a tensor
+        library_ms = (None if library is None else
+                      queued_ms(library, MT_REPS, 1_000_000_000))
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        rows[name] = {"ms": kern_ms, "bound_ms": bound_ms,
+                      "x_bound": kern_ms / bound_ms, "plain_ms": plain_ms,
+                      "library_ms": library_ms, "bytes": nbytes,
+                      "bound_by": "bytes", "max_abs_err": err}
+    return {"config": os.path.basename(path), "ok": ok,
+            "n_params": c["n_params"], "elements": n,
+            "trainable": c["trainable"], "gather_equal": gather_equal,
+            "norm_rel": norm_rel, "adam_rel": adam_rel,
+            "mirror_equal": mirror_equal, "write_equal": write_equal,
+            "frozen_kept": frozen_kept, "launches": launches,
+            "times": rows}
+
+
+def queued_ms(fn, reps: int, sleep_cycles: int = 100_000_000) -> float:
+    """Device time a call of `fn` (host launches), timed by events around
+    `reps` calls that the host queued while the device slept (about 50
+    ms); raises if the host did not get ahead."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    done = torch.cuda.Event()
+    torch.cuda._sleep(sleep_cycles)
+    done.record()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    if done.query():
+        raise AssertionError("the host's launches outlasted the sleep")
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def multi_tensor_cases() -> list:
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = []
+    for path in MT_CONFIGS:
+        row = multi_tensor_case(path, gen)
+        print("multi_tensor " + json.dumps(row), flush=True)
+        rows.append(row)
+        torch.cuda.empty_cache()
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"multi-tensor kernels differ: {bad}")
+    return rows
+
+
+def multi_tensor_role() -> None:
+    """This phase alone (python3 chip_smoke.py multi_tensor): the build
+    of csrc/multi_tensor.cu with its ptxas report, then the cases, into
+    chiprun_out/multi_tensor.json."""
+    print(card_line(), flush=True)
+    t0 = time.perf_counter()
+    nvcc.build_libraries([mt.SOURCE])
+    report = {"card": card_line(), "torch": torch.__version__,
+              "build_s": time.perf_counter() - t0,
+              "ptxas": nvcc.ptxas_entries(nvcc.build_log(mt.SOURCE))}
+    for e in report["ptxas"]:
+        print(f"ptxas {mt.SOURCE} {json.dumps(e)}", flush=True)
+    report["cases"] = multi_tensor_cases()
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "multi_tensor.json"), "w") as f:
+        json.dump(report, f, indent=1)
+
+
 # ---------------------------------------------------------- K3 backward
 
 def dwconv_grad_case(b: int, tp: int, c: int, k: int, dtype, gen,
@@ -2488,6 +2720,33 @@ def _reset_counts() -> None:
 
 def _counts() -> dict:
     return {fn.__name__: fn.launches for fn in COUNTED}
+
+
+# the update's multi-tensor kernels (ops/multi_tensor.py), counted apart:
+# they have no shapes
+MT_COUNTED = (mt.gather, mt.global_norm, mt.adam, mt.write_mirror)
+
+
+def _reset_mt_counts() -> None:
+    for fn in MT_COUNTED:
+        fn.launches = 0
+
+
+def _mt_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in MT_COUNTED}
+
+
+def check_mt_counts(counts: dict, steps: int, micro: int) -> None:
+    """The weight mirror's launches over `steps` bf16 Adam train steps of
+    `micro` micro-batches without a mesh: a gather a micro-batch, a norm
+    a step, Adam at most a step (a non-finite norm skips it) and at least
+    once, and the mirror's first write."""
+    if counts["gather"] != steps * micro \
+            or counts["global_norm"] != steps \
+            or not 0 < counts["adam"] <= steps \
+            or not counts["write_mirror"]:
+        raise AssertionError(f"multi-tensor kernels launched {counts} over "
+                             f"{steps} steps of {micro} micro-batches")
 
 
 def run_training(train_data: str, cv_data: str, dict_path: str) -> dict:
@@ -4115,13 +4374,19 @@ def librispeech(step_ms: float) -> dict:
     lap("k31_cases")
     # the profile of one train step must name the train step's spans, the
     # K3 wrappers' regions, the K3 kernels and a CTC kernel
+    # (two steps, one micro-batch each, through the weight mirror)
+    _reset_mt_counts()
     names = profiled_step_names(corpus["train"], dict_path, LS_TRAIN_CONFIG,
                                 bpe)
+    out["mt_launches"] = _mt_counts()
+    check_mt_counts(out["mt_launches"], 2, 1)
     out["trace_names"] = sorted(n for n in names
                                 if "dwconv1d" in n or "ctc_dp" in n
-                                or n.startswith("openeat."))
+                                or n.startswith(("openeat.", "openeat_mt")))
     if not {"openeat_dwconv1d_fwd", "openeat_dwconv1d_dgrad",
-            "openeat_dwconv1d_wgrad", *STEP_SPANS} <= names or not all(
+            "openeat_dwconv1d_wgrad", *STEP_SPANS, "openeat.step.mirror",
+            "openeat_mt_gather", "openeat_mt_norm",
+            "openeat_mt_adam"} <= names or not all(
             any(k in n for n in out["trace_names"]) for k in (
                 "dwconv1d_kernel<", "dwconv1d_wgrad_kernel<", "ctc_dp_")):
         raise AssertionError(f"the profile's names {out['trace_names']}")
@@ -5203,7 +5468,7 @@ def main() -> None:
 
     try:
         t0 = time.perf_counter()
-        sources = [dw.SOURCE, ctc.SOURCE]
+        sources = [dw.SOURCE, ctc.SOURCE, mt.SOURCE]
         nvcc.build_libraries(sources)
         report["build_s"] = time.perf_counter() - t0
         report["ptxas"] = {s: nvcc.ptxas_entries(nvcc.build_log(s))
@@ -5227,6 +5492,7 @@ def main() -> None:
         if spilled:
             raise AssertionError(f"kernels spill: {spilled}")
 
+        report["multi_tensor"] = multi_tensor_cases()
         rng = np.random.default_rng(SEED)
         manifest, dict_path, durations = write_corpus(rng)
         train_data, cv_data, train_audio_s = write_train_corpus(rng)
@@ -5379,9 +5645,13 @@ def main() -> None:
 
         # ---- slice 2: training through the entry point
         _reset_counts()
+        _reset_mt_counts()
         train_run = run_training(train_data, cv_data, dict_path)
         train_counts = _counts()
         check_train_counts(train_run, train_counts)
+        train_run["mt_launches"] = _mt_counts()
+        check_mt_counts(train_run["mt_launches"], train_run["n_train_steps"],
+                        TRAIN_CONFIG.get("accum_grad", 1))
         train_run["launches"] = train_counts
         train_run["audio_s_per_epoch"] = train_audio_s
         report["train_run"] = train_run
@@ -5692,6 +5962,19 @@ def main() -> None:
                     chunk["launches"], chunk),
         shape=chunk["shape"], k=chunk["k"], dtype=chunk["dtype"],
         copy_ms=chunk["copy_ms"], phase="streaming_drive"))
+    # the update's multi-tensor kernels at each benchmark configuration's
+    # parameter list, with the launches of a bf16 Adam training without a
+    # mesh: the flagship's bin.train runs (slice 2) beside AIShell's list,
+    # the LibriSpeech phase's two profiled steps beside LibriSpeech's
+    for case, (counts, phase) in zip(
+            report["multi_tensor"], ((train_run["mt_launches"], "train_run"),
+                                     (ls["mt_launches"], "profiled_step"))):
+        for name, fn in (("gather", "gather"), ("norm", "global_norm"),
+                         ("adam", "adam"), ("mirror", "write_mirror")):
+            kernels.append(dict(_kernel_row(
+                f"mt_{name}", "openeat_torch/csrc/multi_tensor.cu",
+                "none: optax's clip + adam, one XLA program", counts[fn],
+                case["times"][name]), config=case["config"], phase=phase))
     report["kernels"] = kernels
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
@@ -5705,7 +5988,7 @@ def main() -> None:
 
 
 ROLES = {"dist_world1": dist_world1_role, "dist_rank": dist_rank_role,
-         "counted_cli": counted_cli}
+         "counted_cli": counted_cli, "multi_tensor": multi_tensor_role}
 
 if __name__ == "__main__":
     import sys

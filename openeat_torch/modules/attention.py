@@ -31,6 +31,7 @@ from openeat_torch.modules.dropout import Dropout
 from openeat_torch.modules.layers import Dense
 from openeat_torch.parallel import tensor_parallel as tp
 from openeat_torch.utils.mask import NEG_INF
+from openeat_torch.utils.weight_mirror import at_compute
 
 
 def _softmax_context(scores: torch.Tensor, v: torch.Tensor,
@@ -161,8 +162,8 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
         b, t, _ = q.shape
         q = q.view(b, t, self.h, self.d_k)
         p = self._split(proj(self.linear_pos, pos_emb.to(q.dtype)))
-        u = self.pos_bias_u.to(q.dtype)
-        vb = self.pos_bias_v.to(q.dtype)
+        u = at_compute(self.pos_bias_u, q.dtype)
+        vb = at_compute(self.pos_bias_v, q.dtype)
         q2 = torch.cat([q + u, q + vb], dim=-1).transpose(1, 2)
         k2 = torch.cat([k, p.expand_as(k)], dim=-1)
         return torch.matmul(q2, k2.transpose(-1, -2)).float() \

@@ -11,6 +11,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from openeat_torch.utils.weight_mirror import at_compute
+
 
 class GlobalCMVN(nn.Module):
     def __init__(self, dim: int, norm_var: bool = True):
@@ -20,7 +22,7 @@ class GlobalCMVN(nn.Module):
         self.norm_var = norm_var
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = x - self.mean.to(x.dtype)
+        out = x - at_compute(self.mean, x.dtype)
         if self.norm_var:
-            out = out * self.istd.to(x.dtype)
+            out = out * at_compute(self.istd, x.dtype)
         return out

@@ -27,6 +27,7 @@ from torch import nn
 from openeat_torch.modules.layers import Dense, LayerNorm
 from openeat_torch.ops.depthwise_conv import depthwise_conv1d
 from openeat_torch.parallel import tensor_parallel as tp
+from openeat_torch.utils.weight_mirror import at_compute
 
 
 class DepthwiseConv1d(nn.Module):
@@ -42,8 +43,8 @@ class DepthwiseConv1d(nn.Module):
     def forward(self, x_padded: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         y = depthwise_conv1d(x_padded.to(dt).contiguous(),
-                             self.weight.to(dt).contiguous())
-        return y + self.bias.to(dt)
+                             at_compute(self.weight, dt).contiguous())
+        return y + at_compute(self.bias, dt)
 
 
 class ConvolutionModule(nn.Module):

@@ -22,6 +22,7 @@ from torch import nn
 from openeat_torch.modules.dropout import Dropout
 from openeat_torch.modules.layers import Dense, LayerNorm
 from openeat_torch.parallel import tensor_parallel as tp
+from openeat_torch.utils.weight_mirror import at_compute
 
 
 class PositionwiseFeedForward(nn.Module):
@@ -179,10 +180,12 @@ class MoEPositionwiseFeedForward(nn.Module):
         xc = tp.copy_to_group(x.reshape(s, d), self.tp_group).to(dt)
         buf = xc.new_zeros(trash + 1, d).index_put(
             (dest.reshape(-1),), xc[:, None].expand(s, k, d).reshape(-1, d))
-        h = torch.bmm(buf[:trash].view(e_local, cap, d), self.w_in.to(dt)) \
-            + self.b_in.to(dt)[:, None, :]
+        h = torch.bmm(buf[:trash].view(e_local, cap, d),
+                      at_compute(self.w_in, dt)) \
+            + at_compute(self.b_in, dt)[:, None, :]
         h = self.dropout(self.activation(h))
-        out = torch.bmm(h, self.w_out.to(dt)) + self.b_out.to(dt)[:, None, :]
+        out = torch.bmm(h, at_compute(self.w_out, dt)) \
+            + at_compute(self.b_out, dt)[:, None, :]
         out = torch.cat([out.reshape(trash, d), out.new_zeros(1, d)])
 
         # combine: each token's k outputs weighted by its gates
@@ -225,5 +228,5 @@ class Adapter(nn.Module):
         h = F.relu(self.down_proj(self.norm(x)))
         h = self.up_proj(self.dropout(h, shard))
         h = self.out_dropout(h, shard)
-        return (self.scale.to(h.dtype) * h if self.learned_scale
+        return (at_compute(self.scale, h.dtype) * h if self.learned_scale
                 else self.scalar * h)

@@ -2,10 +2,13 @@
 and cast, together with the input, to the compute dtype at use.
 
 These stand in for flax.linen's Dense, LayerNorm, Conv and Embed in the
-ported modules. Weights are in PyTorch's layout (Linear [out, in], Conv2d
-[out, in, kh, kw]); openeat_torch/utils/param_bridge.py converts from
-flax's. A Dense or Embed that openeat_torch/parallel/mesh.py shards over
-the mesh's model group holds its shard and runs the sharded forward of
+ported modules. A cast goes through utils/weight_mirror.py:at_compute,
+which inside a training step's forward hands out the weight mirror's
+bfloat16 copy of the parameter instead of casting it. Weights are in
+PyTorch's layout (Linear [out, in], Conv2d [out, in, kh, kw]);
+openeat_torch/utils/param_bridge.py converts from flax's. A Dense or
+Embed that openeat_torch/parallel/mesh.py shards over the mesh's model
+group holds its shard and runs the sharded forward of
 openeat_torch/parallel/tensor_parallel.py; unsharded, tp_mode is None.
 """
 
@@ -16,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from openeat_torch.parallel import tensor_parallel as tp
+from openeat_torch.utils.weight_mirror import at_compute
 
 
 class Dense(nn.Linear):
@@ -37,7 +41,7 @@ class Dense(nn.Linear):
     def dense_weight(self) -> torch.Tensor:
         """The weight [out, in] in the compute dtype."""
         if self.q is None:
-            return self.weight.to(self.compute_dtype)
+            return at_compute(self.weight, self.compute_dtype)
         return (self.q.float() * self.scale[:, None]).to(self.compute_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -51,7 +55,7 @@ class Dense(nn.Linear):
         the bias (which the caller adds once, after the sum)."""
         dt = self.compute_dtype
         bias = (None if self.bias is None or self.tp_mode == "row"
-                else self.bias.to(dt))
+                else at_compute(self.bias, dt))
         return F.linear(x.to(dt), self.dense_weight(), bias)
 
 
@@ -77,8 +81,8 @@ class Conv2d(nn.Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return F.conv2d(x.to(dt), self.weight.to(dt), self.bias.to(dt),
-                        self.stride)
+        return F.conv2d(x.to(dt), at_compute(self.weight, dt),
+                        at_compute(self.bias, dt), self.stride)
 
 
 class Embed(nn.Embedding):
@@ -98,4 +102,4 @@ class Embed(nn.Embedding):
         if self.tp_group is not None:
             return tp.embed_attend(self, x)
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt))
+        return F.linear(x.to(dt), at_compute(self.weight, dt))

@@ -25,10 +25,24 @@ is read on the host, one sync per step. A mixture-of-experts model's
 `moe_aux` enters the training loss at moe_aux_weight (make_loss_fn's
 rule); the eval step leaves it out.
 
+Without a mesh, a model that computes in bfloat16 and an Adam or AdamW
+optimizer take the weight mirror's path (utils/weight_mirror.py), which
+the train step keeps on its TrainState (`state.mirror`): the forward
+reads a bfloat16 copy of the weights that the update wrote, one launch
+a micro-batch gathers the gradients into a float32 accumulator
+(dividing by accum_grad after the last), and the update is one launch
+of the norm, the norm's read and one launch of the clip and Adam, which
+writes the copy. The rules above hold on both paths. _loss_and_grads
+called without the mirror, as the benchmark's breakdown calls it, leaves
+the gradients on the parameters, and apply_update then takes the step's
+own path.
+
 Spans (utils/profiling.py): `openeat.step.forward` and
-`openeat.step.backward` around each micro-batch's loss and backward,
-`openeat.step.update` around apply_update, and within it
-`openeat.step.sync` around the host's read of the norm.
+`openeat.step.backward` (with the mirror's gather) around each
+micro-batch's loss and backward, `openeat.step.update` around
+apply_update, and within it `openeat.step.sync` around the host's read
+of the norm and, on the mirror's path, `openeat.step.mirror` around the
+launch that writes the parameters and the mirror.
 
 On a mesh (openeat_torch/parallel/mesh.py) each rank's loss is its share
 of the global batch's (tensor_parallel.py), and after accumulation one
@@ -56,6 +70,7 @@ from torch import nn
 from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 from openeat_torch.modules.dropout import set_generator
+from openeat_torch.utils import weight_mirror
 from openeat_torch.utils.profiling import span
 
 
@@ -65,6 +80,8 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     step: int = 0        # steps taken, applied or skipped
     n_applied: int = 0   # updates applied; drives the learning rate
+    # the bfloat16 weight mirror (utils/weight_mirror.py:for_step)
+    mirror: weight_mirror.WeightMirror | None = None
 
 
 def asr_metrics(model: nn.Module, batch: dict) -> dict[str, torch.Tensor]:
@@ -93,20 +110,32 @@ def reduce_metrics(metrics: dict, mesh) -> dict:
 
 
 def _loss_and_grads(model: nn.Module, batch: dict, accum_grad: int,
-                    loss_fn: Callable) -> dict[str, torch.Tensor]:
+                    loss_fn: Callable,
+                    mirror: weight_mirror.WeightMirror | None = None
+                    ) -> dict[str, torch.Tensor]:
+    """The metrics over the micro-batches, their mean gradients on the
+    parameters; the forward reads `mirror` and the gradients go through
+    its accumulator where one is given."""
     micro = ([batch] if accum_grad == 1 else
              [{k: v[i] for k, v in batch.items()}
               for i in range(accum_grad)])
+    if mirror is not None:
+        mirror.begin()
     sums: dict[str, torch.Tensor] = {}
-    for mb in micro:
-        with span("openeat.step.forward"):
+    for i, mb in enumerate(micro):
+        with span("openeat.step.forward"), weight_mirror.reading(mirror):
             metrics = loss_fn(model, mb)
         with span("openeat.step.backward"):
             metrics["loss"].backward()
+            if mirror is not None:
+                last = i == len(micro) - 1
+                mirror.gather(first=i == 0, accum=accum_grad if last else 1)
         for k, v in metrics.items():
             v = v.detach().float()
             sums[k] = sums[k] + v if k in sums else v
-    if accum_grad > 1:
+    if mirror is not None:
+        mirror.hand_over()
+    elif accum_grad > 1:
         for p in model.parameters():
             if p.grad is not None:
                 p.grad.div_(accum_grad)
@@ -134,8 +163,18 @@ def apply_update(state: TrainState, schedule: Callable[[int], float],
                  grad_clip: float, mesh=None) -> tuple[torch.Tensor, bool]:
     """Sum the gradients the parameters hold over the mesh's data group,
     clip them and take the optimizer step, or skip it on a non-finite
-    norm. Returns (norm, applied)."""
+    norm; the fused update of `state.mirror` where its accumulator holds
+    them. Returns (norm, applied)."""
     with span("openeat.step.update"):
+        mirror = state.mirror
+        if mirror is not None and mirror.pending:
+            lr = schedule(state.n_applied)
+            gnorm, finite = mirror.update(lr, grad_clip)
+            if finite:
+                state.optimizer.param_groups[0]["lr"] = lr
+                state.n_applied += 1
+            state.step += 1
+            return gnorm.detach(), finite
         params = [p for p in state.model.parameters() if p.requires_grad]
         for p in params:
             if p.grad is None:
@@ -184,7 +223,8 @@ def build_train_step(schedule: Callable[[int], float], accum_grad: int = 1,
         model.train()
         set_generator(model, generator, chunk_generator)
         model.zero_grad(set_to_none=True)
-        metrics = _loss_and_grads(model, batch, accum_grad, loss_fn)
+        mirror = weight_mirror.for_step(state, mesh)
+        metrics = _loss_and_grads(model, batch, accum_grad, loss_fn, mirror)
         gnorm, applied = apply_update(state, schedule, grad_clip, mesh)
         metrics = reduce_metrics(metrics, mesh)
         metrics["grad_norm"] = gnorm
